@@ -1,0 +1,56 @@
+"""Architecture-config registry.
+
+Port of ``src/repro/configs/base.py``: each architecture module defines an
+:class:`ArchConfig` with its published model config, a reduced smoke
+config of the same family and its TNN variant; ``--arch <id>`` resolves
+through :func:`get`.  Only the paper's own ``paper_atis_tt`` is ported so
+far; the other architectures are queued in ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Any, Callable
+
+from repro_torch.core.tensorized import TNNConfig
+
+#: architectures this package has ported
+ARCH_IDS = ["paper_atis_tt"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    id: str
+    family: str                     # dense | ...
+    model_kind: str                 # "lm"
+    make_model: Callable[..., Any]  # (tnn: TNNConfig|None) -> LMConfig
+    make_smoke: Callable[..., Any]  # reduced same-family config
+    notes: str = ""
+    tnn_default: TNNConfig = TNNConfig(
+        enabled=True, method="tt", rank=64, num_factors=2, targets=("mlp",),
+        backend="einsum")
+
+    def model(self, tnn: TNNConfig | None = None):
+        return self.make_model(tnn=tnn)
+
+    def smoke(self, tnn: TNNConfig | None = None):
+        return self.make_smoke(tnn=tnn)
+
+
+_REGISTRY: dict[str, ArchConfig] = {}
+
+
+def register(cfg: ArchConfig) -> ArchConfig:
+    _REGISTRY[cfg.id] = cfg
+    return cfg
+
+
+def get(arch_id: str) -> ArchConfig:
+    arch_id = arch_id.replace("-", "_").replace(".", "_")
+    if arch_id not in _REGISTRY:
+        if arch_id not in ARCH_IDS:
+            raise KeyError(f"arch {arch_id!r} is not ported (ported: "
+                           f"{ARCH_IDS}; the rest are queued in ROADMAP.md)")
+        importlib.import_module(f"repro_torch.configs.{arch_id}")
+    return _REGISTRY[arch_id]

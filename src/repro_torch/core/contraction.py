@@ -1,0 +1,112 @@
+"""Contraction-plan executor: lowers a ContractionPlan to torch ops.
+
+Port of ``src/repro/core/contraction.py`` (single device, unquantized).
+``backend="einsum"`` runs each :class:`ContractionStep` as one
+``torch.einsum`` on f32 operands — f32 accumulation within a step, the
+storage dtype between steps, the reference's semantics — and is what the
+kernel backend is tested against.  ``backend="cuda"`` (``"pallas"`` is
+accepted as an alias, so reference configs carry over) compiles the plan
+with :mod:`repro_torch.core.plan_compiler` into calls of the hand-written
+GEMM and chain kernels.
+
+Not ported yet: the SPMD ``mesh`` path (distributed slice) and quantized
+execution (precision slice); see ROADMAP.md, queue A.
+"""
+
+from __future__ import annotations
+
+import string
+from typing import Sequence
+
+import torch
+
+from repro_torch.core.tnetwork import ContractionPlan, ContractionStep
+
+_LETTERS = string.ascii_lowercase + string.ascii_uppercase
+
+#: backend names :func:`execute` accepts -> the executor that runs them
+BACKENDS = {"einsum": "einsum", "cuda": "cuda", "pallas": "cuda"}
+
+
+def canonical_backend(backend: str) -> str:
+    try:
+        return BACKENDS[backend]
+    except KeyError:
+        raise ValueError(f"unknown backend {backend!r}; one of "
+                         f"{sorted(BACKENDS)}") from None
+
+
+def _einsum_spec(step: ContractionStep) -> str:
+    axes = []
+    for a in step.lhs_axes + step.rhs_axes + step.out_axes:
+        if a not in axes:
+            axes.append(a)
+    if len(axes) > len(_LETTERS):
+        raise ValueError(f"too many axes in one step: {len(axes)}")
+    sym = {a: _LETTERS[i] for i, a in enumerate(axes)}
+    lhs = "".join(sym[a] for a in step.lhs_axes)
+    rhs = "".join(sym[a] for a in step.rhs_axes)
+    out = "".join(sym[a] for a in step.out_axes)
+    return f"{lhs},{rhs}->{out}"
+
+
+def _einsum_step(step: ContractionStep, lhs: torch.Tensor,
+                 rhs: torch.Tensor) -> torch.Tensor:
+    """One reference step: exact products of the operands accumulated in
+    f32 (the reference's ``preferred_element_type=f32``).  Shared by the
+    einsum backend and the plan compiler's fallback path."""
+    return torch.einsum(_einsum_spec(step), lhs.float(), rhs.float())
+
+
+def execute(plan: ContractionPlan, tensors: Sequence[torch.Tensor],
+            out_dtype=None, backend: str = "einsum",
+            fused_chain: bool = True, max_chain_len: int = 2
+            ) -> torch.Tensor:
+    """Run the plan over concrete tensors (one per network node, in order).
+
+    ``fused_chain`` / ``max_chain_len`` steer the cuda backend's chain
+    fusion (the einsum backend runs step by step either way)."""
+    backend = canonical_backend(backend)
+    net = plan.network
+    if len(tensors) != net.num_nodes:
+        raise ValueError(f"plan has {net.num_nodes} nodes, got "
+                         f"{len(tensors)} tensors")
+    for i, t in enumerate(tensors):
+        if tuple(t.shape) != net.node_shape(i):
+            raise ValueError(f"node {net.node_names[i]}: expected "
+                             f"{net.node_shape(i)}, got {tuple(t.shape)}")
+    if out_dtype is None:
+        out_dtype = tensors[0].dtype
+
+    if backend == "cuda":
+        from repro_torch.core import plan_compiler
+        compiled = plan_compiler.compile_cached(
+            plan, fuse=fused_chain, max_chain_len=max_chain_len)
+        return plan_compiler.run(compiled, tensors, out_dtype=out_dtype)
+
+    if not plan.steps:                      # single-node network
+        return tensors[0].to(out_dtype)
+    slots: dict[int, torch.Tensor] = dict(enumerate(tensors))
+    for step in plan.steps:
+        res = _einsum_step(step, slots[step.lhs], slots[step.rhs])
+        # f32 accumulation within a step, storage dtype between steps.
+        slots[step.out] = res.to(out_dtype)
+        for op in (step.lhs, step.rhs):
+            if op in slots and not _used_later(plan, step, op):
+                del slots[op]
+    out = slots[plan.steps[-1].out]
+    last_axes = plan.steps[-1].out_axes
+    if last_axes != net.output:
+        out = out.permute(tuple(last_axes.index(a) for a in net.output))
+    return out.to(out_dtype)
+
+
+def _used_later(plan: ContractionPlan, current: ContractionStep, slot: int
+                ) -> bool:
+    after = False
+    for s in plan.steps:
+        if after and slot in (s.lhs, s.rhs):
+            return True
+        if s is current:
+            after = True
+    return False

@@ -1,0 +1,481 @@
+"""Plan compiler — lowers a :class:`ContractionPlan` to CUDA kernel calls.
+
+Port of ``src/repro/core/plan_compiler.py`` (unquantized dispatch).  The
+pipeline is the reference's:
+
+1. **Matricization** — each :class:`ContractionStep` is analysed into a
+   GEMM ``C[M, N] = A[M, K] @ B[K, N]``: lhs-free axes flatten to M,
+   rhs-free axes to N, contracted axes to K (in lhs order).  A rhs laid
+   out ``[N, K]`` is not transposed in device memory: the step routes to
+   :func:`~repro_torch.kernels.fused_contraction.matmul_cuda` with
+   ``transpose_rhs=True``, which transposes the tile in shared memory.
+   Axis orders no reshape can express get an explicit permute.
+
+2. **Chain fusion** — maximal runs of adjacent steps where each
+   intermediate is consumed exactly once, feeds the next step as its lhs
+   with compatible axis groups, and the operand set fits one block's
+   shared memory (:func:`_chain_fits`, the same check the kernel wrapper
+   applies) fuse into one
+   :func:`~repro_torch.kernels.fused_contraction.chain_n_cuda` call of up
+   to ``max_chain_len`` links.  A chain the kernel refuses before launch
+   (:class:`ChainLoweringError`) degrades to per-link GEMM kernels; a
+   failed build or launch is a ``RuntimeError`` and propagates.
+
+3. **Fallback** — steps that are not matricizable (batch axes shared by
+   both operands and the output, e.g. BT's block hyperedge) run as the
+   reference einsum step.
+
+Because the shared-memory budget (227 KB) differs from the reference's
+VMEM budget (100 MiB), fusion choices may differ from the reference's;
+the two are held equal on outputs.  Not ported yet: the quantized
+dispatch (``_run_quantized``) and autotuned tiles (ROADMAP.md, queue A).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Sequence, Union
+
+import torch
+
+from repro_torch import telemetry as tm
+from repro_torch.core.contraction import _einsum_spec, _einsum_step
+from repro_torch.core.tnetwork import AxisId, ContractionPlan, ContractionStep
+from repro_torch.kernels.fused_contraction import (
+    ChainLoweringError, chain_band_rows, chain_n_cuda, chain_plan,
+    matmul_cuda,
+)
+
+_log = tm.get_logger("plan_compiler")
+
+#: ChainLoweringError degrades by site, always counted (tracer on or off);
+#: mirrored into the tracer as ``plan_compiler.chain_degrade.<site>``.
+DEGRADE_COUNTS = {"compile": 0, "runtime": 0}
+
+
+def reset_degrade_counts() -> None:
+    for k in DEGRADE_COUNTS:
+        DEGRADE_COUNTS[k] = 0
+
+
+def _degrade(site: str, err: Exception) -> None:
+    """Count a ChainLoweringError degrade and warn once per site."""
+    DEGRADE_COUNTS[site] += 1
+    tm.inc(f"plan_compiler.chain_degrade.{site}")
+    _log.warn_once(
+        f"plan_compiler.chain_degrade.{site}",
+        f"chain fusion degraded to unfused GEMMs at {site}: {err} "
+        "(warning once; every occurrence is counted in "
+        f"plan_compiler.chain_degrade.{site})")
+
+
+# ---------------------------------------------------------------------------
+# Lowered ops
+# ---------------------------------------------------------------------------
+
+
+def _perm_or_none(src: Sequence[AxisId], dst: Sequence[AxisId]
+                  ) -> tuple[int, ...] | None:
+    """Permutation taking ``src`` axis order to ``dst``; None if identity."""
+    if sorted(src) != sorted(dst):
+        raise ValueError(f"axis sets differ: {src} vs {dst}")
+    if tuple(src) == tuple(dst):
+        return None
+    return tuple(src.index(a) for a in dst)
+
+
+@dataclass(frozen=True)
+class Matricization:
+    """How one step collapses to ``C[M, N] = A[M, K] @ B``.
+
+    ``k_axes`` follow lhs order.  ``lhs_perm`` / ``rhs_perm`` are
+    device-memory permutes applied before the reshape; ``transpose_rhs``
+    means the rhs reshapes to ``[N, K]`` and the kernel transposes it on
+    chip instead.
+    """
+
+    m_axes: tuple[AxisId, ...]
+    n_axes: tuple[AxisId, ...]
+    k_axes: tuple[AxisId, ...]
+    m: int
+    n: int
+    k: int
+    lhs_perm: tuple[int, ...] | None
+    rhs_perm: tuple[int, ...] | None
+    transpose_rhs: bool
+    out_perm: tuple[int, ...] | None    # [M-axes, N-axes] -> step.out_axes
+
+    @property
+    def hbm_transposes(self) -> int:
+        return sum(p is not None
+                   for p in (self.lhs_perm, self.rhs_perm, self.out_perm))
+
+
+@dataclass(frozen=True)
+class GemmOp:
+    """One step lowered to :func:`matmul_cuda`."""
+
+    step: ContractionStep
+    mat: Matricization
+
+
+@dataclass(frozen=True)
+class ChainOp:
+    """>= 2 consecutive steps fused into one :func:`chain_n_cuda` call.
+
+    X is ``steps[0]``'s lhs matricized to ``[m0, k]``; W_i is
+    ``steps[i]``'s rhs matricized to ``link_shapes[i]``; ``m`` is the
+    final row count ``m0 / prod(g_i)``.
+    """
+
+    steps: tuple[ContractionStep, ...]
+    m_axes: tuple[AxisId, ...]          # LAST step's free lhs axes
+    n_axes: tuple[AxisId, ...]
+    m: int                              # final output rows
+    m0: int                             # first link's rows (x rows)
+    n: int
+    k: int                              # first link's contraction size
+    link_shapes: tuple[tuple[int, int], ...]   # (k_i, n_i) per link
+    x_perm: tuple[int, ...] | None
+    w_perms: tuple[tuple[int, ...] | None, ...]  # rhs_i -> [k_i, n_i]
+    out_perm: tuple[int, ...] | None
+
+    @property
+    def length(self) -> int:
+        return len(self.steps)
+
+    @property
+    def hbm_transposes(self) -> int:
+        return sum(p is not None
+                   for p in (self.x_perm, *self.w_perms, self.out_perm))
+
+
+@dataclass(frozen=True)
+class EinsumOp:
+    """Non-matricizable step kept on the reference einsum path."""
+
+    step: ContractionStep
+    spec: str
+    reason: str
+
+
+LoweredOp = Union[GemmOp, ChainOp, EinsumOp]
+
+
+# ---------------------------------------------------------------------------
+# Step analysis
+# ---------------------------------------------------------------------------
+
+
+def matricize(step: ContractionStep) -> Matricization | str:
+    """Collapse a step to GEMM form, or return the reason it cannot be."""
+    lhs, rhs, out = step.lhs_axes, step.rhs_axes, step.out_axes
+    if len(set(lhs)) != len(lhs) or len(set(rhs)) != len(rhs):
+        return "repeated axis within an operand (trace)"
+    if step.batch_axes:
+        return (f"batch axes {step.batch_axes} on both operands and the "
+                "output (>2D residual)")
+    out_set, rhs_set, lhs_set = set(out), set(rhs), set(lhs)
+    for a in step.contracted_axes:
+        if not (a in lhs_set and a in rhs_set):
+            return f"axis {a!r} reduced on a single operand"
+
+    m_axes = tuple(a for a in lhs if a in out_set)
+    n_axes = tuple(a for a in rhs if a in out_set)
+    k_axes = tuple(a for a in lhs if a not in out_set)   # lhs order
+
+    lhs_perm = _perm_or_none(lhs, m_axes + k_axes)
+    # rhs laid out [N, K]? -> transpose the tile on chip (transpose_rhs).
+    if rhs == n_axes + k_axes and k_axes:
+        rhs_perm, transpose_rhs = None, True
+    else:
+        rhs_perm, transpose_rhs = _perm_or_none(rhs, k_axes + n_axes), False
+    out_perm = _perm_or_none(m_axes + n_axes, out)
+
+    sizes = dict(zip(lhs + rhs, step.lhs_shape + step.rhs_shape))
+    prod = lambda axes: math.prod(sizes[a] for a in axes)  # noqa: E731
+    return Matricization(
+        m_axes=m_axes, n_axes=n_axes, k_axes=k_axes,
+        m=prod(m_axes), n=prod(n_axes), k=prod(k_axes),
+        lhs_perm=lhs_perm, rhs_perm=rhs_perm, transpose_rhs=transpose_rhs,
+        out_perm=out_perm)
+
+
+def _consumed_exactly_once(plan: ContractionPlan, slot: int,
+                           consumer: ContractionStep) -> bool:
+    uses = sum((s.lhs == slot) + (s.rhs == slot) for s in plan.steps)
+    return uses == 1 and slot in (consumer.lhs, consumer.rhs)
+
+
+def _fusable_link(plan: ContractionPlan, g_prev: GemmOp,
+                  g_next: GemmOp) -> bool:
+    """May ``g_next`` extend an on-chip chain ending at ``g_prev``?
+
+    The intermediate must be consumed once and feed the next step's lhs
+    in layout order: the next step keeps a prefix of the m-group free and
+    consumes the remaining m-suffix plus the whole n-group as its K (the
+    suffix is the TT/TTM regroup, ``chain_plan``'s ``g_i``)."""
+    s_prev, s_next = g_prev.step, g_next.step
+    if s_next.lhs != s_prev.out:
+        return False
+    if not _consumed_exactly_once(plan, s_prev.out, s_next):
+        return False
+    m_prev, m_next = g_prev.mat, g_next.mat
+    if m_next.lhs_perm is not None or m_prev.out_perm is not None:
+        return False
+    keep = len(m_next.m_axes)
+    if m_next.m_axes != m_prev.m_axes[:keep]:
+        return False
+    return m_next.k_axes == m_prev.m_axes[keep:] + m_prev.n_axes
+
+
+def _chain_shapes(run: Sequence[GemmOp]) -> tuple[tuple[int, int], ...]:
+    """Per-link matricized weight shapes ``(k_i, n_i)`` of a chain run."""
+    return tuple((g.mat.k, g.mat.n) for g in run)
+
+
+def _chain_fits(run: Sequence[GemmOp]) -> bool:
+    """Whether the chain kernel accepts the run: the wrapper's own
+    geometry and shared-memory check."""
+    try:
+        chain_band_rows(run[0].mat.m, _chain_shapes(run))
+    except ChainLoweringError:
+        return False
+    return True
+
+
+def _build_chain(run: Sequence[GemmOp]) -> ChainOp:
+    """Assemble the ChainOp for a validated run of >= 2 fusable GEMMs
+    (every weight as ``[k_i, n_i]``: the chain kernel takes no
+    stored-transposed weight)."""
+    if len(run) < 2:
+        raise ChainLoweringError(f"chain needs >= 2 steps, got {len(run)}")
+    first, last = run[0], run[-1]
+    shapes = _chain_shapes(run)
+    rows, _ = chain_plan(first.mat.m, shapes)
+    if rows[-1] != last.mat.m:
+        raise ChainLoweringError(
+            f"chain row geometry mismatch: {rows[-1]} vs {last.mat.m}")
+    w_perms = tuple(
+        _perm_or_none(g.step.rhs_axes, g.mat.k_axes + g.mat.n_axes)
+        for g in run)
+    return ChainOp(
+        steps=tuple(g.step for g in run),
+        m_axes=last.mat.m_axes, n_axes=last.mat.n_axes,
+        m=last.mat.m, m0=first.mat.m,
+        n=last.mat.n, k=first.mat.k, link_shapes=shapes,
+        x_perm=first.mat.lhs_perm, w_perms=w_perms,
+        out_perm=last.mat.out_perm)
+
+
+# ---------------------------------------------------------------------------
+# Compilation
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class CompiledPlan:
+    """A :class:`ContractionPlan` lowered to kernel dispatches."""
+
+    plan: ContractionPlan
+    ops: tuple[LoweredOp, ...]
+
+    def report(self) -> dict:
+        """Lowering summary — what the compiler did with the plan."""
+        gemms = [op for op in self.ops if isinstance(op, GemmOp)]
+        chains = [op for op in self.ops if isinstance(op, ChainOp)]
+        einsums = [op for op in self.ops if isinstance(op, EinsumOp)]
+        num_steps = len(self.plan.steps)
+        fused_steps = sum(op.length for op in chains)
+        return {
+            "num_steps": num_steps,
+            "num_ops": len(self.ops),
+            "num_gemm": len(gemms),
+            "num_chain": len(chains),
+            "num_einsum_fallback": len(einsums),
+            "fused_steps": fused_steps,
+            "fusion_hit_rate": fused_steps / num_steps if num_steps else 0.0,
+            "max_chain_len_emitted": max(
+                (op.length for op in chains), default=0),
+            "onchip_transposes": sum(g.mat.transpose_rhs for g in gemms),
+            "hbm_transposes": (sum(g.mat.hbm_transposes for g in gemms)
+                               + sum(c.hbm_transposes for c in chains)),
+            "fallback_reasons": tuple(op.reason for op in einsums),
+        }
+
+
+def compile_plan(plan: ContractionPlan, *, fuse: bool = True,
+                 max_chain_len: int = 2) -> CompiledPlan:
+    """Lower every step; then (unless ``fuse=False``) fuse maximal
+    eligible runs of adjacent GEMMs into chains of up to
+    ``max_chain_len`` links that fit the chain kernel's shared-memory
+    budget (``fused_contraction.CHAIN_SMEM_BUDGET_BYTES``)."""
+    t0 = tm.now_us()
+    lowered: list[LoweredOp] = []
+    for step in plan.steps:
+        mat = matricize(step)
+        if isinstance(mat, str):
+            lowered.append(EinsumOp(step=step, spec=_einsum_spec(step),
+                                    reason=mat))
+        else:
+            lowered.append(GemmOp(step=step, mat=mat))
+    if not fuse:
+        return _emit_compile(CompiledPlan(plan=plan, ops=tuple(lowered)), t0)
+
+    fused: list[LoweredOp] = []
+    i = 0
+    while i < len(lowered):
+        op0 = lowered[i]
+        chain = None
+        if isinstance(op0, GemmOp) and max_chain_len >= 2:
+            run = [op0]
+            while (len(run) < max_chain_len
+                   and i + len(run) < len(lowered)
+                   and isinstance(lowered[i + len(run)], GemmOp)
+                   and _fusable_link(plan, run[-1], lowered[i + len(run)])
+                   and _chain_fits(run + [lowered[i + len(run)]])):
+                run.append(lowered[i + len(run)])
+            if len(run) >= 2:
+                try:
+                    chain = _build_chain(run)
+                except ChainLoweringError as err:
+                    _degrade("compile", err)
+        if chain is not None:
+            fused.append(chain)
+            i += chain.length
+        else:
+            fused.append(op0)
+            i += 1
+    return _emit_compile(CompiledPlan(plan=plan, ops=tuple(fused)), t0)
+
+
+#: compile_cached memo: id(plan) -> (plan, {(fuse, max_chain_len): compiled});
+#: the plan is held so its id stays unique while the entry lives
+_COMPILED: dict[int, tuple[ContractionPlan, dict]] = {}
+
+
+def compile_cached(plan: ContractionPlan, *, fuse: bool = True,
+                   max_chain_len: int = 2) -> CompiledPlan:
+    """:func:`compile_plan` memoised per plan object — eager execution
+    calls the executor every forward, where the reference compiled once
+    under ``jit``.  Plans come from the CSSE memo, so they are few and
+    long-lived."""
+    plan_ref, by_opts = _COMPILED.setdefault(id(plan), (plan, {}))
+    if plan_ref is not plan:           # id reused after the plan died
+        plan_ref, by_opts = _COMPILED[id(plan)] = (plan, {})
+    key = (fuse, max_chain_len)
+    got = by_opts.get(key)
+    if got is None:
+        got = by_opts[key] = compile_plan(plan, fuse=fuse,
+                                          max_chain_len=max_chain_len)
+    return got
+
+
+def _emit_compile(compiled: CompiledPlan, t0: float) -> CompiledPlan:
+    """Publish one compile's lowering summary to the tracer."""
+    if not tm.enabled():
+        return compiled
+    tm.complete_span("plan.compile", t0, tm.now_us(),
+                     steps=len(compiled.plan.steps),
+                     ops=len(compiled.ops))
+    rep = compiled.report()
+    tm.inc("plan_compiler.compiled")
+    tm.inc("plan_compiler.steps", rep["num_steps"])
+    tm.inc("plan_compiler.fused_steps", rep["fused_steps"])
+    tm.inc("plan_compiler.chains", rep["num_chain"])
+    tm.inc("plan_compiler.einsum_fallbacks", rep["num_einsum_fallback"])
+    tm.sample("plan_compiler.fusion_hit_rate", rep["fusion_hit_rate"])
+    return compiled
+
+
+# ---------------------------------------------------------------------------
+# Execution
+# ---------------------------------------------------------------------------
+
+
+def _as_2d(x: torch.Tensor, perm: tuple[int, ...] | None,
+           rows: int, cols: int) -> torch.Tensor:
+    """Matricize an operand; a permute is the same device-memory
+    transpose the reference's ``jnp.transpose`` does."""
+    if perm is not None:
+        x = x.permute(perm)
+    return x.reshape(rows, cols).contiguous()
+
+
+def _op_reads(op: LoweredOp) -> tuple[int, ...]:
+    if isinstance(op, ChainOp):
+        return (op.steps[0].lhs, *(s.rhs for s in op.steps))
+    return (op.step.lhs, op.step.rhs)
+
+
+def run(compiled: CompiledPlan, tensors: Sequence[torch.Tensor],
+        out_dtype=None) -> torch.Tensor:
+    """Execute a compiled plan; semantics match ``contraction.execute``:
+    f32 accumulation within a step, storage dtype between steps."""
+    plan = compiled.plan
+    net = plan.network
+    if out_dtype is None:
+        out_dtype = tensors[0].dtype
+    if not plan.steps:
+        return tensors[0].to(out_dtype)
+
+    slots: dict[int, torch.Tensor] = dict(enumerate(tensors))
+    sizes = net.sizes
+    last_use: dict[int, int] = {}
+    for t, op in enumerate(compiled.ops):
+        for slot in _op_reads(op):
+            last_use[slot] = t
+    trace = tm.enabled()
+    for t, op in enumerate(compiled.ops):
+        t0 = tm.now_us() if trace else 0.0
+        if isinstance(op, EinsumOp):
+            res = _einsum_step(op.step, slots[op.step.lhs],
+                               slots[op.step.rhs])
+            out_slot = op.step.out
+        elif isinstance(op, GemmOp):
+            mat = op.mat
+            x = _as_2d(slots[op.step.lhs], mat.lhs_perm, mat.m, mat.k)
+            if mat.transpose_rhs:
+                w = _as_2d(slots[op.step.rhs], mat.rhs_perm, mat.n, mat.k)
+            else:
+                w = _as_2d(slots[op.step.rhs], mat.rhs_perm, mat.k, mat.n)
+            res = matmul_cuda(x, w, transpose_rhs=mat.transpose_rhs,
+                              out_dtype=out_dtype)
+            res = res.reshape(tuple(sizes[a] for a in mat.m_axes + mat.n_axes))
+            if mat.out_perm is not None:
+                res = res.permute(mat.out_perm)
+            out_slot = op.step.out
+        else:                            # ChainOp
+            x = _as_2d(slots[op.steps[0].lhs], op.x_perm, op.m0, op.k)
+            ws = [_as_2d(slots[s.rhs], p, ki, ni)
+                  for (s, p), (ki, ni) in zip(zip(op.steps, op.w_perms),
+                                              op.link_shapes)]
+            try:
+                res = chain_n_cuda(x, ws, out_dtype=out_dtype)
+            except ChainLoweringError as err:
+                # Refused before launch: one GEMM kernel per link, storage
+                # dtype between links, the regroup as a reshape.
+                _degrade("runtime", err)
+                res = x
+                for w, (ki, _) in zip(ws, op.link_shapes):
+                    res = matmul_cuda(res.reshape(-1, ki), w,
+                                      out_dtype=out_dtype)
+            res = res.reshape(tuple(sizes[ax] for ax in op.m_axes + op.n_axes))
+            if op.out_perm is not None:
+                res = res.permute(op.out_perm)
+            out_slot = op.steps[-1].out
+        slots[out_slot] = res.to(out_dtype)
+        if trace:
+            kind = ("einsum" if isinstance(op, EinsumOp)
+                    else "gemm" if isinstance(op, GemmOp) else "chain")
+            tm.complete_span(f"exec.{kind}", t0, tm.now_us(), op_index=t)
+        for slot in _op_reads(op):
+            if slot != out_slot and last_use[slot] == t and slot in slots:
+                del slots[slot]
+
+    out = slots[plan.steps[-1].out]
+    last_axes = plan.steps[-1].out_axes
+    if last_axes != net.output:
+        out = out.permute(tuple(last_axes.index(a) for a in net.output))
+    return out.to(out_dtype)

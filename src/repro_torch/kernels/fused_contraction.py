@@ -1,0 +1,262 @@
+"""Hand-written CUDA kernels for tensor-contraction hot spots: wrappers.
+
+Port of ``src/repro/kernels/fused_contraction.py``.  Two kernels, CUDA C++
+for ``sm_90a`` in ``csrc/fused_contraction.cu`` (its header says what
+bounds each one on the H100 and how the design answers it):
+
+* :func:`matmul_cuda` replaces ``matmul_pallas`` (``_matmul_kernel``):
+  ``C[M, N] = X[M, K] @ W`` with W stored ``[K, N]`` or ``[N, K]``; the
+  ``[N, K]`` tile is transposed in shared memory, never in device memory.
+* :func:`chain_n_cuda` replaces ``chain_n_pallas`` (``_chain_n_kernel``,
+  non-quantized): an N-link contraction chain whose intermediates stay in
+  shared memory, with the row-major regroup ``[r, n_i] -> [r/g, g*n_i]``
+  between links done as index arithmetic on chip.
+
+Each wrapper checks device, dtype, shape and contiguity, launches on
+``torch.cuda.current_stream()`` and raises if the launch reports an
+error.  For a tensor on the CPU it runs the plain version
+(:mod:`repro_torch.kernels.ref`) instead; for a CUDA tensor it launches
+the kernel or raises, never falls back.  :data:`LAUNCHES` counts kernel
+launches per wrapper.
+
+Geometry and budget violations raise :class:`ChainLoweringError` before
+anything launches, on either device, so the plan compiler degrades a
+refused chain to per-link GEMMs the same way everywhere.  The budget is
+the H100's 232,448 bytes of shared memory per block
+(:data:`CHAIN_SMEM_BUDGET_BYTES`), where the reference budgets 100 MiB of
+TPU VMEM.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import ref
+
+#: dynamic shared memory one H100 thread block may use (227 KB of the
+#: SM's 256 KB; NVIDIA's Hopper architecture white paper)
+CHAIN_SMEM_BUDGET_BYTES = 232_448
+#: links one chain launch carries (``kMaxLinks`` in the CUDA source)
+MAX_CHAIN_LINKS = 8
+#: largest band of final rows one chain block owns
+MAX_BAND_ROWS = 128
+#: SMs of one H100: the chain wrapper sizes bands to give each one a block
+_NUM_SMS = 132
+_THREADS = 256
+
+#: kernel launches per wrapper since the last :func:`reset_launches`
+LAUNCHES = {"matmul": 0, "chain_n": 0}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class ChainLoweringError(ValueError):
+    """A kernel launch was asked for shapes it cannot lower.
+
+    Raised by the wrappers on contraction-dim mismatches, non-integral
+    regroups and shared-memory budget violations, before any launch.  The
+    plan compiler treats it as "do not fuse": ``compile_plan`` skips the
+    chain and ``plan_compiler.run`` re-executes a refused chain as plain
+    GEMMs.
+    """
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ChainLoweringError(msg)
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def chain_plan(m0: int, shapes) -> tuple[tuple[int, ...], tuple[int, ...]]:
+    """Validate an N-link chain and derive its row geometry.
+
+    ``shapes`` is the per-link weight shape ``(k_i, n_i)``; ``m0`` the
+    first link's row count.  Link ``i+1`` consumes link ``i``'s
+    ``[rows_i, n_i]`` output reshaped to ``[rows_i / g_i, g_i * n_i]``
+    where ``g_i = k_{i+1} / n_i``.  Returns ``(rows, regroups)``; raises
+    :class:`ChainLoweringError` on non-integral regroups.
+    """
+    shapes = tuple((int(k), int(n)) for k, n in shapes)
+    _require(len(shapes) >= 2,
+             f"chain needs >= 2 links, got {len(shapes)}")
+    rows, regroups = [m0], []
+    for i in range(len(shapes) - 1):
+        n_i, k_next = shapes[i][1], shapes[i + 1][0]
+        _require(k_next % n_i == 0,
+                 f"chain link {i + 1}: K={k_next} does not regroup "
+                 f"[rows, {n_i}] (not a multiple)")
+        g = k_next // n_i
+        _require(rows[-1] % g == 0,
+                 f"chain link {i + 1}: rows {rows[-1]} not divisible by "
+                 f"regroup factor {g}")
+        regroups.append(g)
+        rows.append(rows[-1] // g)
+    return tuple(rows), tuple(regroups)
+
+
+def chain_smem_bytes(m0: int, shapes, band_rows: int) -> int:
+    """Shared memory one chain block uses: every weight resident as f32,
+    plus the f32 intermediates of a band of ``band_rows`` final rows (one
+    buffer for two links, two ping-pong buffers beyond).  Mirrors the
+    offsets ``launch_chain`` computes in the CUDA source."""
+    shapes = tuple(shapes)
+    rows, _ = chain_plan(m0, shapes)
+    mults = [r // rows[-1] for r in rows]
+    max_mid = max(mults[i] * shapes[i][1] for i in range(len(shapes) - 1))
+    nbuf = 1 if len(shapes) == 2 else 2
+    weights = sum(k * n for k, n in shapes)
+    return 4 * (weights + nbuf * band_rows * max_mid)
+
+
+def chain_band_rows(m0: int, shapes) -> int:
+    """Final rows per chain block: a power of two, small enough that the
+    grid gives every SM a block where the chain has that many rows, and
+    never more than :data:`CHAIN_SMEM_BUDGET_BYTES` allows.  Raises
+    :class:`ChainLoweringError` when not even one row fits."""
+    shapes = tuple(shapes)
+    _require(len(shapes) <= MAX_CHAIN_LINKS,
+             f"chain of {len(shapes)} links exceeds {MAX_CHAIN_LINKS}")
+    rows, _ = chain_plan(m0, shapes)
+    need = chain_smem_bytes(m0, shapes, 1)
+    _require(need <= CHAIN_SMEM_BUDGET_BYTES,
+             f"chain operands exceed the shared-memory budget: {need} > "
+             f"{CHAIN_SMEM_BUDGET_BYTES} bytes")
+    band = 1
+    while (band * 2 <= MAX_BAND_ROWS
+           and rows[-1] // (band * 2) >= _NUM_SMS
+           and chain_smem_bytes(m0, shapes, band * 2)
+           <= CHAIN_SMEM_BUDGET_BYTES):
+        band *= 2
+    return band
+
+
+def _stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _lib() -> ctypes.CDLL:
+    from repro_torch.kernels import build
+    lib = build.load("fused_contraction")
+    if not getattr(lib, "_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.fc_matmul.argtypes = [ci, ci, vp, vp, vp, ci, ci, ci, vp]
+        lib.fc_matmul.restype = ci
+        lib.fc_chain.argtypes = [ci, vp, ctypes.POINTER(vp),
+                                 ctypes.POINTER(ci), ctypes.POINTER(ci),
+                                 ctypes.POINTER(ci), ci, ci, ci, ci, vp, vp]
+        lib.fc_chain.restype = ci
+        lib.fc_max_links.restype = ci
+        lib.fc_error_string.argtypes = [ci]
+        lib.fc_error_string.restype = ctypes.c_char_p
+        if lib.fc_max_links() != MAX_CHAIN_LINKS:
+            raise RuntimeError("fused_contraction.cu disagrees on the "
+                               "chain link limit")
+        lib._typed = True
+    return lib
+
+
+def _check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.fc_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
+
+
+def _check_cuda_operands(op: str, tensors, out_dtype) -> None:
+    dev = tensors[0].device
+    dtype = tensors[0].dtype
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{op}: operands on {t.device} and {dev}")
+        if t.dtype != dtype:
+            raise ValueError(f"{op}: operand dtypes {t.dtype} and {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{op}: operands must be contiguous")
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"{op}: dtype {dtype} not supported (float32, "
+                         "bfloat16)")
+    if out_dtype not in (None, dtype):
+        raise ValueError(f"{op}: the kernel writes {dtype}, not {out_dtype}")
+
+
+def matmul_cuda(x: torch.Tensor, w: torch.Tensor, *,
+                transpose_rhs: bool = False, out_dtype=None) -> torch.Tensor:
+    """``C[M, N] = X[M, K] @ W`` with W stored ``[K, N]`` or, with
+    ``transpose_rhs``, ``[N, K]``; f32 accumulation, output in X's dtype."""
+    _require(x.dim() == 2 and w.dim() == 2,
+             f"GEMM operands must be 2-D, got {tuple(x.shape)} and "
+             f"{tuple(w.shape)}")
+    m, k = x.shape
+    n, k2 = w.shape if transpose_rhs else (w.shape[1], w.shape[0])
+    _require(k == k2, f"contraction mismatch {k} vs {k2}")
+    if x.device.type == "cpu" and w.device.type == "cpu":
+        return ref.matmul(x, w, transpose_rhs=transpose_rhs,
+                          out_dtype=out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"matmul_cuda: no kernel for device {x.device}")
+    _check_cuda_operands("matmul_cuda", (x, w), out_dtype)
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    lib = _lib()
+    rc = lib.fc_matmul(_DTYPE_CODES[x.dtype], int(transpose_rhs),
+                       x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
+                       _stream())
+    _check_rc(lib, rc, "matmul_cuda")
+    LAUNCHES["matmul"] += 1
+    return out
+
+
+def chain_n_cuda(x: torch.Tensor, weights, *, out_dtype=None
+                 ) -> torch.Tensor:
+    """N-link contraction chain with every intermediate in shared memory.
+
+    ``weights`` is a sequence of >= 2 matrices ``W_i[k_i, n_i]`` with
+    ``k_1 == x.shape[1]``; link ``i+1`` reads link ``i``'s result
+    regrouped row-major (:func:`chain_plan`).  The output is
+    ``[m0 / prod(g), n_last]`` in X's dtype.
+    """
+    weights = tuple(weights)
+    _require(len(weights) >= 2,
+             f"chain needs >= 2 weights, got {len(weights)}")
+    _require(x.dim() == 2, f"chain lhs must be 2-D, got {tuple(x.shape)}")
+    for i, w in enumerate(weights):
+        _require(w.dim() == 2,
+                 f"chain weight {i} must be 2-D, got {tuple(w.shape)}")
+    m0 = x.shape[0]
+    shapes = tuple(tuple(w.shape) for w in weights)
+    _require(shapes[0][0] == x.shape[1],
+             f"chain link 0: contraction mismatch {shapes[0][0]} vs "
+             f"{x.shape[1]}")
+    rows, _ = chain_plan(m0, shapes)
+    band = chain_band_rows(m0, shapes)
+    if x.device.type == "cpu" and all(w.device.type == "cpu"
+                                      for w in weights):
+        return ref.chain_n(x, weights, out_dtype=out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"chain_n_cuda: no kernel for device {x.device}")
+    _check_cuda_operands("chain_n_cuda", (x, *weights), out_dtype)
+    m_final, n_last = rows[-1], shapes[-1][1]
+    out = torch.empty((m_final, n_last), dtype=x.dtype, device=x.device)
+    if m_final == 0:
+        return out
+    links = len(weights)
+    mults = [r // m_final for r in rows]
+    ptrs = (ctypes.c_void_p * links)(*(w.data_ptr() for w in weights))
+    ks = (ctypes.c_int * links)(*(k for k, _ in shapes))
+    ns = (ctypes.c_int * links)(*(n for _, n in shapes))
+    ms = (ctypes.c_int * links)(*mults)
+    widest = max(band * mults[i] * shapes[i][1] for i in range(links))
+    threads = min(_THREADS, max(32, -(-widest // 32) * 32))
+    lib = _lib()
+    rc = lib.fc_chain(_DTYPE_CODES[x.dtype], x.data_ptr(), ptrs, ks, ns, ms,
+                      links, m_final, band, threads, out.data_ptr(),
+                      _stream())
+    _check_rc(lib, rc, "chain_n_cuda")
+    LAUNCHES["chain_n"] += 1
+    return out

@@ -1,0 +1,244 @@
+"""Transformer building blocks as PyTorch modules (serving path).
+
+Port of ``src/repro/models/blocks.py``: :func:`make_dense` (a dense
+matrix, or a :class:`~repro_torch.core.tensorized.TensorizedLinear` when a
+TNN config targets the projection), :func:`rmsnorm`, :func:`rope`,
+:class:`KVCache`, the GQA :class:`Attention` with its serving paths
+(``extend`` — chunked prefill at per-slot depths — and ``decode_step``),
+and :class:`SwiGLU`.
+
+Parameter names and layouts are the reference's (``Dense.w`` is
+``[d_in, d_out]``, TT cores keep their shapes), so
+:func:`repro_torch.convert.params_from_numpy` maps the reference's
+parameter tree one to one.  The attention arithmetic is the reference's
+plain-array code (f32 scores, softmax, f32 context), as plain torch ops;
+the reference reaches its flash-attention kernel only from the training
+forward, which is not on this path.
+
+Not ported yet: the full-sequence ``__call__`` / ``prefill`` paths with
+blockwise (flash) attention, and :class:`MoE` (ROADMAP.md, queue A).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from repro_torch.core.tensorized import TNNConfig, make_tensorized_linear
+
+
+class Dense(nn.Module):
+    """A dense projection ``y = x @ w (+ b)``, ``w[d_in, d_out]``."""
+
+    def __init__(self, d_in: int, d_out: int, *, use_bias: bool = False,
+                 param_dtype=torch.float32, compute_dtype=torch.bfloat16,
+                 device=None, generator: torch.Generator | None = None):
+        super().__init__()
+        self.use_bias = use_bias
+        self.compute_dtype = compute_dtype
+        std = 1.0 / math.sqrt(d_in)
+        self.w = nn.Parameter(
+            (torch.randn(d_in, d_out, generator=generator) * std).to(
+                device=device, dtype=param_dtype), requires_grad=False)
+        if use_bias:
+            self.b = nn.Parameter(torch.zeros(d_out, dtype=param_dtype,
+                                              device=device),
+                                  requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        # Products of compute-dtype operands, summed in f32.
+        y = torch.matmul(x.to(cd).float(), self.w.to(cd).float())
+        if self.use_bias:
+            y = y + self.b.float()
+        return y.to(x.dtype)
+
+
+def make_dense(d_in: int, d_out: int, *, use_bias: bool = False,
+               tnn: TNNConfig | None = None, param_dtype=torch.float32,
+               compute_dtype=torch.bfloat16, device=None,
+               generator: torch.Generator | None = None) -> nn.Module:
+    """The reference's ``Dense``: a :class:`TensorizedLinear` when ``tnn``
+    is enabled (parameters ``cores`` / ``bias``), else a :class:`Dense`
+    (``w`` / ``b``) — the reference's parameter names either way."""
+    if tnn is not None and tnn.enabled:
+        return make_tensorized_linear(
+            d_out, d_in, tnn, use_bias=use_bias, param_dtype=param_dtype,
+            compute_dtype=compute_dtype, device=device, generator=generator)
+    return Dense(d_in, d_out, use_bias=use_bias, param_dtype=param_dtype,
+                 compute_dtype=compute_dtype, device=device,
+                 generator=generator)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(d, device=device),
+                                  requires_grad=False)
+
+    def forward(self, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+        return rmsnorm(self.scale, x, eps)
+
+
+def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6
+            ) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0
+         ) -> torch.Tensor:
+    """Rotary embedding.  x: [B, T, H, D], positions: [B, T]."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                          device=x.device) / half))
+    angles = positions[..., None].float() * freqs        # [B, T, half]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor          # [B, max_len, KV, D] on the model's device
+    v: torch.Tensor          # [B, max_len, KV, D]
+    length: torch.Tensor     # [B] (or [] scalar) int32 depths, on the CPU:
+                             # the host owns the slot table, so bounds
+                             # checks never wait for the device
+
+
+def _positions(length: torch.Tensor, batch: int, chunk: int,
+               cache_len: int) -> torch.Tensor:
+    """Host ``[B, chunk]`` write/query positions of a chunk appended at
+    each slot's depth.
+
+    The reference's ``dynamic_update_slice`` clamps a start index that
+    would run past the buffer, moving the write onto live entries; here
+    such a write is refused instead (the serving engine sizes its buffer
+    with a chunk of slack so it never happens)."""
+    length = length.cpu().long()
+    if length.dim() == 0:
+        length = length.expand(batch)
+    pos = length[:, None] + torch.arange(chunk)[None, :]
+    if batch and int(pos.max()) >= cache_len:
+        raise ValueError(f"KV write up to position {int(pos.max())} past "
+                         f"the cache length {cache_len}")
+    return pos
+
+
+def _write_slots(buf: torch.Tensor, new: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """``buf`` with ``new[b, c]`` written at ``buf[b, positions[b, c]]``
+    (positions already bounds-checked by :func:`_positions`)."""
+    out = buf.clone()
+    rows = torch.arange(buf.shape[0], device=buf.device)[:, None]
+    out[rows, positions] = new.to(buf.dtype)
+    return out
+
+
+class Attention(nn.Module):
+    """GQA attention; q/k/v/o come from :func:`make_dense` (tensorized
+    when the TNN config targets ``qkv`` / ``out``)."""
+
+    def __init__(self, d_model: int, num_heads: int, num_kv_heads: int,
+                 head_dim: int, *, qkv_bias: bool = False,
+                 rope_theta: float = 10000.0, tnn: TNNConfig | None = None,
+                 param_dtype=torch.float32, compute_dtype=torch.bfloat16,
+                 device=None, generator: torch.Generator | None = None):
+        super().__init__()
+        self.num_heads, self.num_kv_heads = num_heads, num_kv_heads
+        self.head_dim = head_dim
+        self.rope_theta = rope_theta
+        H, KV, D = num_heads, num_kv_heads, head_dim
+
+        def proj(d_in, d_out, bias, target):
+            t = tnn if (tnn and target in tnn.targets) else None
+            return make_dense(d_in, d_out, use_bias=bias, tnn=t,
+                              param_dtype=param_dtype,
+                              compute_dtype=compute_dtype, device=device,
+                              generator=generator)
+
+        self.q = proj(d_model, H * D, qkv_bias, "qkv")
+        self.k = proj(d_model, KV * D, qkv_bias, "qkv")
+        self.v = proj(d_model, KV * D, qkv_bias, "qkv")
+        self.o = proj(H * D, d_model, False, "out")
+
+    def _qkv(self, x, positions):
+        B, T, _ = x.shape
+        H, KV, D = self.num_heads, self.num_kv_heads, self.head_dim
+        q = self.q(x).reshape(B, T, H, D)
+        k = self.k(x).reshape(B, T, KV, D)
+        v = self.v(x).reshape(B, T, KV, D)
+        return (rope(q, positions, self.rope_theta),
+                rope(k, positions, self.rope_theta), v)
+
+    def _attend(self, q, kc, vc, positions, dtype):
+        """Scores of ``q [B, C, H, D]`` against the whole cache, masked to
+        ``t <= position``; f32 softmax and context, as the reference."""
+        B, C, H, D = q.shape
+        KV = self.num_kv_heads
+        qg = q.reshape(B, C, KV, H // KV, D)
+        scores = torch.einsum("bckgd,btkd->bkgct", qg.float(),
+                              kc.float()) / math.sqrt(D)
+        t_idx = torch.arange(kc.shape[1], device=kc.device)
+        mask = (t_idx[None, None, None, None, :]
+                <= positions[:, None, None, :, None])
+        scores = torch.where(mask, scores, torch.full((), -1e30,
+                                                      device=kc.device))
+        probs = torch.softmax(scores, dim=-1)
+        ctx = torch.einsum("bkgct,btkd->bckgd", probs, vc.float()).to(dtype)
+        return self.o(ctx.reshape(B, C, H * D))
+
+    def decode_step(self, x: torch.Tensor, cache: KVCache):
+        """One-token decode at each slot's depth.  x: [B, 1, d_model]."""
+        return self.extend(x, cache)
+
+    def extend(self, x: torch.Tensor, cache: KVCache,
+               valid: torch.Tensor | None = None):
+        """Append a C-token chunk per slot at each slot's depth (chunked
+        prefill; ``C = 1`` is a decode step).  ``valid`` ([B] host ints,
+        None = all C) bounds the real tokens per slot; k/v past it are
+        written as zeros (they sit past the advanced length, so no mask
+        ever exposes them)."""
+        B, C, _ = x.shape
+        pos_host = _positions(cache.length, B, C, cache.k.shape[1])
+        positions = pos_host.to(x.device)
+        q, k, v = self._qkv(x, positions)
+        if valid is not None:
+            keep = (torch.arange(C)[None, :] < valid.cpu()[:, None])
+            keep = keep.to(x.device)[..., None, None]
+            k = torch.where(keep, k, torch.zeros((), dtype=k.dtype,
+                                                 device=k.device))
+            v = torch.where(keep, v, torch.zeros((), dtype=v.dtype,
+                                                 device=v.device))
+        kc = _write_slots(cache.k, k, positions)
+        vc = _write_slots(cache.v, v, positions)
+        adv = C if valid is None else valid.cpu().to(cache.length.dtype)
+        out = self._attend(q, kc, vc, positions, x.dtype)
+        return out, KVCache(kc, vc, cache.length + adv)
+
+
+class SwiGLU(nn.Module):
+    def __init__(self, d_model: int, d_ff: int, *,
+                 tnn: TNNConfig | None = None, param_dtype=torch.float32,
+                 compute_dtype=torch.bfloat16, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        t = tnn if (tnn and "mlp" in tnn.targets) else None
+        kw = dict(tnn=t, param_dtype=param_dtype, compute_dtype=compute_dtype,
+                  device=device, generator=generator)
+        self.gate = make_dense(d_model, d_ff, **kw)
+        self.up = make_dense(d_model, d_ff, **kw)
+        self.down = make_dense(d_ff, d_model, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        g = self.gate(x)
+        u = self.up(x)
+        h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
+        return self.down(h)

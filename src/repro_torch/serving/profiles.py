@@ -1,0 +1,114 @@
+"""Phase-specialized execution profiles: CSSE per serving phase.
+
+Port of ``src/repro/serving/profiles.py``.  Serving has two steady
+states with very different flattened token batches — **prefill**
+(``batch_size * prefill_chunk`` tokens per tick) and **decode**
+(``batch_size`` tokens) — and the best contraction sequence differs
+between them.  :func:`build_profiles` runs the plan search once per
+phase at server start, each under its own phase-tagged
+:class:`~repro_torch.core.policy.ExecutionPolicy`, so the two phases
+resolve distinct cache entries even when their shapes coincide.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.core import csse, perf_model, tensorized
+from repro_torch.core.policy import ExecutionPolicy
+from repro_torch.core.tensorized import TNNConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutionProfile:
+    """One serving phase's resolved planning state.
+
+    ``signatures`` maps projection name -> the CSSE cache key its forward
+    plan resolved under (phase-tagged).  ``modeled_latency_s`` is the
+    summed modeled forward latency of one tick's tensorized projections
+    on the hardware model — a ranking signal, not a measurement.
+    """
+
+    phase: str                              # "prefill" | "decode"
+    tokens: int                             # flattened token batch per tick
+    opts: csse.SearchOptions
+    signatures: tuple[tuple[str, str], ...]
+    modeled_latency_s: float
+    policy: ExecutionPolicy | None = None
+
+
+def phase_tnn(tnn: TNNConfig, phase: str) -> TNNConfig:
+    """Tag a TNN config with an execution phase (plan cache keys only)."""
+    return dataclasses.replace(tnn, phase=phase)
+
+
+def tensorized_projections(cfg) -> list[tuple[str, int, int]]:
+    """``(name, d_in, d_out)`` of every distinct tensorized projection an
+    ``LMConfig`` instantiates, per its ``tnn.targets``."""
+    c = cfg
+    out: list[tuple[str, int, int]] = []
+    seen: set[tuple[int, int]] = set()
+
+    def add(name, d_in, d_out):
+        if (d_in, d_out) not in seen:
+            seen.add((d_in, d_out))
+            out.append((name, d_in, d_out))
+
+    targets = c.tnn.targets
+    if "qkv" in targets:
+        add("attn.q", c.d_model, c.num_heads * c.hd)
+        add("attn.kv", c.d_model, c.num_kv_heads * c.hd)
+    if "out" in targets:
+        add("attn.o", c.num_heads * c.hd, c.d_model)
+    if "mlp" in targets:
+        add("mlp.in", c.d_model, c.d_ff)
+        add("mlp.down", c.d_ff, c.d_model)
+    return out
+
+
+def build_profile(cfg, phase: str, tokens: int,
+                  hw: perf_model.HardwareModel = perf_model.H100_SXM
+                  ) -> ExecutionProfile:
+    """Search (or recall) plans for every tensorized projection at this
+    phase's token batch; returns the profile with its cache keys."""
+    tnn = phase_tnn(cfg.tnn, phase)
+    policy = tnn.execution_policy(cfg.compute_dtype)
+    opts = csse.SearchOptions.from_policy(policy)
+    sigs: list[tuple[str, str]] = []
+    latency = 0.0
+    for name, d_in, d_out in tensorized_projections(cfg):
+        layer = tensorized.make_tensorized_linear(
+            d_out, d_in, tnn, param_dtype=cfg.param_dtype,
+            compute_dtype=cfg.compute_dtype, device="meta")
+        fp = tensorized.fp_plan(layer.fact, tokens, layer.opts, hw)
+        net = layer.fact.forward_network(batch_axes=(("b", tokens),))
+        sigs.append((name, csse.plan_signature(net, layer.opts, hw)))
+        latency += fp.cost.latency_s
+    return ExecutionProfile(phase=phase, tokens=tokens, opts=opts,
+                            signatures=tuple(sigs),
+                            modeled_latency_s=latency, policy=policy)
+
+
+def build_profiles(cfg, *, batch_size: int, prefill_chunk: int,
+                   hw: perf_model.HardwareModel = perf_model.H100_SXM
+                   ) -> dict[str, ExecutionProfile]:
+    """Server-start planning: one profile per phase, keyed ``"prefill"``
+    / ``"decode"``.  Empty when the model has nothing tensorized."""
+    if not (cfg.tnn and cfg.tnn.enabled):
+        return {}
+    return {
+        "prefill": build_profile(cfg, "prefill",
+                                 batch_size * prefill_chunk, hw),
+        "decode": build_profile(cfg, "decode", batch_size, hw),
+    }
+
+
+def profile_summary(profiles: dict[str, ExecutionProfile]) -> str:
+    """One line per phase for server-start logging."""
+    lines = []
+    for phase, p in profiles.items():
+        lines.append(
+            f"[profiles] {phase}: tokens/tick={p.tokens} "
+            f"projections={len(p.signatures)} "
+            f"modeled={p.modeled_latency_s * 1e6:.1f}us")
+    return "\n".join(lines)
