@@ -1,0 +1,146 @@
+"""Where a training step's time goes on the card.
+
+    PYTHONPATH=src python -m repro_torch.analysis.train_profile
+
+Trains ``paper_atis_tt``'s full-width config (``tnn_default``, ``cuda``
+backend, bf16, seed 0) at the train CLI's default batch 8 x seq 128 with
+the train loop's pieces (:func:`repro_torch.launch.steps.build_model`,
+:class:`~repro_torch.optim.adamw.AdamW`,
+:func:`~repro_torch.launch.steps.make_train_step`): :data:`WARMUP` steps,
+then :data:`STEPS` steps timed without the profiler, then :data:`STEPS`
+more under ``torch.profiler`` with CPU and CUDA activities.  Prints one JSON
+line: wall ms per step with and without the profiler (host clock around
+steps that end in a synchronise), device busy ms per step (the sum of
+device-side kernel and copy times; one stream, so they do not overlap),
+the device's idle share against the unprofiled wall time, device time
+by group — the port's GEMM, chain and attention kernels by their names,
+the rest as ``torch`` — with the ten largest kernels by name, and
+device time by phase: the kernel time inside the tensorized layers'
+``tnn.fp`` / ``tnn.bp`` / ``tnn.wg`` ranges and attention's
+``attn.fwd`` / ``attn.bwd`` (``tnn.fp`` holds the forward plans twice
+under remat), beside each range's span on the device timeline.  Needs a CUDA card; if the profiler records no device time, the device
+figures are reported as not measured.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import time
+
+import torch
+
+ARCH, BATCH, SEQ = "paper_atis_tt", 8, 128   # the train CLI's defaults
+WARMUP, STEPS = 5, 3
+#: substrings of the port's kernel names -> report group
+GROUPS = (("gemm_kernel", "matmul"), ("chain_kernel", "chain_n"),
+          ("flash_fwd_kernel", "flash_attention_fwd"))
+#: profiler ranges the training path opens around its phases
+PHASES = ("tnn.fp", "tnn.bp", "tnn.wg", "attn.fwd", "attn.bwd")
+
+
+def _group(name: str) -> str:
+    for key, group in GROUPS:
+        if key in name:
+            return group
+    return "torch"
+
+
+def profile() -> dict:
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.optim.adamw import AdamW
+
+    if not torch.cuda.is_available():
+        raise SystemExit("train_profile: needs a CUDA card")
+    batch, seq, warmup, steps = BATCH, SEQ, WARMUP, STEPS
+    arch = cfgbase.get(ARCH)
+    model, cfg = steps_lib.build_model(arch, arch.tnn_default, device="cuda",
+                                       seed=0, backend="cuda")
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                  global_batch=batch))
+    total = warmup + 2 * steps
+    opt = AdamW(lr=3e-3, total_steps=max(total, 2), warmup_steps=min(20, total))
+    params = dict(model.named_parameters())
+    state = {"params": params, "opt": opt.init(params)}
+    step_fn = steps_lib.make_train_step(model, opt)
+
+    def run(s):
+        nonlocal state
+        b = {k: torch.as_tensor(v).to("cuda")
+             for k, v in data.batch(s).items()}
+        state, m = step_fn(state, b)
+        return float(m["loss"])
+
+    def timed(s, out):
+        t0 = time.perf_counter()
+        run(s)
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+
+    for s in range(warmup):
+        run(s)
+    torch.cuda.synchronize()
+    plain_wall, wall = [], []
+    for s in range(warmup, warmup + steps):
+        timed(s, plain_wall)
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        for s in range(warmup + steps, total):
+            timed(s, wall)
+    # Device-side events: kernels and copies, and the device spans of the
+    # phase ranges (the profiler mirrors each record_function range onto
+    # the device timeline; its span includes idle gaps).  A phase's busy
+    # time is the kernel time that starts inside its spans.
+    kernels, spans = [], {p: [] for p in PHASES}
+    for e in prof.events():
+        if str(e.device_type).split(".")[-1] != "CUDA":
+            continue
+        rng = (e.time_range.start, e.time_range.end)
+        if e.name in spans:
+            spans[e.name].append(rng)
+        else:
+            kernels.append((e.name, *rng))
+    by_group: dict[str, float] = {}
+    by_name: dict[str, float] = {}
+    for name, t0, t1 in kernels:
+        by_group[_group(name)] = by_group.get(_group(name), 0.0) + t1 - t0
+        by_name[name] = by_name.get(name, 0.0) + t1 - t0
+    by_phase = {p: sum(t1 - t0 for _, t0, t1 in kernels
+                       if any(a <= t0 < b for a, b in spans[p]))
+                for p in PHASES}
+    span_ms = {p: sum(b - a for a, b in spans[p]) / 1e3 / steps
+               for p in PHASES}
+    wall_ms = statistics.median(plain_wall) * 1e3
+    busy_ms = sum(by_group.values()) / 1e3 / steps
+    measured = busy_ms > 0
+    return {
+        "arch": ARCH, "batch": batch, "seq": seq,
+        "steps_profiled": steps, "device": torch.cuda.get_device_name(0),
+        "wall_ms_per_step": wall_ms,
+        "wall_ms_per_step_profiled": statistics.median(wall) * 1e3,
+        "device_busy_ms_per_step": busy_ms if measured else "not measured",
+        "device_idle_share": (1 - busy_ms / wall_ms) if measured
+        else "not measured",
+        "device_ms_per_step_by_group": {
+            g: us / 1e3 / steps for g, us in sorted(by_group.items())},
+        "device_ms_per_step_by_phase": (
+            {p: us / 1e3 / steps for p, us in by_phase.items()}
+            if any(spans.values()) else "not measured"),
+        "device_span_ms_per_step_by_phase": span_ms,
+        "top_kernels_ms_per_step": [
+            [name[:120], us / 1e3 / steps] for name, us in sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:10]],
+    }
+
+
+def main() -> None:
+    print(json.dumps({"phase": "train_profile", **profile()}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

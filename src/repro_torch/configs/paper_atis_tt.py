@@ -23,7 +23,7 @@ def make_model(tnn=None):
 def make_smoke(tnn=None):
     return LMConfig(
         name="paper-atis-smoke", num_layers=2, d_model=96, num_heads=4,
-        num_kv_heads=4, head_dim=24, d_ff=192, vocab=256,
+        num_kv_heads=4, head_dim=24, d_ff=192, vocab=256, remat=False,
         tnn=tnn if tnn is not None else TNNConfig(
             enabled=True, method="tt", rank=4, num_factors=2,
             targets=("mlp",)))

@@ -1,13 +1,18 @@
-"""Load the JAX reference's parameters into the port.
+"""Move parameters between the JAX reference's tree and the port.
 
 :func:`params_from_numpy` turns the reference's parameter pytree, taken
 as numpy arrays (``jax.tree.map(np.asarray, params)``), into a state
 dict for :class:`repro_torch.models.lm.LM`: nested dict keys join with
 ``.``, tuple entries (TT cores) become indices, and the stacked
 ``[L, ...]`` leaves under ``layers`` split into ``layers.<l>.<...>``.
-Layouts are unchanged (``Dense.w`` stays ``[d_in, d_out]``, cores keep
-their shapes), so both packages compute the same function from the same
-numbers.  This module imports neither JAX nor the reference: it only
+:func:`to_numpy_tree` is its reverse, for a state dict or anything keyed
+like one (gradients, optimizer moments): it rebuilds the reference's
+nested tree with the per-layer tensors stacked again.
+:func:`reference_ndim` is the rank a port tensor has as a reference leaf
+(one more under ``layers.``), which the optimizer's weight-decay rule
+reads.  Layouts are unchanged (``Dense.w`` stays ``[d_in, d_out]``, cores
+keep their shapes), so both packages compute the same function from the
+same numbers.  This module imports neither JAX nor the reference: it only
 walks dicts, tuples and arrays.
 """
 
@@ -47,3 +52,51 @@ def params_from_numpy(tree: dict, cfg) -> dict[str, torch.Tensor]:
         else:
             sd[name] = torch.from_numpy(np.array(arr))
     return sd
+
+
+def reference_ndim(name: str, t: torch.Tensor) -> int:
+    """Rank of the reference leaf that holds the port tensor ``name``:
+    per-layer tensors are slices of a stacked ``[L, ...]`` leaf."""
+    return t.dim() + 1 if name.startswith("layers.") else t.dim()
+
+
+def _tupled(tree):
+    """Dicts keyed ``"0".."n-1"`` become tuples (the reference's core
+    tuples), recursively."""
+    if not isinstance(tree, dict):
+        return tree
+    tree = {k: _tupled(v) for k, v in tree.items()}
+    if tree and all(k.isdigit() for k in tree):
+        return tuple(tree[str(i)] for i in range(len(tree)))
+    return tree
+
+
+def to_numpy_tree(sd: dict[str, torch.Tensor], cfg) -> dict:
+    """The reference's nested numpy tree from a port state dict (or
+    gradients / moments keyed the same way): per-layer tensors stacked
+    along a leading ``[num_layers]`` axis.  bf16 tensors come back as
+    f32 (numpy has no bf16)."""
+    def host(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    flat: dict[str, np.ndarray] = {}
+    per_layer: dict[str, list] = {}
+    for name, t in sd.items():
+        if name.startswith("layers."):
+            li, rest = name[len("layers."):].split(".", 1)
+            per_layer.setdefault(rest, [None] * cfg.num_layers)[int(li)] = t
+        else:
+            flat[name] = host(t)
+    for rest, ts in per_layer.items():
+        if any(t is None for t in ts):
+            raise ValueError(f"layers.*.{rest}: missing layers")
+        flat[f"layers.{rest}"] = np.stack([host(t) for t in ts])
+    tree: dict = {}
+    for name, arr in flat.items():
+        node = tree
+        *parents, leaf = name.split(".")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = arr
+    return _tupled(tree)

@@ -1,16 +1,28 @@
 """TensorizedLinear — the paper's technique as a PyTorch module.
 
-Port of ``src/repro/core/tensorized.py``, forward only.  A drop-in
-replacement for ``y = x @ W.T`` where ``W[M, N]`` is stored as TT / TTM /
-TR / HT / BT factor cores.  The forward runs the CSSE-optimal sequence
-for the FP network ``Y[b, m..] = X[b, n..] · cores`` — the reference's
-``phase_paths=True`` FP plan — through the einsum executor or the CUDA
-kernel backend.
+Port of ``src/repro/core/tensorized.py``.  A drop-in replacement for
+``y = x @ W.T`` where ``W[M, N]`` is stored as TT / TTM / TR / HT / BT
+factor cores.  The training-specific contribution of the paper (§III-A,
+§IV) is a ``torch.autograd.Function`` (the reference's ``custom_vjp``):
 
-Not ported yet: the custom backward with its own BP/WG plans
-(``torch.autograd.Function``), quantized execution and autotuned tiles;
-they arrive with the training, precision and autotune slices
-(ROADMAP.md, queue A).
+* **FP** runs the CSSE-optimal sequence for the forward network
+  ``Y[b, m..] = X[b, n..] · cores``;
+* **BP** (dX) and **WG** (one network per core gradient) are different
+  tensor networks over the same cores; each gets its own CSSE search
+  instead of the autodiff transpose of the forward plan.  WG runs either
+  ``indep`` (one network per core over {X, dY, other cores}) or
+  ``shared`` (dW = X·dY once, then per-core contractions over {dW, other
+  cores}), whichever the hardware model prices lower (:func:`_plans`).
+
+Every phase runs through the einsum executor or the CUDA kernel backend
+(:mod:`repro_torch.core.contraction`).  Plans are searched with the H100
+model (:data:`repro_torch.core.perf_model.H100_SXM`) where the reference
+defaults to its TPU model, and memoised per (layer, token batch).
+
+Not ported yet: ``phase_paths=False`` (plain autodiff through the FP
+plan, the ablation baseline) for training, ROADMAP.md queue A item 10;
+quantized execution and the quantized stash (item 3); autotuned tiles
+(item 5); the SPMD mesh path (item 8).
 """
 
 from __future__ import annotations
@@ -21,11 +33,13 @@ from functools import lru_cache
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from repro_torch.core import contraction, csse, factorizations, perf_model
 from repro_torch.core.factorizations import Factorization
 from repro_torch.core.policy import ExecutionPolicy
-from repro_torch.memory.stash import StashPolicy
+from repro_torch.core.tnetwork import TensorNetwork
+from repro_torch.memory.stash import STORE, StashPolicy, stash, unstash
 from repro_torch.precision.policy import QuantPolicy
 
 #: torch dtype -> the dtype name the reference's policies key on
@@ -49,7 +63,7 @@ class TNNConfig:
     backend: str = "einsum"               # executor: einsum | cuda (| pallas)
     autotune: bool = False                # not ported yet (autotune slice)
     precision: QuantPolicy = field(default_factory=QuantPolicy)
-    remat: str = "store"                  # stash policy (training slice)
+    remat: str = "store"                  # stash policy: store | recompute
     memory_budget: int | None = None      # CSSE peak-footprint constraint
     phase: str = ""                       # execution-phase cache tag
 
@@ -83,14 +97,196 @@ class TNNConfig:
             self.execution_policy(compute_dtype))
 
 
+# ---------------------------------------------------------------------------
+# Gradient networks
+# ---------------------------------------------------------------------------
+
+
+def _bp_network(fact: Factorization, batch: int) -> TensorNetwork:
+    """dX[b, n..] = sum_m dY[b, m..] * W[m.., n..]."""
+    s, t = len(fact.out_dims), len(fact.in_dims)
+    sizes = dict(fact.sizes)
+    sizes["b"] = batch
+    dy_axes = ("b",) + tuple(f"m{i}" for i in range(s))
+    out = ("b",) + tuple(f"n{j}" for j in range(t))
+    return TensorNetwork(sizes=sizes, nodes=(dy_axes,) + fact.core_axes,
+                         node_names=("dY",) + fact.core_names, output=out)
+
+
+def _wg_network(fact: Factorization, batch: int, core_idx: int
+                ) -> TensorNetwork:
+    """dG_i = contraction of {X, dY, cores j != i} with output = core i's
+    axes (W is multilinear in its cores)."""
+    s, t = len(fact.out_dims), len(fact.in_dims)
+    sizes = dict(fact.sizes)
+    sizes["b"] = batch
+    nodes = [("b",) + tuple(f"n{j}" for j in range(t)),
+             ("b",) + tuple(f"m{i}" for i in range(s))]
+    names = ["X", "dY"]
+    for j, (nm, ax) in enumerate(zip(fact.core_names, fact.core_axes)):
+        if j != core_idx:
+            nodes.append(ax)
+            names.append(nm)
+    return TensorNetwork(sizes=sizes, nodes=tuple(nodes),
+                         node_names=tuple(names),
+                         output=fact.core_axes[core_idx])
+
+
+def _dw_network(fact: Factorization, batch: int) -> TensorNetwork:
+    """Shared WG intermediate: dW[m.., n..] = sum_b X[b, n..] dY[b, m..]."""
+    s, t = len(fact.out_dims), len(fact.in_dims)
+    sizes = dict(fact.sizes)
+    sizes["b"] = batch
+    x_axes = ("b",) + tuple(f"n{j}" for j in range(t))
+    dy_axes = ("b",) + tuple(f"m{i}" for i in range(s))
+    out = tuple(f"m{i}" for i in range(s)) + tuple(f"n{j}" for j in range(t))
+    return TensorNetwork(sizes=sizes, nodes=(x_axes, dy_axes),
+                         node_names=("X", "dY"), output=out)
+
+
+def _wg_from_dw_network(fact: Factorization, core_idx: int) -> TensorNetwork:
+    """dG_i from the stashed dW: contraction of {dW, cores j != i}."""
+    s, t = len(fact.out_dims), len(fact.in_dims)
+    nodes = [tuple(f"m{i}" for i in range(s))
+             + tuple(f"n{j}" for j in range(t))]
+    names = ["dW"]
+    for j, (nm, ax) in enumerate(zip(fact.core_names, fact.core_axes)):
+        if j != core_idx:
+            nodes.append(ax)
+            names.append(nm)
+    return TensorNetwork(sizes=dict(fact.sizes), nodes=tuple(nodes),
+                         node_names=tuple(names),
+                         output=fact.core_axes[core_idx])
+
+
+# ---------------------------------------------------------------------------
+# Plan cache (per layer signature x batch)
+# ---------------------------------------------------------------------------
+
+
 @lru_cache(maxsize=None)
+def _plans(fact: Factorization, batch: int, opts: csse.SearchOptions,
+           hw: perf_model.HardwareModel = perf_model.H100_SXM):
+    """FP/BP plans plus the cheaper of two WG strategies, ``indep`` (one
+    network per core gradient over {X, dY, others}) or ``shared`` (dW =
+    X·dY once, then per-core contractions over {dW, others}), by total
+    modeled latency.  Returns ``(fp, bp, (kind, dw | None, wg))``."""
+    fp = csse.search(fact.forward_network(batch_axes=(("b", batch),)), opts,
+                     hw)
+    bp = csse.search(_bp_network(fact, batch), opts, hw)
+    wg_indep = tuple(csse.search(_wg_network(fact, batch, i), opts, hw)
+                     for i in range(fact.num_cores))
+    dw = csse.search(_dw_network(fact, batch), opts, hw)
+    wg_shared = tuple(csse.search(_wg_from_dw_network(fact, i), opts, hw)
+                      for i in range(fact.num_cores))
+    cost_indep = sum(w.cost.latency_s for w in wg_indep)
+    cost_shared = dw.cost.latency_s + sum(w.cost.latency_s
+                                          for w in wg_shared)
+    if cost_shared < cost_indep:
+        wg = ("shared", dw, wg_shared)
+    else:
+        wg = ("indep", None, wg_indep)
+    return fp, bp, wg
+
+
 def fp_plan(fact: Factorization, batch: int, opts: csse.SearchOptions,
             hw: perf_model.HardwareModel = perf_model.H100_SXM
             ) -> csse.SearchResult:
-    """The CSSE-optimal FP plan of one layer at one token batch (memoised;
-    the reference's ``_plans(...)[0]``)."""
-    return csse.search(fact.forward_network(batch_axes=(("b", batch),)),
-                       opts, hw)
+    """The CSSE-optimal FP plan of one layer at one token batch."""
+    return _plans(fact, batch, opts, hw)[0]
+
+
+def phase_plans(fact: Factorization, batch: int, opts: csse.SearchOptions,
+                hw: perf_model.HardwareModel = perf_model.H100_SXM
+                ) -> dict[str, list[csse.SearchResult]]:
+    """Every plan one training step of the layer runs, by phase:
+    ``{"fp": [...], "bp": [...], "wg": [dW?, per-core...]}``."""
+    fp, bp, (kind, dw, wg) = _plans(fact, batch, opts, hw)
+    return {"fp": [fp], "bp": [bp],
+            "wg": ([dw] if kind == "shared" else []) + list(wg)}
+
+
+def layer_cost(fact: Factorization, batch: int,
+               opts: csse.SearchOptions | None = None,
+               hw: perf_model.HardwareModel = perf_model.H100_SXM
+               ) -> dict[str, perf_model.PlanCost]:
+    """Modeled FP/BP/WG cost of one tensorized layer."""
+    opts = opts or csse.SearchOptions()
+    phases = phase_plans(fact, batch, opts, hw)
+
+    def ev(r):
+        return perf_model.evaluate(r.plan, hw, fused_chain=opts.fused_chain,
+                                   mesh=opts.mesh, policy=opts.policy)
+
+    wg_cs = [ev(r) for r in phases["wg"]]
+    return {"fp": ev(phases["fp"][0]), "bp": ev(phases["bp"][0]),
+            "wg": perf_model.PlanCost(
+                latency_s=sum(c.latency_s for c in wg_cs),
+                energy_j=sum(c.energy_j for c in wg_cs),
+                flops=sum(c.flops for c in wg_cs),
+                bytes_hbm=sum(c.bytes_hbm for c in wg_cs),
+                bytes_ici=sum(c.bytes_ici for c in wg_cs),
+                collective_s=sum(c.collective_s for c in wg_cs),
+                # WG contractions run one after another with frees in
+                # between: the group's peak is the worst single plan.
+                peak_bytes=max((c.peak_bytes for c in wg_cs), default=0))}
+
+
+# ---------------------------------------------------------------------------
+# The FP/BP/WG autograd Function (the reference's custom_vjp)
+# ---------------------------------------------------------------------------
+
+
+class _TNNApply(torch.autograd.Function):
+    """``y = FP(x, cores)``; the backward runs the BP plan for dX and the
+    chosen WG strategy for every core gradient.  ``fact`` / ``opts`` /
+    ``backend`` / ``remat`` are static (the reference's nondiff args).
+    Each phase runs inside a ``torch.profiler`` range (``tnn.fp``,
+    ``tnn.bp``, ``tnn.wg``), which ``repro_torch.analysis.train_profile``
+    reads to split a step's device time by phase."""
+
+    @staticmethod
+    def forward(ctx, fact, opts, backend, remat, x, *cores):
+        fp, _, _ = _plans(fact, x.shape[0], opts)
+        with record_function("tnn.fp"):
+            y = contraction.execute(fp.plan, [x, *cores], backend=backend,
+                                    fused_chain=opts.fused_chain,
+                                    max_chain_len=opts.max_chain_len)
+        ctx.static = (fact, opts, backend, remat)
+        if any(ctx.needs_input_grad):
+            # What survives to the backward is the stash policy's call:
+            # x as is (store; recompute drops it at the model level, where
+            # the per-layer checkpoint re-runs this forward).  Cores are
+            # parameters, alive anyway.
+            payload, _, _ = stash(x, remat)
+            ctx.save_for_backward(payload, *cores)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        fact, opts, backend, remat = ctx.static
+        payload, *cores = ctx.saved_tensors
+        x = unstash((payload, None, None), remat)
+        _, bp, (wg_kind, dw_res, wg) = _plans(fact, x.shape[0], opts)
+        kw = dict(backend=backend, fused_chain=opts.fused_chain,
+                  max_chain_len=opts.max_chain_len)
+        dy = dy.to(x.dtype)
+        with record_function("tnn.bp"):
+            dx = contraction.execute(bp.plan, [dy, *cores], **kw)
+        dcores = []
+        with record_function("tnn.wg"):
+            if wg_kind == "shared":
+                dw = contraction.execute(dw_res.plan, [x, dy], **kw)
+                for i, w in enumerate(wg):
+                    others = [c for j, c in enumerate(cores) if j != i]
+                    dcores.append(contraction.execute(w.plan, [dw, *others],
+                                                      **kw))
+            else:
+                for i, w in enumerate(wg):
+                    others = [c for j, c in enumerate(cores) if j != i]
+                    dcores.append(contraction.execute(
+                        w.plan, [x, dy, *others], **kw))
+        return (None, None, None, None, dx, *dcores)
 
 
 class TensorizedLinear(nn.Module):
@@ -102,26 +298,27 @@ class TensorizedLinear(nn.Module):
     """
 
     def __init__(self, fact: Factorization, *, use_bias: bool = False,
+                 phase_paths: bool = True,
                  opts: csse.SearchOptions | None = None,
                  param_dtype=torch.float32, compute_dtype=torch.bfloat16,
-                 backend: str = "einsum", device=None,
-                 generator: torch.Generator | None = None):
+                 backend: str = "einsum", remat: StashPolicy = STORE,
+                 device=None, generator: torch.Generator | None = None):
         super().__init__()
         self.fact = fact
         self.use_bias = use_bias
+        self.phase_paths = phase_paths
         self.opts = opts or csse.SearchOptions()
         self.compute_dtype = compute_dtype
         self.backend = contraction.canonical_backend(backend)
+        self.remat = remat
         std = fact.init_std(1.0 / math.sqrt(fact.N))
         self.cores = nn.ParameterList([
             nn.Parameter((torch.randn(fact.core_shape(i), generator=generator)
-                          * std).to(device=device, dtype=param_dtype),
-                         requires_grad=False)
+                          * std).to(device=device, dtype=param_dtype))
             for i in range(fact.num_cores)])
         if use_bias:
             self.bias = nn.Parameter(
-                torch.zeros(fact.M, dtype=param_dtype, device=device),
-                requires_grad=False)
+                torch.zeros(fact.M, dtype=param_dtype, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         *lead, n = x.shape
@@ -131,10 +328,12 @@ class TensorizedLinear(nn.Module):
         xt = x.reshape((batch,) + tuple(self.fact.in_dims))
         xt = xt.to(self.compute_dtype)
         cores = [c.to(self.compute_dtype) for c in self.cores]
-        fp = fp_plan(self.fact, batch, self.opts)
-        y = contraction.execute(fp.plan, [xt, *cores], backend=self.backend,
-                                fused_chain=self.opts.fused_chain,
-                                max_chain_len=self.opts.max_chain_len)
+        if not self.phase_paths and torch.is_grad_enabled():
+            raise NotImplementedError(
+                "phase_paths=False (autodiff through the FP plan) is not "
+                "ported yet (ROADMAP.md, queue A item 10)")
+        y = _TNNApply.apply(self.fact, self.opts, self.backend, self.remat,
+                            xt, *cores)
         y = y.reshape(tuple(lead) + (self.fact.M,))
         if self.use_bias:
             y = y + self.bias.to(self.compute_dtype)
@@ -152,8 +351,9 @@ def make_tensorized_linear(out_features: int, in_features: int,
     kw = {"num_blocks": tnn.num_blocks} if tnn.method == "bt" else {}
     fact = factorizations.make(tnn.method, out_dims, in_dims, tnn.rank, **kw)
     return TensorizedLinear(fact, use_bias=use_bias,
+                            phase_paths=tnn.phase_paths,
                             opts=tnn.search_options(compute_dtype),
                             param_dtype=param_dtype,
                             compute_dtype=compute_dtype,
-                            backend=tnn.backend, device=device,
-                            generator=generator)
+                            backend=tnn.backend, remat=tnn.stash_policy(),
+                            device=device, generator=generator)

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
 
-Port of ``src/repro/kernels/``: :mod:`.fused_contraction` holds the
-kernel wrappers (sources in ``csrc/``, built by :mod:`.build` at first
-use), :mod:`.ref` the plain versions they are held against.
+Port of ``src/repro/kernels/``: :mod:`.fused_contraction` (GEMM, chain)
+and :mod:`.flash_attention` hold the kernel wrappers (sources in
+``csrc/``, built by :mod:`.build` at first use), :mod:`.ref` the plain
+versions they are held against.
 """

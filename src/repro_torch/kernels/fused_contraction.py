@@ -47,7 +47,8 @@ _NUM_SMS = 132
 _THREADS = 256
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
-LAUNCHES = {"matmul": 0, "chain_n": 0}
+#: (``flash_attention_fwd`` is counted by :mod:`.flash_attention`)
+LAUNCHES = {"matmul": 0, "chain_n": 0, "flash_attention_fwd": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -1,17 +1,25 @@
-"""Model builders shared by the launchers.
+"""Model and step builders shared by the launchers.
 
-Part-port of ``src/repro/launch/steps.py``: :func:`build_model`.  The
-training and dry-run step builders arrive with their slices (ROADMAP.md,
-queue A).
+Port of ``src/repro/launch/steps.py``: :func:`build_model` (with the
+reference's rule that the ``recompute`` stash policy turns on per-layer
+remat) and :func:`make_train_step`.  The reference's step is a pure
+function jitted by the launcher; this one runs eagerly, accumulates the
+gradients in the parameters' ``.grad`` and updates the parameters and
+optimizer state in place (:class:`repro_torch.optim.adamw.AdamW`).  The
+dry-run input specs and the prefill/decode step builders have no use in
+an eager port (the serving engine calls the model directly).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.tensorized import TNNConfig
 from repro_torch.models.lm import LM
+from repro_torch.optim.adamw import AdamW
 
 
 def build_model(arch: ArchConfig, tnn: TNNConfig | None = None,
@@ -30,4 +38,60 @@ def build_model(arch: ArchConfig, tnn: TNNConfig | None = None,
             cfg, tnn=dataclasses.replace(cfg.tnn, backend=backend))
     if compute_dtype is not None:
         cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
+    if (cfg.tnn.enabled and cfg.tnn.stash_policy().mode == "recompute"
+            and not cfg.remat):
+        # The recompute stash is realised at the model level: per-layer
+        # checkpointing drops every tensorized residual and re-runs the
+        # FP plans inside the backward.
+        cfg = dataclasses.replace(cfg, remat=True)
     return LM(cfg, device=device, seed=seed), cfg
+
+
+def make_train_step(model: LM, opt: AdamW, microbatches: int = 1):
+    """``train_step(state, batch) -> (state, metrics)`` with ``state =
+    {"params": {name: Parameter}, "opt": OptState}``.
+
+    With ``microbatches > 1`` the batch splits along dim 0 and gradients
+    accumulate over the pieces (summed, then averaged, as the reference's
+    scan).  Static loss scaling (``opt.loss_scale``) multiplies the loss
+    before the backward; AdamW divides it back out of the gradients."""
+    ls = opt.loss_scale
+
+    def grad_fn(mb: dict):
+        loss, metrics = model.loss(mb)
+        if ls != 1.0:
+            loss = loss * ls
+        loss.backward()
+        loss = loss.detach()
+        if ls != 1.0:
+            loss = loss / ls
+        return loss, metrics
+
+    def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
+        params = state["params"]
+        for p in params.values():
+            p.grad = None
+        if microbatches == 1:
+            loss, metrics = grad_fn(batch)
+        else:
+            rows = len(batch["inputs"])
+            if rows % microbatches:
+                raise ValueError(f"batch of {rows} does not split into "
+                                 f"{microbatches} microbatches")
+            n = rows // microbatches
+            loss = torch.zeros((), dtype=torch.float32)
+            for i in range(microbatches):
+                mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                mb_loss, metrics = grad_fn(mb)
+                loss = loss.to(mb_loss.device) + mb_loss
+            loss = loss / microbatches
+            for p in params.values():
+                p.grad.div_(microbatches)
+        grads = {n: p.grad for n, p in params.items()}
+        params, new_opt, om = opt.update(grads, state["opt"], params)
+        metrics = {k: v.detach() if torch.is_tensor(v) else v
+                   for k, v in metrics.items()}
+        return ({"params": params, "opt": new_opt},
+                {**metrics, **om, "loss": loss})
+
+    return train_step

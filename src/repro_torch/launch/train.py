@@ -1,0 +1,221 @@
+"""End-to-end training driver: data -> train loop, with a step watchdog.
+
+Port of ``src/repro/launch/train.py`` (single device)::
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch paper_atis_tt \
+      --tnn --tnn-backend cuda --steps 20 --batch 8 --seq 128
+  PYTHONPATH=src python -m repro_torch.launch.train --arch paper_atis_tt \
+      --smoke --tnn --tnn-backend cuda --device cpu --steps 3 --batch 2 \
+      --seq 16
+
+``--device`` defaults to ``cuda``; ``--device cpu`` runs the kernels'
+plain versions.  The loop, its ``train.step`` / ``train.data`` /
+``train.step_fn`` spans and its log line are the reference's.  Weights
+are random from seed 0.
+
+The reference's other flags are refused with the ROADMAP.md item that
+ports them, never ignored: ``--tnn-precision`` and a quantized
+``--tnn-remat`` (queue A item 3), ``--tnn-memory-budget`` (item 4),
+``--tnn-autotune`` and ``--tnn-search joint`` (item 5), ``--tnn-mesh``,
+``--tnn-pipeline`` and ``--production-mesh`` (item 8), ``--ckpt-dir`` /
+``--ckpt-every`` (item 10).  The activation-memory probe the reference
+logs arrives with item 4.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch import telemetry as tm
+from repro_torch.configs import base as cfgbase
+from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.distributed import fault_tolerance as ft
+from repro_torch.launch import steps as steps_lib
+from repro_torch.memory.stash import StashPolicy
+from repro_torch.optim.adamw import AdamW
+
+_log = tm.get_logger("train")
+
+#: reference flags this port refuses, with the ROADMAP.md item porting them
+UNPORTED_FLAGS = {
+    "tnn_precision": ("--tnn-precision", "queue A item 3 (precision)"),
+    "tnn_memory_budget": ("--tnn-memory-budget", "queue A item 4 (memory)"),
+    "tnn_autotune": ("--tnn-autotune", "queue A item 5 (autotune)"),
+    "tnn_mesh": ("--tnn-mesh", "queue A item 8 (distributed)"),
+    "tnn_pipeline": ("--tnn-pipeline", "queue A item 8 (distributed)"),
+    "production_mesh": ("--production-mesh", "queue A item 8 (distributed)"),
+    "ckpt_dir": ("--ckpt-dir", "queue A item 10 (checkpoints)"),
+    "ckpt_every": ("--ckpt-every", "queue A item 10 (checkpoints)"),
+}
+
+
+def _stash_policy(tnn_remat: str) -> StashPolicy:
+    policy = StashPolicy.parse(tnn_remat)
+    if policy.quantized:
+        raise NotImplementedError(
+            f"--tnn-remat {policy.tag()} needs the quantized stash, which "
+            "is not ported yet (ROADMAP.md, queue A item 3: precision)")
+    return policy
+
+
+def train(arch_id: str, *, smoke: bool, tnn: bool, steps: int,
+          global_batch: int, seq_len: int, lr: float,
+          microbatches: int = 1, log_every: int = 10,
+          tnn_backend: str | None = None, tnn_remat: str | None = None,
+          loss_scale: float = 1.0, trace_path: str | None = None,
+          device: str = "cuda") -> dict:
+    """Train ``arch_id`` for ``steps`` steps on synthetic data; returns
+    the per-step losses, grad norms and step seconds, and the final
+    state."""
+    owns_trace = bool(trace_path) and not tm.enabled()
+    if owns_trace:
+        tm.configure(trace_path)
+    arch = cfgbase.get(arch_id)
+    tnn_cfg = arch.tnn_default if tnn else None
+    if tnn_cfg is not None and tnn_backend is not None:
+        tnn_cfg = dataclasses.replace(tnn_cfg, backend=tnn_backend)
+    if tnn_cfg is not None and tnn_remat:
+        tnn_cfg = dataclasses.replace(tnn_cfg,
+                                      remat=_stash_policy(tnn_remat).tag())
+    model, cfg = steps_lib.build_model(arch, tnn=tnn_cfg, smoke=smoke,
+                                       device=device, seed=0)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq_len,
+                                  global_batch=global_batch))
+    opt = AdamW(lr=lr, total_steps=max(steps, 2), warmup_steps=min(20, steps),
+                loss_scale=loss_scale)
+    params = dict(model.named_parameters())
+    state = {"params": params, "opt": opt.init(params)}
+    step_fn = steps_lib.make_train_step(model, opt,
+                                        microbatches=microbatches)
+
+    watchdog = ft.StepWatchdog()
+    history, gnorms, step_s = [], [], []
+    t_start = time.time()
+    for step in range(steps):
+        with tm.span("train.step", step=step):
+            with tm.span("train.data"):
+                batch = {k: torch.as_tensor(v).to(model.device)
+                         for k, v in data.batch(step).items()}
+            t0 = time.time()
+            with tm.span("train.step_fn"):
+                state, metrics = step_fn(state, batch)
+                loss = float(metrics["loss"])    # waits for the device
+            dur = time.time() - t0
+        watchdog.observe(step, dur)
+        history.append(loss)
+        gnorms.append(float(metrics["grad_norm"]))
+        step_s.append(dur)
+        if step % log_every == 0 or step == steps - 1:
+            tok_s = global_batch * seq_len / max(dur, 1e-9)
+            _log.info(f"step {step:5d} loss {loss:8.4f} "
+                      f"gnorm {gnorms[-1]:7.3f} "
+                      f"lr {float(metrics['lr']):.2e} {dur*1e3:7.1f}ms "
+                      f"({tok_s:,.0f} tok/s)")
+    wall = time.time() - t_start
+    if owns_trace:
+        tm.finalize()
+    return {"losses": history, "grad_norms": gnorms, "step_s": step_s,
+            "final_loss": history[-1] if history else None, "wall_s": wall,
+            "stragglers": len(watchdog.straggler_events),
+            "microbatches": microbatches, "cfg": cfg, "state": state}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        description="Train an architecture with the PyTorch/CUDA port.")
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced same-family config (CPU-runnable)")
+    ap.add_argument("--tnn", action="store_true",
+                    help="enable the paper's tensorized layers")
+    ap.add_argument("--tnn-backend", choices=["einsum", "cuda", "pallas"],
+                    default=None,
+                    help="contraction executor for tensorized layers: "
+                         "einsum (torch.einsum per step) or cuda (the "
+                         "hand-written GEMM/chain kernels; pallas is an "
+                         "alias)")
+    ap.add_argument("--tnn-remat", default=None, metavar="POLICY",
+                    help="activation stash policy of the tensorized "
+                         "layers: store (default) | recompute (per-layer "
+                         "checkpointing re-runs the FP plans in the "
+                         "backward)")
+    ap.add_argument("--tnn-trace", default=None, metavar="PATH",
+                    help="write a telemetry trace of the run ('*.jsonl' "
+                         "streams events, any other suffix writes Chrome "
+                         "trace-event JSON)")
+    ap.add_argument("--loss-scale", type=float, default=1.0,
+                    help="static loss scaling: the loss is multiplied by "
+                         "this before the backward and the gradients "
+                         "divided back in AdamW")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; the kernels) or cpu (their plain "
+                         "versions)")
+    unported = ap.add_argument_group(
+        "not ported yet (refused; see ROADMAP.md)")
+    unported.add_argument("--tnn-precision", default=None)
+    unported.add_argument("--tnn-memory-budget", default=None)
+    unported.add_argument("--tnn-autotune", action="store_true")
+    unported.add_argument("--tnn-search", choices=["per-axis", "joint"],
+                          default="per-axis")
+    unported.add_argument("--tnn-mesh", default=None)
+    unported.add_argument("--tnn-pipeline", type=int, default=None)
+    unported.add_argument("--production-mesh", action="store_true")
+    unported.add_argument("--ckpt-dir", default=None)
+    unported.add_argument("--ckpt-every", type=int, default=None)
+    return ap
+
+
+def main(argv=None) -> None:
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    for dest, (flag, item) in UNPORTED_FLAGS.items():
+        if getattr(args, dest) not in (None, False):
+            ap.error(f"{flag} is not ported yet (ROADMAP.md, {item})")
+    if args.tnn_search != "per-axis":
+        ap.error("--tnn-search joint is not ported yet (ROADMAP.md, "
+                 "queue A item 5 (autotune and joint search))")
+    for flag, val in (("--tnn-backend", args.tnn_backend),
+                      ("--tnn-remat", args.tnn_remat)):
+        if val is not None and not args.tnn:
+            ap.error(f"{flag} requires --tnn (no tensorized layers "
+                     "without it)")
+    if args.tnn_remat is not None:
+        try:
+            _stash_policy(args.tnn_remat)
+        except (NotImplementedError, ValueError) as e:
+            ap.error(str(e))
+    if args.device == "cuda" and not torch.cuda.is_available():
+        ap.error("--device cuda: no CUDA card visible (use --device cpu "
+                 "for the kernels' plain versions)")
+
+    def run(start_step: int) -> int:
+        out = train(args.arch, smoke=args.smoke, tnn=args.tnn,
+                    steps=args.steps, global_batch=args.batch,
+                    seq_len=args.seq, lr=args.lr,
+                    microbatches=args.microbatches,
+                    tnn_backend=args.tnn_backend, tnn_remat=args.tnn_remat,
+                    loss_scale=args.loss_scale, trace_path=args.tnn_trace,
+                    device=args.device)
+        _log.info(f"done: final loss {out['final_loss']:.4f} "
+                  f"in {out['wall_s']:.1f}s, stragglers={out['stragglers']}")
+        return args.steps
+
+    try:
+        ft.run_with_restarts(
+            run, max_restarts=2,
+            on_failure=lambda e: _log.info(f"RESTART: {e}"))
+    finally:
+        tm.finalize()
+
+
+if __name__ == "__main__":
+    main()

@@ -2,13 +2,20 @@
 
 Part-port of ``src/repro/memory/stash.py``: the :class:`StashPolicy`
 dataclass and :data:`STORE`, which enter every execution-policy cache
-signature.  The residual pack/unpack functions serve the backward pass
-and arrive with the training slice (ROADMAP.md, queue A).
+signature, and the residual pack/unpack pair :func:`stash` /
+:func:`unstash` the tensorized layer's backward reads, for the
+non-quantized policies.  ``store`` and ``recompute`` keep the activation
+as is (``recompute`` is realised by the model's per-layer
+``torch.utils.checkpoint``, which drops the residual and re-runs the
+forward).  A quantized stash needs the precision slice (ROADMAP.md, queue
+A item 3) and raises.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import torch
 
 from repro_torch.precision.policy import ALIASES, DTYPES
 
@@ -51,3 +58,25 @@ class StashPolicy:
 
 #: default policy — the activation stored as is
 STORE = StashPolicy()
+
+
+def _refuse_quantized(policy: StashPolicy) -> None:
+    if policy.quantized:
+        raise NotImplementedError(
+            f"stash policy {policy.tag()!r} needs the quantized stash, "
+            "which is not ported yet (ROADMAP.md, queue A item 3: "
+            "precision)")
+
+
+def stash(x: torch.Tensor, policy: StashPolicy) -> tuple:
+    """Pack ``x`` into this policy's residual: ``(payload, scale,
+    amax)``, with ``scale`` and ``amax`` None for the non-quantized
+    policies (the reference's structure)."""
+    _refuse_quantized(policy)
+    return (x, None, None)
+
+
+def unstash(res: tuple, policy: StashPolicy, dtype=None) -> torch.Tensor:
+    """Reconstruct the activation from a :func:`stash` residual."""
+    _refuse_quantized(policy)
+    return res[0]

@@ -1,22 +1,25 @@
-"""Transformer building blocks as PyTorch modules (serving path).
+"""Transformer building blocks as PyTorch modules.
 
 Port of ``src/repro/models/blocks.py``: :func:`make_dense` (a dense
 matrix, or a :class:`~repro_torch.core.tensorized.TensorizedLinear` when a
 TNN config targets the projection), :func:`rmsnorm`, :func:`rope`,
-:class:`KVCache`, the GQA :class:`Attention` with its serving paths
-(``extend`` — chunked prefill at per-slot depths — and ``decode_step``),
-and :class:`SwiGLU`.
+:class:`KVCache`, the GQA :class:`Attention` with its full-sequence
+training forward and its serving paths (``extend`` — chunked prefill at
+per-slot depths — and ``decode_step``), :func:`blockwise_attention` with
+the flash backward, and :class:`SwiGLU`.
 
 Parameter names and layouts are the reference's (``Dense.w`` is
 ``[d_in, d_out]``, TT cores keep their shapes), so
 :func:`repro_torch.convert.params_from_numpy` maps the reference's
-parameter tree one to one.  The attention arithmetic is the reference's
-plain-array code (f32 scores, softmax, f32 context), as plain torch ops;
-the reference reaches its flash-attention kernel only from the training
-forward, which is not on this path.
+parameter tree one to one.  The full-sequence attention forward runs the
+flash-attention kernel (:mod:`repro_torch.kernels.flash_attention`) on a
+CUDA tensor and its plain version on the CPU, as the reference runs its
+Pallas kernel on a TPU and the jnp twin elsewhere; the flash backward is
+torch ops, as the reference's is plain jnp.  The serving paths' attention
+is the reference's plain-array code (f32 scores, softmax, f32 context).
 
-Not ported yet: the full-sequence ``__call__`` / ``prefill`` paths with
-blockwise (flash) attention, and :class:`MoE` (ROADMAP.md, queue A).
+Not ported yet: ``prefill`` (ROADMAP.md, queue A item 10) and
+:class:`MoE` (item 7).
 """
 
 from __future__ import annotations
@@ -26,8 +29,10 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from repro_torch.core.tensorized import TNNConfig, make_tensorized_linear
+from repro_torch.kernels import flash_attention as fa
 
 
 class Dense(nn.Module):
@@ -42,11 +47,10 @@ class Dense(nn.Module):
         std = 1.0 / math.sqrt(d_in)
         self.w = nn.Parameter(
             (torch.randn(d_in, d_out, generator=generator) * std).to(
-                device=device, dtype=param_dtype), requires_grad=False)
+                device=device, dtype=param_dtype))
         if use_bias:
             self.b = nn.Parameter(torch.zeros(d_out, dtype=param_dtype,
-                                              device=device),
-                                  requires_grad=False)
+                                              device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype
@@ -76,8 +80,7 @@ def make_dense(d_in: int, d_out: int, *, use_bias: bool = False,
 class RMSNorm(nn.Module):
     def __init__(self, d: int, device=None):
         super().__init__()
-        self.scale = nn.Parameter(torch.ones(d, device=device),
-                                  requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(d, device=device))
 
     def forward(self, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
         return rmsnorm(self.scale, x, eps)
@@ -148,13 +151,16 @@ class Attention(nn.Module):
 
     def __init__(self, d_model: int, num_heads: int, num_kv_heads: int,
                  head_dim: int, *, qkv_bias: bool = False,
-                 rope_theta: float = 10000.0, tnn: TNNConfig | None = None,
+                 rope_theta: float = 10000.0,
+                 q_chunk: int = 512, kv_chunk: int = 1024,
+                 tnn: TNNConfig | None = None,
                  param_dtype=torch.float32, compute_dtype=torch.bfloat16,
                  device=None, generator: torch.Generator | None = None):
         super().__init__()
         self.num_heads, self.num_kv_heads = num_heads, num_kv_heads
         self.head_dim = head_dim
         self.rope_theta = rope_theta
+        self.q_chunk, self.kv_chunk = q_chunk, kv_chunk
         H, KV, D = num_heads, num_kv_heads, head_dim
 
         def proj(d_in, d_out, bias, target):
@@ -177,6 +183,17 @@ class Attention(nn.Module):
         v = self.v(x).reshape(B, T, KV, D)
         return (rope(q, positions, self.rope_theta),
                 rope(k, positions, self.rope_theta), v)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor
+                ) -> torch.Tensor:
+        """Full-sequence attention (training).  x: [B, T, d_model],
+        positions: [B, T]."""
+        B, T, _ = x.shape
+        q, k, v = self._qkv(x, positions)
+        ctx = blockwise_attention(q, k, v, causal=True,
+                                  q_chunk=self.q_chunk,
+                                  kv_chunk=self.kv_chunk)
+        return self.o(ctx.reshape(B, T, self.num_heads * self.head_dim))
 
     def _attend(self, q, kc, vc, positions, dtype):
         """Scores of ``q [B, C, H, D]`` against the whole cache, masked to
@@ -222,6 +239,106 @@ class Attention(nn.Module):
         adv = C if valid is None else valid.cpu().to(cache.length.dtype)
         out = self._attend(q, kc, vc, positions, x.dtype)
         return out, KVCache(kc, vc, cache.length + adv)
+
+
+# ---------------------------------------------------------------------------
+# Blockwise (flash) attention
+# ---------------------------------------------------------------------------
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool, q_chunk: int, kv_chunk: int,
+                        softmax_scale: float | None = None) -> torch.Tensor:
+    """Memory-efficient attention with an online softmax.
+
+    GQA: q ``[B, Tq, H, D]``, k/v ``[B, Tk, KV, D]`` with ``H = KV * G``.
+    Runs through :class:`_FlashAttention`, whose backward recomputes
+    per-chunk probabilities from the saved ``(q, k, v, out, lse)``."""
+    scale = softmax_scale or 1.0 / math.sqrt(q.shape[-1])
+    qc, kc = min(q_chunk, q.shape[1]), min(kv_chunk, k.shape[1])
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal, qc, kc, scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``_flash_attention`` custom VJP.  The forward runs
+    the flash kernel on a CUDA tensor and the plain version on the CPU
+    (:func:`repro_torch.kernels.flash_attention.flash_attention_fwd`);
+    the backward is :func:`_flash_bwd`.  Both run inside
+    ``torch.profiler`` ranges (``attn.fwd``, ``attn.bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_chunk, kv_chunk, scale):
+        with record_function("attn.fwd"):
+            out, lse = fa.flash_attention_fwd(
+                q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                softmax_scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.static = (causal, q_chunk, kv_chunk, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        with record_function("attn.bwd"):
+            dq, dk, dv = _flash_bwd(*ctx.static, ctx.saved_tensors, do)
+        return dq, dk, dv, None, None, None, None
+
+
+def _flash_bwd(causal, q_chunk, kv_chunk, scale, res, do):
+    """Flash backward: for each (kv, q) chunk pair, recompute
+    ``p = exp(q k^T scale - lse)`` from the saved stats, then
+
+        dv_j += p^T do_i
+        ds    = p * (do_i v_j^T - delta_i) * scale
+        dq_i += ds k_j ;  dk_j += ds^T q_i
+
+    with the reference's rounding points: ``p`` cast to v's dtype and
+    ``ds`` to q's before their products, f32 accumulators, and dq/dk/dv
+    cast to their operands' dtypes at the end."""
+    q, k, v, out, lse = res
+    B, Tq, H, D = q.shape
+    Tk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    nq, nk = Tq // q_chunk, Tk // kv_chunk
+    f32 = torch.float32
+    dev = q.device
+
+    # delta_i = rowsum(do * out)  [B, Tq, KV, G]
+    delta = (do.float() * out.float()).sum(dim=-1).reshape(B, Tq, KV, G)
+    q_pos = torch.arange(Tq, device=dev)
+    k_pos = torch.arange(Tk, device=dev)
+    dq = torch.zeros((B, Tq, KV, G, D), dtype=f32, device=dev)
+    dks, dvs = [], []
+    for j in range(nk):
+        ks = slice(j * kv_chunk, (j + 1) * kv_chunk)
+        k_blk, v_blk = k[:, ks].float(), v[:, ks].float()
+        dk_j = torch.zeros((B, kv_chunk, KV, D), dtype=f32, device=dev)
+        dv_j = torch.zeros((B, kv_chunk, KV, D), dtype=f32, device=dev)
+        for i in range(nq):
+            qs = slice(i * q_chunk, (i + 1) * q_chunk)
+            q_raw = q[:, qs].reshape(B, q_chunk, KV, G, D)
+            q_blk = q_raw.float()
+            do_blk = do[:, qs].reshape(B, q_chunk, KV, G, D).float()
+            lse_blk = lse[:, qs].permute(0, 2, 3, 1)[..., None]
+            dl_blk = delta[:, qs].permute(0, 2, 3, 1)[..., None]
+            s = torch.einsum("bqkgd,btkd->bkgqt", q_blk, k_blk) * scale
+            if causal:
+                mask = q_pos[qs][:, None] >= k_pos[ks][None, :]
+                s = torch.where(mask, s, torch.full((), -torch.inf,
+                                                    device=dev))
+            p = torch.exp(s - lse_blk)
+            dov = torch.einsum("bqkgd,btkd->bkgqt", do_blk, v_blk)
+            ds = p * (dov - dl_blk) * scale
+            pb = p.to(v.dtype).float()
+            dsb = ds.to(q.dtype).float()
+            dv_j = dv_j + torch.einsum("bkgqt,bqkgd->btkd", pb, do_blk)
+            dk_j = dk_j + torch.einsum("bkgqt,bqkgd->btkd", dsb, q_blk)
+            dq[:, qs] += torch.einsum("bkgqt,btkd->bqkgd", dsb, k_blk)
+        dks.append(dk_j)
+        dvs.append(dv_j)
+    return (dq.reshape(B, Tq, H, D).to(q.dtype),
+            torch.cat(dks, dim=1).to(k.dtype),
+            torch.cat(dvs, dim=1).to(v.dtype))
 
 
 class SwiGLU(nn.Module):

@@ -1,18 +1,27 @@
-"""Decoder-only language model, dense-attention family (serving path).
+"""Decoder-only language model, dense-attention family.
 
 Port of ``src/repro/models/lm.py``: :class:`LMConfig`, and :class:`LM`
-with the serving entry points ``init_cache``, ``extend`` (chunked
-prefill at per-slot depths) and ``decode_step``.  Every projection
-consults ``cfg.tnn`` (:func:`repro_torch.models.blocks.make_dense`), which
-is how the paper's technique, and with ``backend="cuda"`` the CUDA
-kernels, enter the model.
+with the training forward (``forward`` — the reference's ``__call__`` —
+over :meth:`LM.apply_layers`, and the masked next-token loss
+``token_loss`` / ``loss``) and the serving entry points ``init_cache``,
+``extend`` (chunked prefill at per-slot depths) and ``decode_step``.
+Every projection consults ``cfg.tnn``
+(:func:`repro_torch.models.blocks.make_dense`), which is how the paper's
+technique, and with ``backend="cuda"`` the CUDA kernels, enter the model.
+
+``remat`` re-runs each layer's forward inside the backward
+(``torch.utils.checkpoint`` per layer, non-reentrant), the reference's
+per-layer ``jax.checkpoint`` with ``nothing_saveable``.  The reference's
+``scan_layers`` and ``remat_group`` choose how XLA lowers the layer stack;
+an eager loop over per-layer modules has nothing to choose, so they are
+left out.
 
 Parameter names follow the reference's tree with the stacked ``[L, ...]``
 layer leaves split per layer (``layers.<l>.attn.q.cores.<i>``), so
 :func:`repro_torch.convert.params_from_numpy` loads reference parameters.
 
-Not ported yet: MoE, RWKV6/Mamba2 and hybrid blocks, the training
-``__call__``/loss and ``prefill`` (ROADMAP.md, queue A).
+Not ported yet: MoE and its auxiliary loss, RWKV6/Mamba2 and hybrid
+blocks (ROADMAP.md, queue A items 6-7), and ``prefill`` (item 10).
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.tensorized import TNNConfig
 from repro_torch.models.blocks import (
@@ -46,6 +56,9 @@ class LMConfig:
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     tnn: TNNConfig = TNNConfig()
+    q_chunk: int = 512                     # blockwise attention tile sizes
+    kv_chunk: int = 1024
+    remat: bool = True                     # per-layer activation remat
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
 
@@ -77,6 +90,7 @@ class DecoderLayer(nn.Module):
         self.ln1 = RMSNorm(c.d_model, device=device)
         self.attn = Attention(c.d_model, c.num_heads, c.num_kv_heads, c.hd,
                               qkv_bias=c.qkv_bias, rope_theta=c.rope_theta,
+                              q_chunk=c.q_chunk, kv_chunk=c.kv_chunk,
                               tnn=tnn, **common)
         self.ln2 = RMSNorm(c.d_model, device=device)
         self.mlp = SwiGLU(c.d_model, c.d_ff, tnn=tnn, **common)
@@ -95,7 +109,7 @@ class LM(nn.Module):
         std = 1.0 / math.sqrt(c.d_model)
         self.embed = nn.Parameter(
             (torch.randn(c.vocab, c.d_model, generator=gen) * std).to(
-                device=self.device, dtype=c.param_dtype), requires_grad=False)
+                device=self.device, dtype=c.param_dtype))
         self.ln_f = RMSNorm(c.d_model, device=self.device)
         self.layers = nn.ModuleList(
             DecoderLayer(c, device=self.device, generator=gen)
@@ -119,6 +133,56 @@ class LM(nn.Module):
             return torch.einsum("btd,vd->btv", x.float(), w).to(
                 c.compute_dtype)
         return self.lm_head(x)
+
+    # -- full-sequence forward (training) --------------------------------------
+
+    def _attn_layer(self, layer: DecoderLayer, x: torch.Tensor,
+                    positions: torch.Tensor) -> torch.Tensor:
+        c = self.cfg
+        x = x + layer.attn(layer.ln1(x, c.norm_eps), positions)
+        return x + layer.mlp(layer.ln2(x, c.norm_eps))
+
+    def apply_layers(self, x: torch.Tensor, positions: torch.Tensor
+                     ) -> torch.Tensor:
+        """Run the layer stack; with ``cfg.remat`` and grad enabled, each
+        layer's activations are recomputed in the backward."""
+        for layer in self.layers:
+            if self.cfg.remat and torch.is_grad_enabled():
+                x = checkpoint(self._attn_layer, layer, x, positions,
+                               use_reentrant=False)
+            else:
+                x = self._attn_layer(layer, x, positions)
+        return x
+
+    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+        """inputs: ``[B, T]`` token ids -> logits ``[B, T, V]``."""
+        B, T = inputs.shape[:2]
+        positions = torch.arange(T, device=self.device)[None].expand(B, T)
+        x = self.apply_layers(self._embed(inputs), positions)
+        return self._logits(self.ln_f(x, self.cfg.norm_eps))
+
+    # -- loss -------------------------------------------------------------------
+
+    def token_loss(self, logits: torch.Tensor, batch: dict
+                   ) -> tuple[torch.Tensor, dict]:
+        """Masked next-token NLL from precomputed logits: the mean over
+        ``mask`` (all ones when absent) of ``logsumexp - gold``, in f32."""
+        targets = torch.as_tensor(batch["targets"]).to(self.device).long()
+        mask = batch.get("mask")
+        mask = (torch.ones(targets.shape, device=self.device)
+                if mask is None else
+                torch.as_tensor(mask).to(self.device, torch.float32))
+        lf = logits.float()
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = lf.gather(-1, targets[..., None])[..., 0]
+        nll = (lse - gold) * mask
+        loss = nll.sum() / torch.clamp_min(mask.sum(), 1.0)
+        return loss, {"nll": loss, "tokens": mask.sum()}
+
+    def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        """batch: ``{"inputs": [B, T], "targets": [B, T], "mask"?}``."""
+        inputs = torch.as_tensor(batch["inputs"]).to(self.device)
+        return self.token_loss(self(inputs), batch)
 
     # -- caches ---------------------------------------------------------------
 

@@ -175,6 +175,7 @@ class ServeEngine:
 
         return type(new)(*(sel(n, o) for n, o in zip(new, old)))
 
+    @torch.no_grad()
     def _extend(self, toks: np.ndarray, valid: np.ndarray,
                 active: np.ndarray):
         cache = self.cache._replace(length=torch.from_numpy(self.lengths))
@@ -183,6 +184,7 @@ class ServeEngine:
             valid=torch.from_numpy(valid))
         return logits, self._select(active, new, cache)
 
+    @torch.no_grad()
     def _decode(self, active: np.ndarray):
         cache = self.cache._replace(length=torch.from_numpy(self.lengths))
         logits, new = self.model.decode_step(

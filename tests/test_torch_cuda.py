@@ -1,0 +1,173 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Every test here is ``cuda``-marked and skips without a card (the check
+is made inside a fixture).  This file imports neither JAX nor the
+reference, so it runs on a machine that has only PyTorch and the CUDA
+toolkit::
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: f32 1e-5 of the output scale (sums in another order); bf16
+2e-2 of the scale for the GEMM/chain kernels (one bf16 ulp, carried
+through a chain link) and one bf16 ulp of the scale for attention (one
+bf16 ulp of each element on the rounding probe).
+"""
+
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import contraction, csse  # noqa: E402
+from repro_torch.core.tnetwork import TensorNetwork  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import fused_contraction as fc  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this on the GPU")
+    return torch.device("cuda")
+
+
+def _bf16_ulp(scale: float) -> float:
+    return 2.0 ** (math.floor(math.log2(max(scale, 1e-30))) - 7)
+
+
+def _max_err(got, want):
+    return float((got.float() - want.float()).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_match_plain_versions(cuda_device, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(128, 8, generator=gen, device=cuda_device).to(dtype)
+    w = torch.randn(768, 8, generator=gen, device=cuda_device).to(dtype)
+    before = dict(fc.LAUNCHES)
+    got = fc.matmul_cuda(x, w, transpose_rhs=True)
+    want = ref.matmul(x, w, transpose_rhs=True)
+    scale = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2 * scale
+    xc = torch.randn(2048, 192, generator=gen, device=cuda_device).to(dtype)
+    ws = [torch.randn(s, generator=gen, device=cuda_device).to(dtype)
+          for s in ((192, 8), (128, 8))]
+    got = fc.chain_n_cuda(xc, ws)
+    want = ref.chain_n(xc, ws)
+    scale = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2 * scale
+    assert fc.LAUNCHES["matmul"] == before["matmul"] + 1
+    assert fc.LAUNCHES["chain_n"] == before["chain_n"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n,k,trans", [
+    (768, 3072, 1024, False),      # the shared WG strategy's dW
+    (768, 8, 3072, True),          # a per-core WG product, K walked serially
+    (12, 64, 1, False),            # an outer product: no contracted axis
+])
+def test_cuda_gemm_at_training_shapes(cuda_device, dtype, m, n, k, trans):
+    gen = torch.Generator(device=cuda_device).manual_seed(m + n + k)
+    x = torch.randn(m, k, generator=gen, device=cuda_device).to(dtype)
+    w = torch.randn((n, k) if trans else (k, n), generator=gen,
+                    device=cuda_device).to(dtype)
+    got = fc.matmul_cuda(x, w, transpose_rhs=trans)
+    want = ref.matmul(x, w, transpose_rhs=trans)
+    scale = float(want.float().abs().max())
+    tol = 1e-5 * scale if dtype == torch.float32 else _bf16_ulp(scale)
+    assert _max_err(got, want) <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_outer_product_step_runs_the_gemm(cuda_device):
+    net = TensorNetwork(sizes={"a": 3, "b": 4, "c": 5},
+                        nodes=(("a", "b"), ("c",)), node_names=("A", "C"),
+                        output=("a", "c", "b"))
+    plan = csse.search(net).plan
+    rng = np.random.default_rng(0)
+    ts = [torch.from_numpy(rng.standard_normal(net.node_shape(i)).astype(
+        np.float32)).to(cuda_device) for i in range(2)]
+    before = fc.LAUNCHES["matmul"]
+    got = contraction.execute(plan, ts, backend="cuda")
+    assert fc.LAUNCHES["matmul"] == before + 1
+    torch.testing.assert_close(got, torch.einsum("ab,c->acb", *ts),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_kernel_matches_plain_version(cuda_device, dtype):
+    """At the plain version's own chunking: one kv chunk, several, a
+    ragged last sub-tile (kv chunk 100) and the largest chunk."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for B, T, H, KV, D, causal, kc in ((8, 128, 12, 12, 64, True, 128),
+                                       (2, 256, 8, 2, 128, False, 64),
+                                       (2, 200, 6, 2, 24, True, 100),
+                                       (1, 1024, 4, 4, 64, True, 1024)):
+        q, k, v = (torch.randn(s, generator=gen, device=cuda_device).to(dtype)
+                   for s in ((B, T, H, D), (B, T, KV, D), (B, T, KV, D)))
+        before = fc.LAUNCHES["flash_attention_fwd"]
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                          q_chunk=T, kv_chunk=kc)
+        want, want_lse = ref.flash_attention_fwd(
+            q, k, v, causal=causal, q_chunk=T, kv_chunk=kc)
+        torch.cuda.synchronize()
+        assert fc.LAUNCHES["flash_attention_fwd"] == before + 1
+        scale = float(want.float().abs().max())
+        tol = 1e-5 * scale if dtype == torch.float32 else _bf16_ulp(scale)
+        assert _max_err(out, want) <= tol
+        torch.testing.assert_close(lse, want_lse, rtol=0,
+                                   atol=1e-5 * float(want_lse.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_chunk", [128, 64])
+def test_cuda_flash_kernel_rounds_p_per_chunk(cuda_device, kv_chunk):
+    """On the rounding probe every output element is within one bf16 ulp
+    of the plain version's: a kernel that skipped ``p``'s rounding, or
+    stepped its softmax over fewer keys than the chunk, misses by many
+    (``tests/test_torch_flash.py`` shows both)."""
+    B, T, H, D = 8, 128, 12, 64
+    q, k, v = fa.rounding_probe(B, T, H, D, device=cuda_device)
+    kw = dict(causal=False, q_chunk=T, kv_chunk=kv_chunk)
+    out, _ = fa.flash_attention_fwd(q, k, v, **kw)
+    want, _ = ref.flash_attention_fwd(q, k, v, **kw)
+    w = want.float()
+    ulp = 2.0 ** (torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+    assert float(((out.float() - w).abs() / ulp).max()) <= 1.0
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_matches_the_cpu(cuda_device):
+    """One f32 training step of the smoke LM through the kernels on the
+    card and through their plain versions on the CPU: loss within 1e-5
+    and every gradient within 1e-4 of its scale."""
+    from repro_torch.configs import base
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import steps
+
+    arch = base.get("paper_atis_tt")
+    grads, losses = [], []
+    for device in ("cpu", cuda_device):
+        model, cfg = steps.build_model(arch, arch.tnn_default, smoke=True,
+                                       device=device, backend="cuda",
+                                       compute_dtype=torch.float32)
+        batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                       global_batch=4)).batch(0)
+        before = dict(fc.LAUNCHES)
+        loss, _ = model.loss({k: torch.from_numpy(v)
+                              for k, v in batch.items()})
+        loss.backward()
+        if device != "cpu":
+            assert all(fc.LAUNCHES[k] > before[k] for k in fc.LAUNCHES)
+        losses.append(float(loss.detach()))
+        grads.append({n: p.grad.cpu() for n, p in model.named_parameters()})
+    assert losses[1] == pytest.approx(losses[0], rel=1e-5)
+    for name, g in grads[0].items():
+        torch.testing.assert_close(grads[1][name], g, rtol=0,
+                                   atol=1e-4 * float(g.abs().max()))

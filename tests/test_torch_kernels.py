@@ -5,8 +5,8 @@ here against the JAX Pallas kernels in interpret mode on the same numpy
 inputs.  Tolerances: f32 1e-6 relative (sums in another order); bf16
 compared after upcasting, 1e-2 relative (a bf16 rounding can land one
 ulp apart).  The CUDA kernels themselves are held against the plain
-versions on the card by the ``cuda``-marked test (skipped without one)
-and by ``chip_smoke.py``.
+versions on the card by ``tests/test_torch_cuda.py`` (``cuda``-marked,
+skipped without a card) and by ``chip_smoke.py``.
 """
 
 import numpy as np
@@ -139,32 +139,3 @@ def test_wrappers_refuse_devices_without_a_kernel():
         fc.matmul_cuda(x, w)
     with pytest.raises(ValueError, match="no kernel"):
         fc.chain_n_cuda(torch.zeros(8, 8, device="meta"), [w, w])
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card; chip_smoke.py runs this on the GPU")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_kernels_match_plain_versions(cuda_device, dtype):
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    x = torch.randn(128, 8, generator=gen, device=cuda_device).to(dtype)
-    w = torch.randn(768, 8, generator=gen, device=cuda_device).to(dtype)
-    before = dict(fc.LAUNCHES)
-    got = fc.matmul_cuda(x, w, transpose_rhs=True)
-    want = ref.matmul(x, w, transpose_rhs=True)
-    scale = want.float().abs().max().item()
-    assert (got.float() - want.float()).abs().max().item() <= 2e-2 * scale
-    xc = torch.randn(2048, 192, generator=gen, device=cuda_device).to(dtype)
-    ws = [torch.randn(s, generator=gen, device=cuda_device).to(dtype)
-          for s in ((192, 8), (128, 8))]
-    got = fc.chain_n_cuda(xc, ws)
-    want = ref.chain_n(xc, ws)
-    scale = want.float().abs().max().item()
-    assert (got.float() - want.float()).abs().max().item() <= 2e-2 * scale
-    assert fc.LAUNCHES["matmul"] == before["matmul"] + 1
-    assert fc.LAUNCHES["chain_n"] == before["chain_n"] + 1

@@ -62,7 +62,7 @@ def test_forward_matches_reference(method, backend, dtype):
                    "bias": jnp.asarray(bias)}, jnp.asarray(x).astype(jdt))
     assert got.shape == want.shape and got.dtype == tdt
     w = np.asarray(want.astype(jnp.float32))
-    np.testing.assert_allclose(got.float().numpy(), w, rtol=rel,
+    np.testing.assert_allclose(got.detach().float().numpy(), w, rtol=rel,
                                atol=rel * float(np.abs(w).max()))
 
 
