@@ -44,10 +44,33 @@ and failing the script when it fails:
 7. ``train_parity`` — the same initial parameters on the ``cuda`` and
    ``einsum`` backends for 3 steps on the same batches: loss and grad
    norm within tolerance in f32 and in bf16.
+8. ``kernel:quantize`` / ``kernel:dequantize`` / ``kernel:matmul_scaled``
+   / ``kernel:chain_n_scaled`` — every geometry of the fp8 training
+   step's FP/BP/WG plans (the fp8 policy reprices CSSE, so they differ
+   from bf16's): the quantize kernel at every input node, the dequantize
+   kernel at every plan output, the scaled GEMM and chain at every op,
+   each checked in fp8_e4m3, fp8_e5m2 and int8 against its plain version
+   (quantize/dequantize bit for bit, also on ``ref.tie_probe``) and
+   timed in fp8_e4m3 beside the plain version, the bound at the fp8
+   peak, and for the GEMM ``torch._scaled_mm`` where its shape rules
+   admit the geometry (the reason where they do not).
+9. ``train_fp8`` — the ``train`` phase with ``--tnn-precision fp8`` and
+   loss scale 128: every loss finite, the mean of the last 5 below the
+   first and within 0.05 of the bf16 phase's, the four kernels of the
+   precision path launched, no quantized degrade, every amax history
+   slot filled.
+10. ``train_fp8_parity`` — ``cuda`` against ``einsum`` under fp8 (f32
+   compute) for 3 steps: the amaxes recorded before anything quantized
+   within 1e-6, a loss scale of 1 bit-identical to 128 but for row 1 of
+   the histories (exactly 128 times smaller), and every step's loss,
+   grad norm and amaxes within three times the envelope that weights
+   scaled by ``1 ± 2**-22`` open on either backend (fp8 training is
+   chaotic at roundoff from the first step: a flipped fp8 rounding
+   spreads).
 
 It then prints the ``{"kernels": [...]}`` line (every ported kernel with
-its launches in the serve run and the train run and its timings at the
-main paths' shapes), the card's ``nvidia-smi`` name and power limit,
+its launches in the serve, train and train_fp8 runs and its timings at
+the main paths' shapes), the card's ``nvidia-smi`` name and power limit,
 and, last, ``{"ok": true, ...}``.
 """
 
@@ -66,7 +89,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # The least time the card could take: device-memory rate and dense peaks
 # of one H100 SXM at its 700 W limit (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "fp8": 1979e12}
 
 # Serve-phase shape: the reference serve CLI's defaults, all greedy.
 ARCH, BATCH, PROMPT, MAX_NEW, CHUNK, REQUESTS = ("paper_atis_tt", 4, 16, 16,
@@ -74,6 +97,12 @@ ARCH, BATCH, PROMPT, MAX_NEW, CHUNK, REQUESTS = ("paper_atis_tt", 4, 16, 16,
 # Train-phase shape: the reference train CLI's defaults (batch, seq, lr).
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 128, 20, 3e-3
 PARITY_STEPS = 3
+# The precision path: its policy and static loss scale, and the dtypes
+# its kernels are checked in (timed in the first).
+FP8_POLICY, FP8_LOSS_SCALE = "fp8", 128.0
+QUANT_DTYPES = ("fp8_e4m3", "fp8_e5m2", "int8")
+FP8_LOSS_TOL = 0.05          # the reference's fp8 tolerance
+FP8_PARITY_FACTOR = 3.0
 # Attention shapes (B, T, H, KV, D, causal, kv_chunk): the training
 # path's first; kv_chunk None is the model config's (the main path's).
 FLASH_SHAPES = [(8, 128, 12, 12, 64, True, None),
@@ -87,13 +116,25 @@ REPLACES = {
     "matmul": "src/repro/kernels/fused_contraction.py:186",
     "chain_n": "src/repro/kernels/fused_contraction.py:317",
     "flash_attention_fwd": "src/repro/kernels/flash_attention.py:77",
+    "matmul_scaled": "src/repro/kernels/fused_contraction.py:160",
+    "chain_n_scaled": "src/repro/kernels/fused_contraction.py:287",
+    "quantize": "src/repro/kernels/quantized.py:47",
+    "dequantize": "src/repro/kernels/quantized.py:78",
 }
 SOURCES = {
     "matmul": "src/repro_torch/kernels/csrc/fused_contraction.cu",
     "chain_n": "src/repro_torch/kernels/csrc/fused_contraction.cu",
     "flash_attention_fwd": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "matmul_scaled": "src/repro_torch/kernels/csrc/fused_contraction.cu",
+    "chain_n_scaled": "src/repro_torch/kernels/csrc/fused_contraction.cu",
+    "quantize": "src/repro_torch/kernels/csrc/quantized.cu",
+    "dequantize": "src/repro_torch/kernels/csrc/quantized.cu",
 }
 KERNELS = ("matmul", "chain_n", "flash_attention_fwd")
+QUANT_KERNELS = ("matmul_scaled", "chain_n_scaled", "quantize", "dequantize")
+ALL_KERNELS = KERNELS + QUANT_KERNELS
+#: the main-path runs whose launches the kernel line counts
+RUNS = ("serve", "train", "train_fp8")
 
 
 def emit(phase: str, **fields) -> None:
@@ -201,15 +242,248 @@ def train_path_geometries(cfg, plan_compiler, profiles, tensorized):
     return gemms, chains, einsum_ops
 
 
+def fp8_train_geometries(cfg, plan_compiler, profiles, tensorized,
+                         QuantPolicy):
+    """Every geometry of the fp8 training step's FP/BP/WG plans, each
+    ``{geometry: phases}``: scaled GEMMs ``(m, n, k, transpose_rhs)``,
+    scaled chains ``(m0, link_shapes)``, quantized input nodes and
+    dequantized plan outputs as ``(rows, cols)`` (the ``[rows, -1]`` view
+    the kernels see); and the count of ``EinsumOp`` steps."""
+    import dataclasses
+    tnn = dataclasses.replace(cfg.tnn,
+                              precision=QuantPolicy.parse(FP8_POLICY))
+    geo = {"gemm": {}, "chain": {}, "quantize": {}, "dequantize": {}}
+    einsum_ops = 0
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    def rows_cols(shape):
+        return (shape[0], math.prod(shape[1:]))
+
+    for _, d_in, d_out in profiles.tensorized_projections(cfg):
+        layer = tensorized.make_tensorized_linear(
+            d_out, d_in, tnn, compute_dtype=cfg.compute_dtype,
+            device="meta")
+        for phase, results in tensorized.phase_plans(
+                layer.fact, tokens, layer.opts).items():
+            for r in results:
+                net = r.plan.network
+                for i in range(net.num_nodes):
+                    geo["quantize"].setdefault(
+                        rows_cols(net.node_shape(i)), set()).add(phase)
+                out = tuple(net.sizes[a] for a in net.output)
+                geo["dequantize"].setdefault(rows_cols(out),
+                                             set()).add(phase)
+                compiled = plan_compiler.compile_cached(
+                    r.plan, fuse=layer.opts.fused_chain,
+                    max_chain_len=layer.opts.max_chain_len,
+                    policy=layer.precision)
+                for op in compiled.ops:
+                    if isinstance(op, plan_compiler.GemmOp):
+                        m = op.mat
+                        geo["gemm"].setdefault(
+                            (m.m, m.n, m.k, m.transpose_rhs),
+                            set()).add(phase)
+                    elif isinstance(op, plan_compiler.ChainOp):
+                        geo["chain"].setdefault((op.m0, op.link_shapes),
+                                                set()).add(phase)
+                    else:
+                        einsum_ops += 1
+    return geo, einsum_ops
+
+
+def scaled_mm_ms(torch, qx, qw, trans: bool, sl, sr):
+    """``torch._scaled_mm`` on the same fp8 inputs with per-tensor scales
+    (the training path's scales are per tensor): ``(ms, None)``, or
+    ``(None, reason)`` where its shape rules refuse the geometry."""
+    m, k = qx.shape
+    n = qw.shape[0] if trans else qw.shape[1]
+    if k % 16 or n % 16:
+        return None, f"_scaled_mm needs K and N divisible by 16 (K {k}, N {n})"
+    if qx.dtype != torch.float8_e4m3fn:
+        return None, f"not timed in {qx.dtype}"
+    b = qw.t() if trans else qw.t().contiguous().t()   # column-major [K, N]
+    sa, sb = sl[0, 0].reshape(()), sr[0, 0].reshape(())
+    try:
+        torch._scaled_mm(qx, b, sa, sb, out_dtype=torch.float32)
+    except RuntimeError as err:       # the library's refusal, recorded
+        return None, f"_scaled_mm refused: {str(err).splitlines()[0]}"
+    return device_ms(torch, lambda: torch._scaled_mm(
+        qx, b, sa, sb, out_dtype=torch.float32)), None
+
+
+def quant_kernel_phase(torch, fc, qk, ref, quant, QuantPolicy, geo, totals
+                       ) -> None:
+    """Hold the precision path's four kernels against their plain versions
+    at every fp8 training geometry, in every quantized dtype; time each
+    in fp8_e4m3 (``totals[kernel]["train_fp8"]``)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+
+    def rand(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=DEVICE) * scale
+
+    def bits(t):
+        return t.contiguous().view(torch.uint8)
+
+    def account(name, err, timed):
+        t = totals[name]
+        t["max_abs_err"] = max(t["max_abs_err"], err)
+        if timed is not None:
+            add_total(t.setdefault("train_fp8", new_totals()), *timed)
+
+    def fail(name, rec):
+        emit(f"kernel:{name}", ok=False, **rec)
+        raise AssertionError(f"{name} kernel disagrees: {rec}")
+
+    for dname in QUANT_DTYPES:
+        pol = QuantPolicy.parse(dname)
+        timing = dname == QUANT_DTYPES[0]
+        # The tie probe: every rounding a close call.
+        x, sc = ref.tie_probe(pol, device=DEVICE)
+        for xin in (x, x.bfloat16()):
+            q = qk.quantize_cuda(xin, sc, pol)
+            ok = torch.equal(bits(q), bits(ref.quantize(xin, sc, pol)))
+            for out in (torch.float32, torch.bfloat16):
+                ok = ok and torch.equal(
+                    bits(qk.dequantize_cuda(q, sc, out)),
+                    bits(ref.dequantize(q, sc, out)))
+            rec = {"check": "tie_probe", "dtype": dname,
+                   "in_dtype": str(xin.dtype).split(".")[-1],
+                   "shape": list(xin.shape), "bit_exact": ok}
+            if not ok:
+                fail("quantize", rec)
+            emit("kernel:quantize", ok=True, **rec)
+        for (rows, cols), phases in sorted(geo["quantize"].items()):
+            xin = rand((rows, cols), 3.0).bfloat16()     # the compute dtype
+            s_ = quant.quantize(xin, pol).row_scales()
+            q = qk.quantize_cuda(xin, s_, pol)
+            rec = {"path": "train_fp8", "rows": rows, "cols": cols,
+                   "phases": sorted(phases), "dtype": dname,
+                   "bit_exact": torch.equal(bits(q), bits(
+                       ref.quantize(xin, s_, pol)))}
+            if not rec["bit_exact"]:
+                fail("quantize", rec)
+            timed = None
+            if timing:
+                ms = device_ms(torch, lambda: qk.quantize_cuda(xin, s_, pol))
+                plain = device_ms(torch, lambda: ref.quantize(xin, s_, pol))
+                b, by = bound_ms(rows * cols * 3 + rows * 4, 3 * rows * cols,
+                                 "float32")
+                timed = (ms, plain, None, b, by)
+                rec.update(ms=ms, plain_ms=plain, library_ms=None,
+                           bound_ms=b, bound_by=by)
+            emit("kernel:quantize", ok=True, **rec)
+            account("quantize", 0.0, timed)
+        for (rows, cols), phases in sorted(geo["dequantize"].items()):
+            t = quant.quantize(rand((rows, cols), 3.0), pol)
+            s_ = t.row_scales()
+            got = qk.dequantize_cuda(t.q, s_)
+            rec = {"path": "train_fp8", "rows": rows, "cols": cols,
+                   "phases": sorted(phases), "dtype": dname,
+                   "bit_exact": torch.equal(bits(got), bits(
+                       ref.dequantize(t.q, s_)))}
+            if not rec["bit_exact"]:
+                fail("dequantize", rec)
+            timed = None
+            if timing:
+                ms = device_ms(torch, lambda: qk.dequantize_cuda(t.q, s_))
+                plain = device_ms(torch, lambda: ref.dequantize(t.q, s_))
+                b, by = bound_ms(rows * cols * 5 + rows * 4, rows * cols,
+                                 "float32")
+                timed = (ms, plain, None, b, by)
+                rec.update(ms=ms, plain_ms=plain, library_ms=None,
+                           bound_ms=b, bound_by=by)
+            emit("kernel:dequantize", ok=True, **rec)
+            account("dequantize", 0.0, timed)
+        for (m, n, k, trans), phases in sorted(geo["gemm"].items()):
+            qx = quant.quantize(rand((m, k)), pol)
+            qw = quant.quantize(rand((n, k) if trans else (k, n)), pol)
+            sl = qx.row_scales()
+            sr = qw.row_scales()[:1].expand(1, n).contiguous()
+            got = fc.matmul_cuda(qx.q, qw.q, transpose_rhs=trans,
+                                 scales=(sl, sr))
+            want = ref.matmul_scaled(qx.q, qw.q, sl, sr, transpose_rhs=trans)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            # exact f32 products summed in another order
+            rec = {"path": "train_fp8", "m": m, "n": n, "k": k,
+                   "transpose_rhs": trans, "phases": sorted(phases),
+                   "dtype": dname, "max_abs_err": err,
+                   "max_rel_err": err / max(scale, 1e-30), "scale": scale,
+                   "tol": 1e-5 * scale}
+            if not err <= 1e-5 * scale:
+                fail("matmul_scaled", rec)
+            timed = None
+            if timing:
+                ms = device_ms(torch, lambda: fc.matmul_cuda(
+                    qx.q, qw.q, transpose_rhs=trans, scales=(sl, sr)))
+                plain = device_ms(torch, lambda: ref.matmul_scaled(
+                    qx.q, qw.q, sl, sr, transpose_rhs=trans))
+                lib, why = scaled_mm_ms(torch, qx.q, qw.q, trans, sl, sr)
+                b, by = bound_ms(m * k + k * n + 4 * (m + n) + 4 * m * n,
+                                 2 * m * n * k, "fp8")
+                timed = (ms, plain, lib, b, by)
+                rec.update(ms=ms, plain_ms=plain, library_ms=lib,
+                           library_note=why, bound_ms=b, bound_by=by)
+            emit("kernel:matmul_scaled", ok=True, **rec)
+            account("matmul_scaled", err, timed)
+        for (m0, shapes), phases in sorted(geo["chain"].items()):
+            qx = quant.quantize(rand((m0, shapes[0][0])), pol)
+            qws = [quant.quantize(rand(s_), pol) for s_ in shapes]
+            scales = (qx.row_scales() * qws[0].scale,
+                      *[w.scale.reshape(1, 1) for w in qws[1:-1]],
+                      qws[-1].row_scales()[:1].expand(
+                          1, shapes[-1][1]).contiguous())
+            ws = [w.q for w in qws]
+            got = fc.chain_n_cuda(qx.q, ws, scales=scales)
+            want = ref.chain_n_scaled(qx.q, ws, scales)
+            torch.cuda.synchronize()
+            # bf16 intermediates: a sum in another order now and then
+            # moves one rounding by an ulp; a chain that skips or changes
+            # that rounding moves nearly every element (ref's docstring).
+            good, nums = ref.chain_scaled_agreement(got, want)
+            err = nums["max_abs_err"]
+            rows, _ = fc.chain_plan(m0, shapes)
+            rec = {"path": "train_fp8", "m0": m0,
+                   "links": [list(s_) for s_ in shapes],
+                   "phases": sorted(phases), "dtype": dname,
+                   "band_rows": fc.chain_band_rows(m0, shapes),
+                   "max_rel_err": err / max(nums["scale"], 1e-30), **nums}
+            if not good:
+                fail("chain_n_scaled", rec)
+            timed = None
+            if timing:
+                ms = device_ms(torch, lambda: fc.chain_n_cuda(
+                    qx.q, ws, scales=scales))
+                plain = device_ms(torch, lambda: ref.chain_n_scaled(
+                    qx.q, ws, scales))
+                nbytes = (m0 * shapes[0][0] + sum(a * c for a, c in shapes)
+                          + 4 * (m0 + len(shapes) + shapes[-1][1])
+                          + 4 * rows[-1] * shapes[-1][1])
+                flops = sum(2 * r * a * c for r, (a, c) in zip(rows, shapes))
+                b, by = bound_ms(nbytes, flops, "fp8")
+                timed = (ms, plain, None, b, by)
+                rec.update(ms=ms, plain_ms=plain, library_ms=None,
+                           bound_ms=b, bound_by=by)
+            emit("kernel:chain_n_scaled", ok=True, **rec)
+            account("chain_n_scaled", err, timed)
+
+
 def new_totals() -> dict:
-    return {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+    return {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None,
+            "library_shapes": 0, "ms_on_library_shapes": 0.0,
             "max_abs_err": 0.0, "bound_by": set(), "shapes": 0}
 
 
 def add_total(t: dict, ms, plain, lib, b, by) -> None:
+    """Add one timed shape; the library sum covers the shapes where a
+    library call computes the same function (``lib`` not None)."""
     t["ms"] += ms
     t["plain_ms"] += plain
-    t["library_ms"] = None if lib is None else t["library_ms"] + lib
+    if lib is not None:
+        t["library_ms"] = (t["library_ms"] or 0.0) + lib
+        t["library_shapes"] += 1
+        t["ms_on_library_shapes"] += ms
     t["bound_ms"] += b
     t["bound_by"].add(by)
     t["shapes"] += 1
@@ -450,9 +724,15 @@ def tick_spans_ms(torch, tm, model, vocab, ServeEngine, Request) -> dict:
                                ("decode", "decode_step"))}
 
 
-def train_phase(torch, fc, plan_compiler, train_cli, einsum_ops) -> dict:
+def train_phase(torch, fc, plan_compiler, train_cli, einsum_ops, *,
+                name="train", precision=None, loss_scale=1.0,
+                bf16_last5=None) -> tuple[dict, float]:
     """Full-width training through the port's train entry point; returns
-    the kernel launches of the run."""
+    the kernel launches of the run and the mean of its last 5 losses.
+    With ``precision`` every tensorized plan runs quantized (``train_fp8``),
+    which must launch the precision path's four kernels, leave no
+    quantized degrade, fill every amax history slot and end within
+    ``FP8_LOSS_TOL`` of ``bf16_last5``."""
     import numpy as np
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -462,7 +742,8 @@ def train_phase(torch, fc, plan_compiler, train_cli, einsum_ops) -> dict:
     out = train_cli.train(ARCH, smoke=False, tnn=True, steps=TRAIN_STEPS,
                           global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
                           lr=TRAIN_LR, tnn_backend="cuda", device=DEVICE,
-                          log_every=5)
+                          log_every=5, tnn_precision=precision,
+                          loss_scale=loss_scale)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(fc.LAUNCHES)
@@ -470,27 +751,43 @@ def train_phase(torch, fc, plan_compiler, train_cli, einsum_ops) -> dict:
     peak = torch.cuda.max_memory_allocated()
     losses = out["losses"]
     step_ms = statistics.median(out["step_s"][3:]) * 1e3
+    last5 = statistics.mean(losses[-5:])
+    kernels = (("flash_attention_fwd",) + QUANT_KERNELS if precision
+               else KERNELS)
     ok = (all(np.isfinite(losses)) and len(losses) == TRAIN_STEPS
-          and statistics.mean(losses[-5:]) < losses[0]
-          and all(launches[k] > 0 for k in KERNELS)
-          and degrades["runtime"] == 0)
+          and last5 < losses[0]
+          and all(launches[k] > 0 for k in kernels)
+          and degrades["runtime"] == 0
+          and degrades["runtime_quantized"] == 0)
+    extra = {}
+    if precision:
+        hists = {n: p.detach() for n, p in out["state"]["params"].items()
+                 if n.endswith("quant_amax")}
+        filled = all(bool(torch.isfinite(h).all() and (h > 0).all())
+                     for h in hists.values())
+        ok = ok and bool(hists) and filled and (
+            abs(last5 - bf16_last5) <= FP8_LOSS_TOL)
+        extra = dict(precision=precision, loss_scale=loss_scale,
+                     amax_histories=len(hists), amax_slots_filled=filled,
+                     bf16_last5_mean_loss=bf16_last5,
+                     last5_minus_bf16=last5 - bf16_last5,
+                     tol_last5_vs_bf16=FP8_LOSS_TOL)
     cfg = out["cfg"]
-    emit("train", ok=bool(ok), arch=ARCH, d_model=cfg.d_model,
+    emit(name, ok=bool(ok), arch=ARCH, d_model=cfg.d_model,
          layers=cfg.num_layers, remat=cfg.remat,
          dtype=str(cfg.compute_dtype).split(".")[-1], batch=TRAIN_BATCH,
          seq=TRAIN_SEQ, steps=TRAIN_STEPS, losses=losses,
          grad_norms=out["grad_norms"], first_loss=losses[0],
-         last5_mean_loss=statistics.mean(losses[-5:]),
-         step_ms_median_after_3=step_ms,
+         last5_mean_loss=last5, step_ms_median_after_3=step_ms,
          tok_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
          first_step_s=out["step_s"][0], wall_s=wall,
          launches=launches,
-         launches_per_step={k: launches[k] / TRAIN_STEPS for k in KERNELS},
+         launches_per_step={k: launches[k] / TRAIN_STEPS for k in kernels},
          degrades=degrades, einsum_ops_in_plans=einsum_ops,
-         max_memory_allocated=peak)
+         max_memory_allocated=peak, **extra)
     if not ok:
-        raise AssertionError("train phase failed")
-    return launches
+        raise AssertionError(f"{name} phase failed")
+    return launches, last5
 
 
 def train_parity_phase(torch, arch, steps_lib) -> None:
@@ -546,6 +843,112 @@ def train_parity_phase(torch, arch, steps_lib) -> None:
         raise AssertionError("train parity failed")
 
 
+def train_fp8_parity_phase(torch, arch, steps_lib, QuantPolicy) -> None:
+    """``cuda`` against ``einsum`` under fp8 (loss scale 128, f32 compute)
+    for PARITY_STEPS steps from the same weights and batches.
+
+    * Exact: after the first step, the amaxes recorded before anything
+      quantized (every core's; the first layer's q/k/v input) agree
+      within 1e-6, and the cuda run at loss scale 1 is bit-identical to
+      the one at 128 except row 1 of each history (``amax(dy)``), which
+      is exactly 128 times smaller.
+    * fp8 training is chaotic at roundoff from the first step
+      (per-tensor requantization after every contraction turns a one-ulp
+      difference into a flipped fp8 rounding, which spreads: on an H100
+      the nudge below moves the first step's grad norm by 0.15), so each
+      backend is also run from its weights scaled by ``1 ± 2**-22`` (f32
+      roundoff): at every step the backends' loss, grad norm and largest
+      relative amax difference stay within FP8_PARITY_FACTOR times that
+      envelope."""
+    import dataclasses
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim.adamw import AdamW
+    tnn = dataclasses.replace(arch.tnn_default,
+                              precision=QuantPolicy.parse(FP8_POLICY))
+    base_sd = None
+
+    def train(backend, nudge=0.0, loss_scale=FP8_LOSS_SCALE):
+        nonlocal base_sd
+        model, cfg = steps_lib.build_model(arch, tnn, device=DEVICE, seed=0,
+                                           backend=backend,
+                                           compute_dtype=torch.float32)
+        if base_sd is None:
+            base_sd = {k: v.clone() for k, v in model.state_dict().items()}
+        model.load_state_dict({
+            k: (v * (1 + nudge) if v.is_floating_point()
+                and not k.endswith("quant_amax") else v)
+            for k, v in base_sd.items()})
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH))
+        opt = AdamW(lr=TRAIN_LR, total_steps=TRAIN_STEPS,
+                    warmup_steps=TRAIN_STEPS, loss_scale=loss_scale)
+        params = dict(model.named_parameters())
+        state = {"params": params, "opt": opt.init(params)}
+        step = steps_lib.make_train_step(model, opt)
+        metrics, hists = [], []
+        for s_ in range(PARITY_STEPS):
+            batch = {k: torch.as_tensor(v).to(DEVICE)
+                     for k, v in data.batch(s_).items()}
+            state, m = step(state, batch)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            hists.append({n: p.detach().clone() for n, p in params.items()
+                          if n.endswith("quant_amax")})
+        return metrics, hists, {n: p.detach().clone()
+                                for n, p in params.items()}
+
+    def per_step(a, b):
+        """Per step: relative loss, grad norm and largest relative
+        difference of a written amax."""
+        out = []
+        for s_, ((la, ga), (lb, gb)) in enumerate(zip(a[0], b[0])):
+            h = max(float(((a[1][s_][n][:, :s_ + 1] - h_[:, :s_ + 1]).abs()
+                           / h_[:, :s_ + 1]).max())
+                    for n, h_ in b[1][s_].items())
+            out.append((abs(la - lb) / abs(lb), abs(ga - gb) / abs(gb), h))
+        return out
+
+    runs = {b: train(b) for b in ("cuda", "einsum")}
+    spreads = [per_step(train(b, n), runs[b]) for b in runs
+               for n in (2.0 ** -22, -2.0 ** -22)]
+    envelope = [[max(sp[s_][i] for sp in spreads) for i in range(3)]
+                for s_ in range(PARITY_STEPS)]
+    gap = per_step(runs["cuda"], runs["einsum"])
+    report, ok = {}, True
+    for i, metric in enumerate(("loss", "grad_norm", "amax")):
+        tol = [FP8_PARITY_FACTOR * e[i] + 1e-6 for e in envelope]
+        good = all(g[i] <= t for g, t in zip(gap, tol))
+        report[metric] = {"ok": good, "cuda_vs_einsum_rel": [g[i] for g in gap],
+                          "envelope_rel": [e[i] for e in envelope],
+                          "tol_rel": tol}
+        ok = ok and good
+    # Exact rows: what the first step recorded before anything quantized.
+    h_c, h_e = runs["cuda"][1][0], runs["einsum"][1][0]
+    inputs = [f"layers.0.attn.{p}.quant_amax" for p in "qkv"]
+    exact = max([float(((h_c[n][2:, 0] - h_e[n][2:, 0]).abs()
+                        / h_e[n][2:, 0]).max()) for n in h_e]
+                + [float((h_c[n][0, 0] - h_e[n][0, 0]).abs() / h_e[n][0, 0])
+                   for n in inputs])
+    report["exact_rows_rel"] = exact
+    ok = ok and exact <= 1e-6
+    # Loss scale: a power of two scales dy and its delayed scale alike.
+    m1, _, p1 = train("cuda", loss_scale=1.0)
+    m128, p128 = runs["cuda"][0], runs["cuda"][2]
+    ls_exact = m1 == m128
+    for n, t in p1.items():
+        want = p128[n]
+        if n.endswith("quant_amax"):
+            ls_exact = ls_exact and torch.equal(want[1], t[1] * FP8_LOSS_SCALE)
+            want, t = torch.cat([want[:1], want[2:]]), torch.cat([t[:1], t[2:]])
+        ls_exact = ls_exact and torch.equal(want, t)
+    report["loss_scale_exact"] = bool(ls_exact)
+    ok = ok and ls_exact
+    emit("train_fp8_parity", ok=ok, steps=PARITY_STEPS, policy=FP8_POLICY,
+         loss_scale=FP8_LOSS_SCALE, compute_dtype="float32",
+         runs={b: r[0] for b, r in runs.items()}, **report)
+    if not ok:
+        raise AssertionError("train fp8 parity failed")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -565,7 +968,9 @@ def main() -> int:
     from repro_torch.core import plan_compiler, tensorized
     from repro_torch.kernels import build, fused_contraction as fc, ref
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import quantized as qk
     from repro_torch.launch import steps as steps_lib
+    from repro_torch.precision import QuantPolicy, quant
     from repro_torch.launch import train as train_cli
     from repro_torch.serving import profiles
     from repro_torch.serving.engine import Request, ServeEngine
@@ -583,7 +988,7 @@ def main() -> int:
     # -- 2./3. kernels at every main-path geometry ------------------------------
     arch = cfgbase.get(ARCH)
     cfg = arch.model()
-    totals = {name: new_totals() for name in KERNELS}
+    totals = {name: new_totals() for name in ALL_KERNELS}
     gemms, chains = main_path_geometries(cfg, plan_compiler, profiles,
                                          tensorized)
     kernel_phase(torch, fc, ref, gemms, chains, totals, path="serve")
@@ -595,12 +1000,18 @@ def main() -> int:
                  totals, path="train", phases={**t_gemms, **t_chains},
                  time_dtypes=("bfloat16",))
     flash_phase(torch, fa, ref, cfg, totals)
-    emit("kernel_totals", ok=True, bf16_sums={
+    q_geo, fp8_einsum_ops = fp8_train_geometries(
+        cfg, plan_compiler, profiles, tensorized, QuantPolicy)
+    quant_kernel_phase(torch, fc, qk, ref, quant, QuantPolicy, q_geo, totals)
+    emit("kernel_totals", ok=True, sums={
         name: {path: {k: (sorted(v) if isinstance(v, set) else v)
                       for k, v in t.items()}
                for path, t in totals[name].items() if isinstance(t, dict)}
-        for name in KERNELS},
-        train_geometries={"gemm": len(t_gemms), "chain": len(t_chains)})
+        for name in ALL_KERNELS},
+        timed_in={"bf16 paths": list(KERNELS),
+                  "fp8_e4m3": list(QUANT_KERNELS)},
+        train_geometries={"gemm": len(t_gemms), "chain": len(t_chains)},
+        fp8_train_geometries={k: len(v) for k, v in q_geo.items()})
 
     # -- 4. serve at full width through the kernels -----------------------------
     model, cfg = steps_lib.build_model(arch, device=DEVICE, seed=0,
@@ -684,32 +1095,46 @@ def main() -> int:
         raise AssertionError("serve parity failed")
 
     # -- 6. train at full width through the kernels -----------------------------
-    launches["train"] = train_phase(torch, fc, plan_compiler, train_cli,
-                                    train_einsum_ops)
+    launches["train"], bf16_last5 = train_phase(
+        torch, fc, plan_compiler, train_cli, train_einsum_ops)
 
     # -- 7. training parity with the einsum executor ---------------------------
     train_parity_phase(torch, arch, steps_lib)
 
+    # -- 9. fp8 training at full width through the precision kernels -----------
+    launches["train_fp8"], _ = train_phase(
+        torch, fc, plan_compiler, train_cli, fp8_einsum_ops,
+        name="train_fp8", precision=FP8_POLICY, loss_scale=FP8_LOSS_SCALE,
+        bf16_last5=bf16_last5)
+
+    # -- 10. fp8 training parity with the einsum executor ----------------------
+    train_fp8_parity_phase(torch, arch, steps_lib, QuantPolicy)
+
     # -- the kernel line ---------------------------------------------------------
     kernels = []
-    for name in KERNELS:
+    for name in ALL_KERNELS:
         t = totals[name]
-        sums = [t[p] for p in ("serve", "train") if p in t]
+        sums = [t[p] for p in ("serve", "train", "train_fp8") if p in t]
         by = set().union(*(s_["bound_by"] for s_ in sums))
-        lib = [s_["library_ms"] for s_ in sums]
+        lib = [s_["library_ms"] for s_ in sums
+               if s_["library_ms"] is not None]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": launches["serve"][name] + launches["train"][name],
-            "launches_serve_run": launches["serve"][name],
-            "launches_train_run": launches["train"][name],
+            "launches": sum(launches[r][name] for r in RUNS),
+            **{f"launches_{r}_run": launches[r][name] for r in RUNS},
             "launches_per_train_step": launches["train"][name] / TRAIN_STEPS,
+            "launches_per_fp8_train_step":
+                launches["train_fp8"][name] / TRAIN_STEPS,
             "max_abs_err": t["max_abs_err"],
             "ms": sum(s_["ms"] for s_ in sums),
             "plain_ms": sum(s_["plain_ms"] for s_ in sums),
             "bound_ms": sum(s_["bound_ms"] for s_ in sums),
             "bound_by": "bytes" if by == {"bytes"} else "operations",
-            "library_ms": None if None in lib else sum(lib),
+            "library_ms": sum(lib) if lib else None,
+            "library_shapes": sum(s_["library_shapes"] for s_ in sums),
+            "ms_on_library_shapes": sum(s_["ms_on_library_shapes"]
+                                        for s_ in sums),
             "shapes_timed": sum(s_["shapes"] for s_ in sums)})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

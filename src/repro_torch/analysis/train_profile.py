@@ -3,18 +3,21 @@
     PYTHONPATH=src python -m repro_torch.analysis.train_profile
 
 Trains ``paper_atis_tt``'s full-width config (``tnn_default``, ``cuda``
-backend, bf16, seed 0) at the train CLI's default batch 8 x seq 128 with
+backend, bf16, seed 0) at the train CLI's default batch 8 x seq 128, once
+per entry of :data:`PRECISIONS` (the tensorized layers' ``--tnn-precision``
+with its loss scale; ``fp8`` runs every plan through the scaled and
+quantize/dequantize kernels), with
 the train loop's pieces (:func:`repro_torch.launch.steps.build_model`,
 :class:`~repro_torch.optim.adamw.AdamW`,
 :func:`~repro_torch.launch.steps.make_train_step`): :data:`WARMUP` steps,
 then :data:`STEPS` steps timed without the profiler, then :data:`STEPS`
 more under ``torch.profiler`` with CPU and CUDA activities.  Prints one JSON
-line: wall ms per step with and without the profiler (host clock around
+line per precision: wall ms per step with and without the profiler (host clock around
 steps that end in a synchronise), device busy ms per step (the sum of
 device-side kernel and copy times; one stream, so they do not overlap),
 the device's idle share against the unprofiled wall time, device time
-by group — the port's GEMM, chain and attention kernels by their names,
-the rest as ``torch`` — with the ten largest kernels by name, and
+by group — the port's kernels by their names (the scaled GEMM and chain
+by their fp8/int8 template arguments), the rest as ``torch`` — with the ten largest kernels by name, and
 device time by phase: the kernel time inside the tensorized layers'
 ``tnn.fp`` / ``tnn.bp`` / ``tnn.wg`` ranges and attention's
 ``attn.fwd`` / ``attn.bwd`` (``tnn.fp`` holds the forward plans twice
@@ -32,8 +35,18 @@ import torch
 
 ARCH, BATCH, SEQ = "paper_atis_tt", 8, 128   # the train CLI's defaults
 WARMUP, STEPS = 5, 3
-#: substrings of the port's kernel names -> report group
-GROUPS = (("gemm_kernel", "matmul"), ("chain_kernel", "chain_n"),
+#: (--tnn-precision, loss scale) of each profiled run
+PRECISIONS = (("bf16", 1.0), ("fp8", 128.0))
+#: substrings of the port's kernel names -> report group, first match
+#: wins (a scaled kernel's name carries its fp8/int8 operand type)
+GROUPS = (("dequantize_kernel", "dequantize"),
+          ("quantize_kernel", "quantize"),
+          ("gemm_kernel<__nv_fp8", "matmul_scaled"),
+          ("gemm_kernel<signed char", "matmul_scaled"),
+          ("gemm_kernel", "matmul"),
+          ("chain_kernel<__nv_fp8", "chain_n_scaled"),
+          ("chain_kernel<signed char", "chain_n_scaled"),
+          ("chain_kernel", "chain_n"),
           ("flash_fwd_kernel", "flash_attention_fwd"))
 #: profiler ranges the training path opens around its phases
 PHASES = ("tnn.fp", "tnn.bp", "tnn.wg", "attn.fwd", "attn.bwd")
@@ -46,7 +59,9 @@ def _group(name: str) -> str:
     return "torch"
 
 
-def profile() -> dict:
+def profile(precision: str = "bf16", loss_scale: float = 1.0) -> dict:
+    import dataclasses
+
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -54,17 +69,21 @@ def profile() -> dict:
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch import steps as steps_lib
     from repro_torch.optim.adamw import AdamW
+    from repro_torch.precision.policy import QuantPolicy
 
     if not torch.cuda.is_available():
         raise SystemExit("train_profile: needs a CUDA card")
     batch, seq, warmup, steps = BATCH, SEQ, WARMUP, STEPS
     arch = cfgbase.get(ARCH)
-    model, cfg = steps_lib.build_model(arch, arch.tnn_default, device="cuda",
-                                       seed=0, backend="cuda")
+    tnn = dataclasses.replace(arch.tnn_default,
+                              precision=QuantPolicy.parse(precision))
+    model, cfg = steps_lib.build_model(arch, tnn, device="cuda", seed=0,
+                                       backend="cuda")
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
                                   global_batch=batch))
     total = warmup + 2 * steps
-    opt = AdamW(lr=3e-3, total_steps=max(total, 2), warmup_steps=min(20, total))
+    opt = AdamW(lr=3e-3, total_steps=max(total, 2),
+                warmup_steps=min(20, total), loss_scale=loss_scale)
     params = dict(model.named_parameters())
     state = {"params": params, "opt": opt.init(params)}
     step_fn = steps_lib.make_train_step(model, opt)
@@ -119,7 +138,8 @@ def profile() -> dict:
     busy_ms = sum(by_group.values()) / 1e3 / steps
     measured = busy_ms > 0
     return {
-        "arch": ARCH, "batch": batch, "seq": seq,
+        "arch": ARCH, "precision": precision, "loss_scale": loss_scale,
+        "batch": batch, "seq": seq,
         "steps_profiled": steps, "device": torch.cuda.get_device_name(0),
         "wall_ms_per_step": wall_ms,
         "wall_ms_per_step_profiled": statistics.median(wall) * 1e3,
@@ -139,7 +159,9 @@ def profile() -> dict:
 
 
 def main() -> None:
-    print(json.dumps({"phase": "train_profile", **profile()}), flush=True)
+    for precision, loss_scale in PRECISIONS:
+        print(json.dumps({"phase": "train_profile",
+                          **profile(precision, loss_scale)}), flush=True)
 
 
 if __name__ == "__main__":

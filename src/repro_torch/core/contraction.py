@@ -1,20 +1,24 @@
 """Contraction-plan executor: lowers a ContractionPlan to torch ops.
 
-Port of ``src/repro/core/contraction.py`` (single device, unquantized).
+Port of ``src/repro/core/contraction.py`` (single device).
 ``backend="einsum"`` runs each :class:`ContractionStep` as one
 ``torch.einsum`` on f32 operands — f32 accumulation within a step, the
 storage dtype between steps, the reference's semantics — and is what the
 kernel backend is tested against.  ``backend="cuda"`` (``"pallas"`` is
 accepted as an alias, so reference configs carry over) compiles the plan
 with :mod:`repro_torch.core.plan_compiler` into calls of the hand-written
-GEMM and chain kernels.
+GEMM and chain kernels.  Under a quantized ``policy`` both backends run
+the precision subsystem's semantics (the einsum one as separate
+quantize / dequantize-einsum / requantize ops, the parity oracle of the
+kernels' fused scales).
 
-Not ported yet: the SPMD ``mesh`` path (distributed slice) and quantized
-execution (precision slice); see ROADMAP.md, queue A.
+Not ported yet: the SPMD ``mesh`` path (distributed slice, ROADMAP.md
+queue A).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import string
 from typing import Sequence
 
@@ -60,12 +64,30 @@ def _einsum_step(step: ContractionStep, lhs: torch.Tensor,
 
 def execute(plan: ContractionPlan, tensors: Sequence[torch.Tensor],
             out_dtype=None, backend: str = "einsum",
-            fused_chain: bool = True, max_chain_len: int = 2
-            ) -> torch.Tensor:
+            fused_chain: bool = True, max_chain_len: int = 2,
+            policy=None, input_scales=None) -> torch.Tensor:
     """Run the plan over concrete tensors (one per network node, in order).
 
     ``fused_chain`` / ``max_chain_len`` steer the cuda backend's chain
-    fusion (the einsum backend runs step by step either way)."""
+    fusion (the einsum backend runs step by step either way).
+
+    ``policy`` may be an :class:`~repro_torch.core.policy.ExecutionPolicy`
+    (its fusion axis then overrides ``fused_chain`` / ``max_chain_len``
+    and its precision axis is threaded as below) or a
+    :class:`~repro_torch.precision.policy.QuantPolicy`, which quantizes
+    the execution: input nodes in the policy dtype, f32 accumulation with
+    the dequantization scales applied per step, intermediates requantized
+    per tensor; the result is a real (dequantized) tensor.
+    ``input_scales`` (one f32 scale or None per node) overrides the
+    just-in-time amax scales: the delayed scaling of ``TensorizedLinear``.
+    """
+    from repro_torch.core.policy import ExecutionPolicy
+    if isinstance(policy, ExecutionPolicy):
+        fused_chain = policy.fused_chain
+        max_chain_len = policy.max_chain_len
+        policy = policy.quant_policy
+    if policy is not None and not policy.quantized:
+        policy = None                       # bf16 policy: the plain path
     backend = canonical_backend(backend)
     net = plan.network
     if len(tensors) != net.num_nodes:
@@ -81,8 +103,14 @@ def execute(plan: ContractionPlan, tensors: Sequence[torch.Tensor],
     if backend == "cuda":
         from repro_torch.core import plan_compiler
         compiled = plan_compiler.compile_cached(
-            plan, fuse=fused_chain, max_chain_len=max_chain_len)
-        return plan_compiler.run(compiled, tensors, out_dtype=out_dtype)
+            plan, fuse=fused_chain, max_chain_len=max_chain_len,
+            policy=policy)
+        return plan_compiler.run(compiled, tensors, out_dtype=out_dtype,
+                                 input_scales=input_scales)
+
+    if policy is not None:
+        return _execute_einsum_quantized(plan, tensors, policy, input_scales,
+                                         out_dtype)
 
     if not plan.steps:                      # single-node network
         return tensors[0].to(out_dtype)
@@ -95,6 +123,32 @@ def execute(plan: ContractionPlan, tensors: Sequence[torch.Tensor],
             if op in slots and not _used_later(plan, step, op):
                 del slots[op]
     out = slots[plan.steps[-1].out]
+    last_axes = plan.steps[-1].out_axes
+    if last_axes != net.output:
+        out = out.permute(tuple(last_axes.index(a) for a in net.output))
+    return out.to(out_dtype)
+
+
+def _execute_einsum_quantized(plan: ContractionPlan, tensors, policy,
+                              input_scales, out_dtype) -> torch.Tensor:
+    """Reference semantics of quantized execution: quantize the input
+    nodes (delayed scales where given), dequantize and einsum every step
+    with f32 accumulation, requantize each intermediate per tensor."""
+    from repro_torch.precision import quant as q
+
+    inter_policy = dataclasses.replace(policy, granularity="tensor")
+    net = plan.network
+    qslots = dict(enumerate(q.quantize_nodes(tensors, policy, input_scales)))
+    if not plan.steps:
+        return q.dequantize(qslots[0], out_dtype)
+    for step in plan.steps:
+        res = _einsum_step(step, q.dequantize(qslots[step.lhs]),
+                           q.dequantize(qslots[step.rhs]))
+        qslots[step.out] = q.quantize(res, inter_policy)
+        for op in (step.lhs, step.rhs):
+            if op in qslots and not _used_later(plan, step, op):
+                del qslots[op]
+    out = q.dequantize(qslots[plan.steps[-1].out])
     last_axes = plan.steps[-1].out_axes
     if last_axes != net.output:
         out = out.permute(tuple(last_axes.index(a) for a in net.output))

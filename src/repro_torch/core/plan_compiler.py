@@ -1,7 +1,7 @@
 """Plan compiler — lowers a :class:`ContractionPlan` to CUDA kernel calls.
 
-Port of ``src/repro/core/plan_compiler.py`` (unquantized dispatch).  The
-pipeline is the reference's:
+Port of ``src/repro/core/plan_compiler.py``.  The pipeline is the
+reference's:
 
 1. **Matricization** — each :class:`ContractionStep` is analysed into a
    GEMM ``C[M, N] = A[M, K] @ B[K, N]``: lhs-free axes flatten to M,
@@ -25,14 +25,26 @@ pipeline is the reference's:
    both operands and the output, e.g. BT's block hyperedge) run as the
    reference einsum step.
 
+4. **Quantized dispatch** — a plan compiled under a quantized
+   :class:`~repro_torch.precision.policy.QuantPolicy` keeps the same ops
+   and runs them in :func:`_run_quantized`: input nodes through the
+   quantize kernel, GEMMs and chains through their scaled kernels with
+   the dequantization in the epilogue, intermediates requantized per
+   tensor with torch ops (as the reference does with jnp), the output
+   through the dequantize kernel.  A quantized chain the kernel refuses
+   at run time raises on the card (compilation fused it against the
+   wrapper's own budget, so that is a fault); CPU operands run the plain
+   chain math instead, counted as ``runtime_quantized``.
+
 Because the shared-memory budget (227 KB) differs from the reference's
 VMEM budget (100 MiB), fusion choices may differ from the reference's;
-the two are held equal on outputs.  Not ported yet: the quantized
-dispatch (``_run_quantized``) and autotuned tiles (ROADMAP.md, queue A).
+the two are held equal on outputs.  Not ported yet: autotuned tiles
+(ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Sequence, Union
@@ -42,16 +54,20 @@ import torch
 from repro_torch import telemetry as tm
 from repro_torch.core.contraction import _einsum_spec, _einsum_step
 from repro_torch.core.tnetwork import AxisId, ContractionPlan, ContractionStep
+from repro_torch.kernels import ref
 from repro_torch.kernels.fused_contraction import (
     ChainLoweringError, chain_band_rows, chain_n_cuda, chain_plan,
     matmul_cuda,
 )
+from repro_torch.kernels.quantized import dequantize_cuda, quantize_cuda
+from repro_torch.precision import policy as qpolicy
+from repro_torch.precision import quant as q
 
 _log = tm.get_logger("plan_compiler")
 
 #: ChainLoweringError degrades by site, always counted (tracer on or off);
 #: mirrored into the tracer as ``plan_compiler.chain_degrade.<site>``.
-DEGRADE_COUNTS = {"compile": 0, "runtime": 0}
+DEGRADE_COUNTS = {"compile": 0, "runtime": 0, "runtime_quantized": 0}
 
 
 def reset_degrade_counts() -> None:
@@ -280,6 +296,11 @@ class CompiledPlan:
 
     plan: ContractionPlan
     ops: tuple[LoweredOp, ...]
+    #: quantized-execution policy (a quantized QuantPolicy) or None; the
+    #: lowering is dtype-independent, the policy changes what run()
+    #: streams: fp8/int8 operands, scale epilogues, requantized
+    #: intermediates
+    policy: object = None
 
     def report(self) -> dict:
         """Lowering summary — what the compiler did with the plan."""
@@ -302,15 +323,22 @@ class CompiledPlan:
             "hbm_transposes": (sum(g.mat.hbm_transposes for g in gemms)
                                + sum(c.hbm_transposes for c in chains)),
             "fallback_reasons": tuple(op.reason for op in einsums),
+            "policy": None if self.policy is None else self.policy.tag,
         }
 
 
 def compile_plan(plan: ContractionPlan, *, fuse: bool = True,
-                 max_chain_len: int = 2) -> CompiledPlan:
+                 max_chain_len: int = 2, policy=None) -> CompiledPlan:
     """Lower every step; then (unless ``fuse=False``) fuse maximal
     eligible runs of adjacent GEMMs into chains of up to
     ``max_chain_len`` links that fit the chain kernel's shared-memory
-    budget (``fused_contraction.CHAIN_SMEM_BUDGET_BYTES``)."""
+    budget (``fused_contraction.CHAIN_SMEM_BUDGET_BYTES``; the scaled
+    chain keeps its weights as f32 too, so the budget does not depend on
+    the policy).  A quantized ``policy``
+    (:class:`~repro_torch.precision.policy.QuantPolicy`) makes :func:`run`
+    execute quantized."""
+    if policy is not None and not policy.quantized:
+        policy = None
     t0 = tm.now_us()
     lowered: list[LoweredOp] = []
     for step in plan.steps:
@@ -321,7 +349,8 @@ def compile_plan(plan: ContractionPlan, *, fuse: bool = True,
         else:
             lowered.append(GemmOp(step=step, mat=mat))
     if not fuse:
-        return _emit_compile(CompiledPlan(plan=plan, ops=tuple(lowered)), t0)
+        return _emit_compile(CompiledPlan(plan=plan, ops=tuple(lowered),
+                                          policy=policy), t0)
 
     fused: list[LoweredOp] = []
     i = 0
@@ -347,16 +376,18 @@ def compile_plan(plan: ContractionPlan, *, fuse: bool = True,
         else:
             fused.append(op0)
             i += 1
-    return _emit_compile(CompiledPlan(plan=plan, ops=tuple(fused)), t0)
+    return _emit_compile(CompiledPlan(plan=plan, ops=tuple(fused),
+                                      policy=policy), t0)
 
 
-#: compile_cached memo: id(plan) -> (plan, {(fuse, max_chain_len): compiled});
+#: compile_cached memo: id(plan) -> (plan, {(fuse, max_chain_len, policy):
+#: compiled});
 #: the plan is held so its id stays unique while the entry lives
 _COMPILED: dict[int, tuple[ContractionPlan, dict]] = {}
 
 
 def compile_cached(plan: ContractionPlan, *, fuse: bool = True,
-                   max_chain_len: int = 2) -> CompiledPlan:
+                   max_chain_len: int = 2, policy=None) -> CompiledPlan:
     """:func:`compile_plan` memoised per plan object — eager execution
     calls the executor every forward, where the reference compiled once
     under ``jit``.  Plans come from the CSSE memo, so they are few and
@@ -364,11 +395,14 @@ def compile_cached(plan: ContractionPlan, *, fuse: bool = True,
     plan_ref, by_opts = _COMPILED.setdefault(id(plan), (plan, {}))
     if plan_ref is not plan:           # id reused after the plan died
         plan_ref, by_opts = _COMPILED[id(plan)] = (plan, {})
-    key = (fuse, max_chain_len)
+    if policy is not None and not policy.quantized:
+        policy = None
+    key = (fuse, max_chain_len, policy)
     got = by_opts.get(key)
     if got is None:
         got = by_opts[key] = compile_plan(plan, fuse=fuse,
-                                          max_chain_len=max_chain_len)
+                                          max_chain_len=max_chain_len,
+                                          policy=policy)
     return got
 
 
@@ -410,13 +444,18 @@ def _op_reads(op: LoweredOp) -> tuple[int, ...]:
 
 
 def run(compiled: CompiledPlan, tensors: Sequence[torch.Tensor],
-        out_dtype=None) -> torch.Tensor:
+        out_dtype=None, input_scales=None) -> torch.Tensor:
     """Execute a compiled plan; semantics match ``contraction.execute``:
-    f32 accumulation within a step, storage dtype between steps."""
+    f32 accumulation within a step, storage dtype between steps (the
+    policy's dtype when the plan compiled quantized; ``input_scales``
+    then carries optional delayed per-node scales)."""
     plan = compiled.plan
     net = plan.network
     if out_dtype is None:
         out_dtype = tensors[0].dtype
+    if compiled.policy is not None:
+        return _run_quantized(compiled, tensors, out_dtype=out_dtype,
+                              input_scales=input_scales)
     if not plan.steps:
         return tensors[0].to(out_dtype)
 
@@ -475,6 +514,153 @@ def run(compiled: CompiledPlan, tensors: Sequence[torch.Tensor],
                 del slots[slot]
 
     out = slots[plan.steps[-1].out]
+    last_axes = plan.steps[-1].out_axes
+    if last_axes != net.output:
+        out = out.permute(tuple(last_axes.index(a) for a in net.output))
+    return out.to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Quantized execution (CompiledPlan.policy set)
+# ---------------------------------------------------------------------------
+
+
+def _quantize_input(x: torch.Tensor, scale, policy) -> q.QTensor:
+    """An input node in the policy dtype: >= 2-D nodes through the
+    quantize kernel on their ``[rows, -1]`` view, with per-row scales."""
+    if x.dim() < 2:
+        return q.quantize(x, policy, scale=scale)
+    if scale is None:
+        if policy.granularity == "tile":
+            amax = qpolicy.tile_amax(x, policy.tile_rows)
+        else:
+            amax = qpolicy.amax_of(x)
+        scale = qpolicy.compute_scale(amax, policy.qmax, policy.margin)
+    else:
+        scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
+    rows = x.shape[0]
+    q2 = quantize_cuda(x.reshape(rows, -1).contiguous(),
+                       q.expand_row_scales(scale, rows), policy)
+    return q.QTensor(q=q2.reshape(x.shape), scale=scale)
+
+
+def _dequantize_output(t: q.QTensor) -> torch.Tensor:
+    """The plan output back to f32 through the dequantize kernel, on its
+    ``[rows, -1]`` view (the reference's ``quant.dequantize``)."""
+    if t.q.dim() < 2:
+        return q.dequantize(t)
+    rows = t.q.shape[0]
+    out = dequantize_cuda(t.q.reshape(rows, -1).contiguous(),
+                          q.expand_row_scales(t.scale, rows))
+    return out.reshape(t.q.shape)
+
+
+def _run_quantized(compiled: CompiledPlan, tensors: Sequence[torch.Tensor],
+                   *, out_dtype, input_scales) -> torch.Tensor:
+    """Quantized dispatch (the reference's ``_run_quantized``): operands
+    live in the policy dtype end to end.
+
+    Input nodes go through the quantize kernel (delayed scales when
+    ``input_scales`` gives them).  GEMM and chain ops stream the
+    quantized values through the scaled kernels, with the dequantization
+    in their epilogues.  Every op's f32 result is requantized per tensor
+    with torch ops.  Tile-granular input scales apply where the lhs
+    reaches its GEMM as a pure reshape; a layout change that would move
+    the scale groups collapses them to one per-tensor scale first.
+    Einsum-fallback steps dequantize, run the reference einsum, and
+    requantize.  The plan output goes through the dequantize kernel.
+    """
+    policy = compiled.policy
+    inter_policy = dataclasses.replace(policy, granularity="tensor")
+    plan = compiled.plan
+    net = plan.network
+    sizes = net.sizes
+
+    def per_tensor(t: q.QTensor) -> q.QTensor:
+        return t if t.per_tensor else q.requantize_per_tensor(t, policy)
+
+    qslots: dict[int, q.QTensor] = {
+        i: _quantize_input(x, None if input_scales is None
+                           else input_scales[i], policy)
+        for i, x in enumerate(tensors)}
+    if not plan.steps:
+        return q.dequantize(qslots[0], out_dtype)
+
+    last_use: dict[int, int] = {}
+    for t, op in enumerate(compiled.ops):
+        for slot in _op_reads(op):
+            last_use[slot] = t
+    trace = tm.enabled()
+    for t, op in enumerate(compiled.ops):
+        t0 = tm.now_us() if trace else 0.0
+        if isinstance(op, EinsumOp):
+            res = _einsum_step(op.step, q.dequantize(qslots[op.step.lhs]),
+                               q.dequantize(qslots[op.step.rhs]))
+            out_slot = op.step.out
+        elif isinstance(op, GemmOp):
+            mat = op.mat
+            ql = qslots[op.step.lhs]
+            if not ql.per_tensor and (mat.lhs_perm is not None
+                                      or not mat.m_axes):
+                ql = per_tensor(ql)
+            x2 = _as_2d(ql.q, mat.lhs_perm, mat.m, mat.k)
+            sl = q.expand_row_scales(ql.scale, mat.m)
+            qr = per_tensor(qslots[op.step.rhs])
+            if mat.transpose_rhs:
+                w2 = _as_2d(qr.q, mat.rhs_perm, mat.n, mat.k)
+            else:
+                w2 = _as_2d(qr.q, mat.rhs_perm, mat.k, mat.n)
+            sr = q.expand_row_scales(qr.scale, mat.n).reshape(1, mat.n)
+            res = matmul_cuda(x2, w2, transpose_rhs=mat.transpose_rhs,
+                              scales=(sl, sr))
+            res = res.reshape(tuple(sizes[a] for a in mat.m_axes + mat.n_axes))
+            if mat.out_perm is not None:
+                res = res.permute(mat.out_perm)
+            out_slot = op.step.out
+        else:                            # ChainOp
+            qx = qslots[op.steps[0].lhs]
+            if not qx.per_tensor and (op.x_perm is not None
+                                      or not op.m_axes):
+                qx = per_tensor(qx)
+            qws = [per_tensor(qslots[s.rhs]) for s in op.steps]
+            x2 = _as_2d(qx.q, op.x_perm, op.m0, op.k)
+            w2s = [_as_2d(qw.q, p, ki, ni)
+                   for (qw, p), (ki, ni) in zip(zip(qws, op.w_perms),
+                                                op.link_shapes)]
+            # Folded per-link dequantization: the lhs row scales absorb
+            # W1's per-tensor scale, each interior weight contributes a
+            # [1, 1] scalar, the last weight's scale applies per output
+            # column.  Per-tensor scalars commute with the row regroup.
+            s_first = q.expand_row_scales(qx.scale, op.m0) * qws[0].scale
+            mids = [qw.scale.reshape(1, 1) for qw in qws[1:-1]]
+            s_last = q.expand_row_scales(qws[-1].scale, op.n).reshape(1, op.n)
+            scales = (s_first, *mids, s_last)
+            try:
+                res = chain_n_cuda(x2, w2s, scales=scales)
+            except ChainLoweringError as err:
+                # compile_plan fused this chain against the wrapper's own
+                # budget, so a refusal is a fault: on the card it raises.
+                # CPU operands take the plain chain's link math (the
+                # reference's unfused fallback).
+                if x2.is_cuda:
+                    raise
+                _degrade("runtime_quantized", err)
+                res = ref.chain_n_scaled(x2, w2s, scales)
+            res = res.reshape(tuple(sizes[ax] for ax in op.m_axes + op.n_axes))
+            if op.out_perm is not None:
+                res = res.permute(op.out_perm)
+            out_slot = op.steps[-1].out
+        qslots[out_slot] = q.quantize(res, inter_policy)
+        if trace:
+            kind = ("einsum" if isinstance(op, EinsumOp)
+                    else "gemm" if isinstance(op, GemmOp) else "chain")
+            tm.complete_span(f"exec.{kind}", t0, tm.now_us(), op_index=t,
+                             policy=policy.tag)
+        for slot in _op_reads(op):
+            if slot != out_slot and last_use[slot] == t and slot in qslots:
+                del qslots[slot]
+
+    out = _dequantize_output(qslots[plan.steps[-1].out])
     last_axes = plan.steps[-1].out_axes
     if last_axes != net.output:
         out = out.permute(tuple(last_axes.index(a) for a in net.output))

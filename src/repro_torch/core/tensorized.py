@@ -19,10 +19,14 @@ Every phase runs through the einsum executor or the CUDA kernel backend
 model (:data:`repro_torch.core.perf_model.H100_SXM`) where the reference
 defaults to its TPU model, and memoised per (layer, token batch).
 
+Under a quantized ``precision`` every phase runs quantized with delayed
+scaling (:class:`_TNNApplyQ`): the layer carries an f32 amax history
+(``quant_amax``, one row per tensor role: x, dY, each core), whose
+"gradient" is the state update the optimizer applies.
+
 Not ported yet: ``phase_paths=False`` (plain autodiff through the FP
 plan, the ablation baseline) for training, ROADMAP.md queue A item 10;
-quantized execution and the quantized stash (item 3); autotuned tiles
-(item 5); the SPMD mesh path (item 8).
+autotuned tiles (item 5); the SPMD mesh path (item 8).
 """
 
 from __future__ import annotations
@@ -39,8 +43,12 @@ from repro_torch.core import contraction, csse, factorizations, perf_model
 from repro_torch.core.factorizations import Factorization
 from repro_torch.core.policy import ExecutionPolicy
 from repro_torch.core.tnetwork import TensorNetwork
-from repro_torch.memory.stash import STORE, StashPolicy, stash, unstash
-from repro_torch.precision.policy import QuantPolicy
+from repro_torch.memory.stash import (
+    STORE, StashPolicy, stash, stashed_amax, unstash,
+)
+from repro_torch.precision.policy import (
+    AMAX_KEY, QuantPolicy, amax_of, scale_from_history,
+)
 
 #: torch dtype -> the dtype name the reference's policies key on
 _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
@@ -256,17 +264,18 @@ class _TNNApply(torch.autograd.Function):
         if any(ctx.needs_input_grad):
             # What survives to the backward is the stash policy's call:
             # x as is (store; recompute drops it at the model level, where
-            # the per-layer checkpoint re-runs this forward).  Cores are
-            # parameters, alive anyway.
-            payload, _, _ = stash(x, remat)
-            ctx.save_for_backward(payload, *cores)
+            # the per-layer checkpoint re-runs this forward) or an fp8/int8
+            # payload with its scale (quantized).  Cores are parameters,
+            # alive anyway.
+            ctx.save_for_backward(*stash(x, remat), *cores)
         return y
 
     @staticmethod
     def backward(ctx, dy):
         fact, opts, backend, remat = ctx.static
-        payload, *cores = ctx.saved_tensors
-        x = unstash((payload, None, None), remat)
+        payload, scale, amax, *cores = ctx.saved_tensors
+        x = unstash((payload, scale, amax), remat,
+                    cores[0].dtype if cores else dy.dtype)
         _, bp, (wg_kind, dw_res, wg) = _plans(fact, x.shape[0], opts)
         kw = dict(backend=backend, fused_chain=opts.fused_chain,
                   max_chain_len=opts.max_chain_len)
@@ -289,12 +298,110 @@ class _TNNApply(torch.autograd.Function):
         return (None, None, None, None, dx, *dcores)
 
 
+# Quantized variant: the same per-phase plans, executed under a
+# QuantPolicy with delayed scaling.  The amax history rides as a
+# differentiable input purely for its state-update channel: the backward
+# returns ``hist - new_hist`` as its gradient, and the optimizer's
+# quant_amax passthrough (``p - g``, repro_torch.optim.adamw) turns that
+# into ``new_hist``, so the history advances once per optimizer step.
+
+
+def _phase_scales(policy: QuantPolicy, hist: torch.Tensor, rows, tensors):
+    """Delayed per-tensor scales for one phase's input nodes; ``rows[i]``
+    is the history row backing ``tensors[i]``."""
+    return [scale_from_history(hist[row], amax_of(t), policy.qmax,
+                               policy.margin)
+            for row, t in zip(rows, tensors)]
+
+
+def _stash_policy_q(policy: QuantPolicy, remat: StashPolicy) -> StashPolicy:
+    """Quantized runs stash in the execution policy's dtype: the WG phase
+    quantizes x with the same delayed scale anyway, so a quantized stash
+    reproduces the executor's bits exactly."""
+    return StashPolicy(mode=remat.mode, dtype=policy.dtype)
+
+
+class _TNNApplyQ(torch.autograd.Function):
+    """``y = FP(x, cores)`` under ``policy`` with delayed scales from the
+    amax history ``hist`` (row 0: x, row 1: dY, rows 2..: the cores).  The
+    backward runs BP and WG quantized and returns ``hist - new_hist`` as
+    the history's gradient, ``new_hist`` being the history rolled one
+    slot with this step's amaxes (x's from the forward, as stashed).  The
+    reference's ``_tnn_apply_q`` / ``_tnn_q_fwd`` / ``_tnn_q_bwd``."""
+
+    @staticmethod
+    def forward(ctx, fact, opts, backend, policy, remat, x, hist, *cores):
+        fp, _, _ = _plans(fact, x.shape[0], opts)
+        core_rows = list(range(2, 2 + len(cores)))
+        scales = _phase_scales(policy, hist, [0] + core_rows, (x, *cores))
+        with record_function("tnn.fp"):
+            y = contraction.execute(fp.plan, [x, *cores], backend=backend,
+                                    fused_chain=opts.fused_chain,
+                                    max_chain_len=opts.max_chain_len,
+                                    policy=policy, input_scales=scales)
+        ctx.static = (fact, opts, backend, policy, remat)
+        if any(ctx.needs_input_grad):
+            sp = _stash_policy_q(policy, remat)
+            # A quantized stash pins the delayed scale the executor used,
+            # so the backward's re-quantization of x-hat is bit-identical.
+            ctx.save_for_backward(
+                *stash(x, sp, scale=scales[0] if sp.quantized else None),
+                hist, *cores)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        fact, opts, backend, policy, remat = ctx.static
+        payload, s_stash, amax_stash, hist, *cores = ctx.saved_tensors
+        sp = _stash_policy_q(policy, remat)
+        xres = (payload, s_stash, amax_stash)
+        x = unstash(xres, sp, cores[0].dtype if cores else dy.dtype)
+        amax_x = stashed_amax(xres, x)
+        _, bp, (wg_kind, dw_res, wg) = _plans(fact, x.shape[0], opts)
+        kw = dict(backend=backend, fused_chain=opts.fused_chain,
+                  max_chain_len=opts.max_chain_len, policy=policy)
+        dy = dy.to(x.dtype)
+        core_rows = list(range(2, 2 + len(cores)))
+        s_x = scale_from_history(hist[0], amax_x, policy.qmax, policy.margin)
+        s_dy, *s_cores = _phase_scales(policy, hist, [1] + core_rows,
+                                       (dy, *cores))
+        with record_function("tnn.bp"):
+            dx = contraction.execute(bp.plan, [dy, *cores],
+                                     input_scales=[s_dy, *s_cores], **kw)
+        dcores = []
+        with record_function("tnn.wg"):
+            if wg_kind == "shared":
+                dw = contraction.execute(dw_res.plan, [x, dy],
+                                         input_scales=[s_x, s_dy], **kw)
+            for i, w in enumerate(wg):
+                others = [c for j, c in enumerate(cores) if j != i]
+                s_others = [s for j, s in enumerate(s_cores) if j != i]
+                if wg_kind == "shared":
+                    # dW has no cross-step identity: just-in-time scale.
+                    dcores.append(contraction.execute(
+                        w.plan, [dw, *others],
+                        input_scales=[None, *s_others], **kw))
+                else:
+                    dcores.append(contraction.execute(
+                        w.plan, [x, dy, *others],
+                        input_scales=[s_x, s_dy, *s_others], **kw))
+        # The state-update channel: roll every history row one slot with
+        # this step's amaxes and hand back the delta as the gradient.
+        current = torch.stack([amax_x, amax_of(dy)]
+                              + [amax_of(c) for c in cores])
+        new_hist = torch.cat([current[:, None], hist[:, :-1]], dim=1)
+        return (None, None, None, None, None, dx, hist - new_hist, *dcores)
+
+
 class TensorizedLinear(nn.Module):
     """``x[..., N] -> y[..., M]`` with W factorized per ``fact``.
 
     Parameters: ``cores`` (one tensor per factor core, in ``fact``'s core
-    order and shapes, the reference's layout) and, with ``use_bias``,
-    ``bias[M]``.
+    order and shapes, the reference's layout), with ``use_bias``
+    ``bias[M]``, and under a quantized ``precision`` the delayed-scaling
+    history ``quant_amax`` (f32 ``[2 + num_cores, amax_history_len]``,
+    zeros: the first step scales just in time).  A quantized layer whose
+    ``quant_amax`` was removed runs with just-in-time scales.
     """
 
     def __init__(self, fact: Factorization, *, use_bias: bool = False,
@@ -302,6 +409,7 @@ class TensorizedLinear(nn.Module):
                  opts: csse.SearchOptions | None = None,
                  param_dtype=torch.float32, compute_dtype=torch.bfloat16,
                  backend: str = "einsum", remat: StashPolicy = STORE,
+                 precision: QuantPolicy = QuantPolicy(),
                  device=None, generator: torch.Generator | None = None):
         super().__init__()
         self.fact = fact
@@ -311,6 +419,7 @@ class TensorizedLinear(nn.Module):
         self.compute_dtype = compute_dtype
         self.backend = contraction.canonical_backend(backend)
         self.remat = remat
+        self.precision = precision
         std = fact.init_std(1.0 / math.sqrt(fact.N))
         self.cores = nn.ParameterList([
             nn.Parameter((torch.randn(fact.core_shape(i), generator=generator)
@@ -319,6 +428,11 @@ class TensorizedLinear(nn.Module):
         if use_bias:
             self.bias = nn.Parameter(
                 torch.zeros(fact.M, dtype=param_dtype, device=device))
+        if precision.quantized:
+            # Never cast to the compute dtype: the history stays f32.
+            self.register_parameter(AMAX_KEY, nn.Parameter(torch.zeros(
+                (2 + fact.num_cores, precision.amax_history_len),
+                dtype=torch.float32, device=device)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         *lead, n = x.shape
@@ -332,8 +446,27 @@ class TensorizedLinear(nn.Module):
             raise NotImplementedError(
                 "phase_paths=False (autodiff through the FP plan) is not "
                 "ported yet (ROADMAP.md, queue A item 10)")
-        y = _TNNApply.apply(self.fact, self.opts, self.backend, self.remat,
-                            xt, *cores)
+        quantized = self.precision.quantized
+        if quantized and self.phase_paths:
+            hist = self._parameters.get(AMAX_KEY)
+            if hist is None:            # no history: just-in-time scales
+                hist = torch.zeros(
+                    (2 + self.fact.num_cores,
+                     self.precision.amax_history_len),
+                    dtype=torch.float32, device=xt.device)
+            y = _TNNApplyQ.apply(self.fact, self.opts, self.backend,
+                                 self.precision, self.remat, xt, hist,
+                                 *cores)
+        elif quantized:                 # phase_paths=False, no grad
+            fp, _, _ = _plans(self.fact, batch, self.opts)
+            y = contraction.execute(fp.plan, [xt, *cores],
+                                    backend=self.backend,
+                                    fused_chain=self.opts.fused_chain,
+                                    max_chain_len=self.opts.max_chain_len,
+                                    policy=self.precision)
+        else:
+            y = _TNNApply.apply(self.fact, self.opts, self.backend,
+                                self.remat, xt, *cores)
         y = y.reshape(tuple(lead) + (self.fact.M,))
         if self.use_bias:
             y = y + self.bias.to(self.compute_dtype)
@@ -356,4 +489,5 @@ def make_tensorized_linear(out_features: int, in_features: int,
                             param_dtype=param_dtype,
                             compute_dtype=compute_dtype,
                             backend=tnn.backend, remat=tnn.stash_policy(),
-                            device=device, generator=generator)
+                            precision=tnn.precision, device=device,
+                            generator=generator)

@@ -1,7 +1,6 @@
 // Hand-written Hopper (sm_90a) kernels for the tensor-contraction hot spots.
 //
-// Port of the two Pallas TPU kernels of src/repro/kernels/fused_contraction.py
-// that the serving path reaches:
+// Port of the Pallas TPU kernels of src/repro/kernels/fused_contraction.py:
 //
 // * gemm_kernel replaces _matmul_kernel / matmul_pallas: C[M,N] = X[M,K] @ W
 //   with W stored [K,N] or [N,K] ("transpose_rhs").  The [N,K] tile is
@@ -14,27 +13,45 @@
 //   256-thread block, 4x4 outputs per thread with stride-16 rows/columns so
 //   each warp writes contiguous runs of C.  K = 8 is below one bf16 mma
 //   k-step (16), so tensor cores, wgmma and TMA are left to a later PR.
+//   Its scaled form replaces _matmul_scaled_kernel (matmul_pallas with
+//   scales=): fp8 e4m3/e5m2 or int8 operands are upcast to f32 (exactly) as
+//   they are staged into the same tiles, and the epilogue writes
+//   (acc * sl[row]) * sr[col] in f32: the dequantization never takes its
+//   own pass over device memory.  Operands are 1 byte, the output 4, so
+//   the scaled GEMM is bound by the bytes of C as well.  fp8 wgmma needs
+//   K >= 32; the ATIS plans' K = 8 is below it, so this stays SIMT.
 //
-// * chain_kernel replaces _chain_n_kernel / chain_n_pallas (non-quantized):
+// * chain_kernel replaces _chain_n_kernel / chain_n_pallas:
 //   Y = (((X @ W1) -> regroup -> @ W2) ... @ Wn).  One block owns a band of
 //   final output rows and runs every link with the intermediate in shared
 //   memory; the regroup [r, n_i] -> [r/g, g*n_i] is pure index arithmetic on
 //   that contiguous buffer ("tensor shaping during computation"), so no
 //   padding of n_i is needed.  Intermediates are accumulated in f32 and
 //   rounded to the operand type before the next link, like the reference.
-//   All weights stay resident in shared memory; X streams from device memory
-//   into link 0 (its [band * mult0, k] block can exceed shared memory, e.g.
-//   2048 x 192 bf16 = 786 KB).  Bound: device-memory bytes of X and Y; the
-//   intermediates never leave the chip.  The wrapper picks the band height
-//   so weights + intermediates fit the 227 KB per-block budget and refuses
-//   (ChainLoweringError) what does not fit.
+//   All weights stay resident in shared memory as f32; X streams from
+//   device memory into link 0 (its [band * mult0, k] block can exceed shared
+//   memory, e.g. 2048 x 192 bf16 = 786 KB).  Bound: device-memory bytes of
+//   X and Y; the intermediates never leave the chip.  The wrapper picks the
+//   band height so weights + intermediates fit the 227 KB per-block budget
+//   and refuses (ChainLoweringError) what does not fit.
+//   Its scaled form replaces the quantized branch of _chain_n_kernel: X
+//   and W in fp8/int8 (staged to f32 exactly, which equals the reference's
+//   bf16 cast of the interior weights), link 0 scaled per link-0 row by
+//   s_first, interior links by one scalar each, the last link per output
+//   column by s_last; every intermediate is rounded to bf16 (the
+//   reference's VMEM intermediate type) after its scale, and Y is f32.
+//   The weights stay f32 in shared memory, so the budget is the same as
+//   the unscaled chain's: a chain fused at compile time is never refused
+//   at run time for being quantized.
 //
 // Plain C interface (loaded with ctypes): every launch goes to the caller's
 // stream, allocates nothing, and returns cudaGetLastError().
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -44,6 +61,15 @@ constexpr int kSmemLimit = 232448;  // dynamic shared memory one block may use
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f(__nv_fp8_e4m3 v) {
+  return static_cast<float>(v);
+}
+__device__ __forceinline__ float to_f(__nv_fp8_e5m2 v) {
+  return static_cast<float>(v);
+}
+__device__ __forceinline__ float to_f(int8_t v) {
+  return static_cast<float>(v);
 }
 
 template <typename T>
@@ -63,10 +89,13 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
 
 constexpr int kBM = 64, kBN = 64, kBK = 16, kGemmThreads = 256;
 
-template <typename T, bool kTransRhs>
+// TOut is T for the plain GEMM; the scaled form (kScaled) reads fp8/int8
+// T, writes f32 and multiplies by sl[row] and sr[col] in its epilogue.
+template <typename T, typename TOut, bool kTransRhs, bool kScaled>
 __global__ void __launch_bounds__(kGemmThreads)
     gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                T* __restrict__ out, int M, int N, int K) {
+                const float* __restrict__ sl, const float* __restrict__ sr,
+                TOut* __restrict__ out, int M, int N, int K) {
   __shared__ float xs[kBK][kBM + 1];  // X tile, k-major
   __shared__ float ws[kBK][kBN + 1];  // W tile as [k][n] whatever its layout
   const int tid = threadIdx.x;
@@ -117,24 +146,28 @@ __global__ void __launch_bounds__(kGemmThreads)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int gn = col0 + tx + 16 * j;
-      if (gn < N) out[(size_t)gm * N + gn] = from_f<T>(acc[i][j]);
+      if (gn >= N) continue;
+      float v = acc[i][j];
+      if (kScaled) v = __fmul_rn(__fmul_rn(v, sl[gm]), sr[gn]);
+      out[(size_t)gm * N + gn] = from_f<TOut>(v);
     }
   }
 }
 
-template <typename T>
-int launch_gemm(int trans, const void* x, const void* w, void* out, int M,
-                int N, int K, cudaStream_t stream) {
+template <typename T, typename TOut, bool kScaled>
+int launch_gemm(int trans, const void* x, const void* w, const float* sl,
+                const float* sr, void* out, int M, int N, int K,
+                cudaStream_t stream) {
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
   const T* xp = static_cast<const T*>(x);
   const T* wp = static_cast<const T*>(w);
-  T* op = static_cast<T*>(out);
+  TOut* op = static_cast<TOut*>(out);
   if (trans)
-    gemm_kernel<T, true><<<grid, kGemmThreads, 0, stream>>>(xp, wp, op, M, N,
-                                                            K);
+    gemm_kernel<T, TOut, true, kScaled><<<grid, kGemmThreads, 0, stream>>>(
+        xp, wp, sl, sr, op, M, N, K);
   else
-    gemm_kernel<T, false><<<grid, kGemmThreads, 0, stream>>>(xp, wp, op, M,
-                                                             N, K);
+    gemm_kernel<T, TOut, false, kScaled><<<grid, kGemmThreads, 0, stream>>>(
+        xp, wp, sl, sr, op, M, N, K);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -144,6 +177,9 @@ int launch_gemm(int trans, const void* x, const void* w, void* out, int M,
 
 struct ChainArgs {
   const void* w[kMaxLinks];  // W_i, row-major [k_i, n_i]
+  // Scaled chain only: link 0's scale per link-0 row, one scalar per
+  // interior link, the last link's scale per output column.
+  const float* s[kMaxLinks];
   int k[kMaxLinks];
   int n[kMaxLinks];
   int mult[kMaxLinks];   // link i's rows per final output row
@@ -154,8 +190,11 @@ struct ChainArgs {
   int band;     // final output rows per block
 };
 
-template <typename T>
-__global__ void chain_kernel(const T* __restrict__ x, T* __restrict__ out,
+// T: the type of X and every W.  TH: the type each intermediate is rounded
+// to before the next link reads it.  TOut: the type of Y.  The plain chain
+// is <T, T, T, false>; the scaled one <fp8|int8, bf16, float, true>.
+template <typename T, typename TH, typename TOut, bool kScaled>
+__global__ void chain_kernel(const T* __restrict__ x, TOut* __restrict__ out,
                              ChainArgs a) {
   extern __shared__ float smem[];
   for (int i = 0; i < a.links; ++i) {
@@ -190,24 +229,30 @@ __global__ void chain_kernel(const T* __restrict__ x, T* __restrict__ out,
         const float* hr = src + (size_t)r * k;
         for (int kk = 0; kk < k; ++kk) acc = fmaf(hr[kk], wsm[kk * n + c], acc);
       }
+      if (kScaled) {
+        const float sc = i == 0 ? a.s[0][((size_t)f0 * a.mult[0]) + r]
+                                : (last ? a.s[i][c] : a.s[i][0]);
+        acc = __fmul_rn(acc, sc);
+      }
       if (last)
-        out[((size_t)f0 + r) * n + c] = from_f<T>(acc);
+        out[((size_t)f0 + r) * n + c] = from_f<TOut>(acc);
       else
-        dst[o] = to_f(from_f<T>(acc));  // round to the operand type
+        dst[o] = to_f(from_f<TH>(acc));  // round to the intermediate type
     }
     __syncthreads();
   }
 }
 
-template <typename T>
-int launch_chain(const void* x, const void* const* ws, const int* ks,
-                 const int* ns, const int* mults, int links, int m_final,
-                 int band, int threads, void* out, cudaStream_t stream) {
+template <typename T, typename TH, typename TOut, bool kScaled>
+int launch_chain(const void* x, const void* const* ws,
+                 const float* const* scales, const int* ks, const int* ns,
+                 const int* mults, int links, int m_final, int band,
+                 int threads, void* out, cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        chain_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemLimit);
+        chain_kernel<T, TH, TOut, kScaled>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
@@ -215,6 +260,7 @@ int launch_chain(const void* x, const void* const* ws, const int* ks,
   int off = 0, max_mid = 0;
   for (int i = 0; i < links; ++i) {
     a.w[i] = ws[i];
+    a.s[i] = kScaled ? scales[i] : nullptr;
     a.k[i] = ks[i];
     a.n[i] = ns[i];
     a.mult[i] = mults[i];
@@ -235,8 +281,8 @@ int launch_chain(const void* x, const void* const* ws, const int* ks,
   const size_t smem = (size_t)off * sizeof(float);
   if (smem > (size_t)kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   const int grid = (m_final + band - 1) / band;
-  chain_kernel<T><<<grid, threads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), a);
+  chain_kernel<T, TH, TOut, kScaled><<<grid, threads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<TOut*>(out), a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -244,29 +290,78 @@ int launch_chain(const void* x, const void* const* ws, const int* ks,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.
+// dtype codes (shared with kernels/quantized.cu): 0 = float32,
+// 1 = bfloat16, 2 = fp8 e4m3, 3 = fp8 e5m2, 4 = int8.
 int fc_matmul(int dtype, int trans, const void* x, const void* w, void* out,
               int M, int N, int K, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_gemm<float>(trans, x, w, out, M, N, K, s);
+  if (dtype == 0)
+    return launch_gemm<float, float, false>(trans, x, w, nullptr, nullptr,
+                                            out, M, N, K, s);
   if (dtype == 1)
-    return launch_gemm<__nv_bfloat16>(trans, x, w, out, M, N, K, s);
+    return launch_gemm<__nv_bfloat16, __nv_bfloat16, false>(
+        trans, x, w, nullptr, nullptr, out, M, N, K, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// C[M, N] = (Xq @ Wq) * sl[M] * sr[N] in f32; dtype 2, 3 or 4.
+int fc_matmul_scaled(int dtype, int trans, const void* x, const void* w,
+                     const void* sl, const void* sr, void* out, int M, int N,
+                     int K, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(sl);
+  const float* r = static_cast<const float*>(sr);
+  if (dtype == 2)
+    return launch_gemm<__nv_fp8_e4m3, float, true>(trans, x, w, l, r, out, M,
+                                                   N, K, s);
+  if (dtype == 3)
+    return launch_gemm<__nv_fp8_e5m2, float, true>(trans, x, w, l, r, out, M,
+                                                   N, K, s);
+  if (dtype == 4)
+    return launch_gemm<int8_t, float, true>(trans, x, w, l, r, out, M, N, K,
+                                            s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+static bool chain_args_ok(int links, int band, int threads) {
+  return links >= 2 && links <= kMaxLinks && band >= 1 && threads >= 32 &&
+         threads <= 1024;
 }
 
 int fc_chain(int dtype, const void* x, const void* const* ws, const int* ks,
              const int* ns, const int* mults, int links, int m_final, int band,
              int threads, void* out, void* stream) {
-  if (links < 2 || links > kMaxLinks || band < 1 || threads < 32 ||
-      threads > 1024)
+  if (!chain_args_ok(links, band, threads))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_chain<float>(x, ws, ks, ns, mults, links, m_final, band,
-                               threads, out, s);
+    return launch_chain<float, float, float, false>(
+        x, ws, nullptr, ks, ns, mults, links, m_final, band, threads, out, s);
   if (dtype == 1)
-    return launch_chain<__nv_bfloat16>(x, ws, ks, ns, mults, links, m_final,
-                                       band, threads, out, s);
+    return launch_chain<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16, false>(
+        x, ws, nullptr, ks, ns, mults, links, m_final, band, threads, out, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The scaled chain: X and W in dtype 2, 3 or 4, bf16 intermediates, f32 Y;
+// scales[i] as ChainArgs::s.
+int fc_chain_scaled(int dtype, const void* x, const void* const* ws,
+                    const void* const* scales, const int* ks, const int* ns,
+                    const int* mults, int links, int m_final, int band,
+                    int threads, void* out, void* stream) {
+  if (!chain_args_ok(links, band, threads))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* const* sc = reinterpret_cast<const float* const*>(scales);
+  if (dtype == 2)
+    return launch_chain<__nv_fp8_e4m3, __nv_bfloat16, float, true>(
+        x, ws, sc, ks, ns, mults, links, m_final, band, threads, out, s);
+  if (dtype == 3)
+    return launch_chain<__nv_fp8_e5m2, __nv_bfloat16, float, true>(
+        x, ws, sc, ks, ns, mults, links, m_final, band, threads, out, s);
+  if (dtype == 4)
+    return launch_chain<int8_t, __nv_bfloat16, float, true>(
+        x, ws, sc, ks, ns, mults, links, m_final, band, threads, out, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,16 +1,23 @@
 """Hand-written CUDA kernels for tensor-contraction hot spots: wrappers.
 
 Port of ``src/repro/kernels/fused_contraction.py``.  Two kernels, CUDA C++
-for ``sm_90a`` in ``csrc/fused_contraction.cu`` (its header says what
-bounds each one on the H100 and how the design answers it):
+for ``sm_90a`` in ``csrc/fused_contraction.cu``, each with a scaled form
+for quantized operands (the source's header says what bounds each one on
+the H100 and how the design answers it):
 
 * :func:`matmul_cuda` replaces ``matmul_pallas`` (``_matmul_kernel``):
   ``C[M, N] = X[M, K] @ W`` with W stored ``[K, N]`` or ``[N, K]``; the
   ``[N, K]`` tile is transposed in shared memory, never in device memory.
-* :func:`chain_n_cuda` replaces ``chain_n_pallas`` (``_chain_n_kernel``,
-  non-quantized): an N-link contraction chain whose intermediates stay in
-  shared memory, with the row-major regroup ``[r, n_i] -> [r/g, g*n_i]``
-  between links done as index arithmetic on chip.
+  With ``scales=(sl, sr)`` it replaces ``matmul_pallas(scales=...)``
+  (``_matmul_scaled_kernel``): fp8/int8 operands, f32
+  ``C = (Xq @ Wq) * sl[M, 1] * sr[1, N]``, the scales applied in the
+  epilogue.
+* :func:`chain_n_cuda` replaces ``chain_n_pallas`` (``_chain_n_kernel``):
+  an N-link contraction chain whose intermediates stay in shared memory,
+  with the row-major regroup ``[r, n_i] -> [r/g, g*n_i]`` between links
+  done as index arithmetic on chip.  With ``scales=(s_first, *mids,
+  s_last)`` it runs the quantized branch: fp8/int8 operands, one folded
+  dequantization factor per link, bf16 intermediates, f32 output.
 
 Each wrapper checks device, dtype, shape and contiguity, launches on
 ``torch.cuda.current_stream()`` and raises if the launch reports an
@@ -47,10 +54,15 @@ _NUM_SMS = 132
 _THREADS = 256
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
-#: (``flash_attention_fwd`` is counted by :mod:`.flash_attention`)
-LAUNCHES = {"matmul": 0, "chain_n": 0, "flash_attention_fwd": 0}
+#: (``flash_attention_fwd`` is counted by :mod:`.flash_attention`,
+#: ``quantize`` / ``dequantize`` by :mod:`.quantized`)
+LAUNCHES = {"matmul": 0, "chain_n": 0, "flash_attention_fwd": 0,
+            "matmul_scaled": 0, "chain_n_scaled": 0, "quantize": 0,
+            "dequantize": 0}
 
+#: operand dtype codes of the CUDA sources (``csrc/*.cu``)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_QUANT_CODES = {torch.float8_e4m3fn: 2, torch.float8_e5m2: 3, torch.int8: 4}
 
 
 class ChainLoweringError(ValueError):
@@ -152,6 +164,15 @@ def _lib() -> ctypes.CDLL:
                                  ctypes.POINTER(ci), ctypes.POINTER(ci),
                                  ctypes.POINTER(ci), ci, ci, ci, ci, vp, vp]
         lib.fc_chain.restype = ci
+        lib.fc_matmul_scaled.argtypes = [ci, ci, vp, vp, vp, vp, vp, ci, ci,
+                                         ci, vp]
+        lib.fc_matmul_scaled.restype = ci
+        lib.fc_chain_scaled.argtypes = [ci, vp, ctypes.POINTER(vp),
+                                        ctypes.POINTER(vp),
+                                        ctypes.POINTER(ci), ctypes.POINTER(ci),
+                                        ctypes.POINTER(ci), ci, ci, ci, ci,
+                                        vp, vp]
+        lib.fc_chain_scaled.restype = ci
         lib.fc_max_links.restype = ci
         lib.fc_error_string.argtypes = [ci]
         lib.fc_error_string.restype = ctypes.c_char_p
@@ -168,16 +189,30 @@ def _check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
-def _check_cuda_operands(op: str, tensors, out_dtype) -> None:
+def _check_cuda_operands(op: str, tensors, out_dtype, scales=()) -> None:
+    """Device, dtype and contiguity checks before a launch.  Plain
+    kernels take f32/bf16 operands and write their type; the scaled ones
+    take fp8/int8 operands with f32 scales and write f32."""
     dev = tensors[0].device
     dtype = tensors[0].dtype
-    for t in tensors:
+    for t in (*tensors, *scales):
         if t.device != dev:
             raise ValueError(f"{op}: operands on {t.device} and {dev}")
-        if t.dtype != dtype:
-            raise ValueError(f"{op}: operand dtypes {t.dtype} and {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{op}: operands must be contiguous")
+    for t in tensors:
+        if t.dtype != dtype:
+            raise ValueError(f"{op}: operand dtypes {t.dtype} and {dtype}")
+    if scales:
+        if dtype not in _QUANT_CODES:
+            raise ValueError(f"{op}: dtype {dtype} not supported "
+                             "(float8_e4m3fn, float8_e5m2, int8)")
+        if any(s.dtype != torch.float32 for s in scales):
+            raise ValueError(f"{op}: scales must be float32")
+        if out_dtype not in (None, torch.float32):
+            raise ValueError(f"{op}: the kernel writes float32, not "
+                             f"{out_dtype}")
+        return
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"{op}: dtype {dtype} not supported (float32, "
                          "bfloat16)")
@@ -185,42 +220,96 @@ def _check_cuda_operands(op: str, tensors, out_dtype) -> None:
         raise ValueError(f"{op}: the kernel writes {dtype}, not {out_dtype}")
 
 
+def _check_gemm_scales(scales, m: int, n: int, k: int):
+    sl, sr = scales
+    _require(tuple(sl.shape) == (m, 1) and tuple(sr.shape) == (1, n),
+             f"bad GEMM scale shapes {tuple(sl.shape)}/{tuple(sr.shape)} "
+             f"for [{m}x{k}] @ [{k}x{n}]")
+    return sl, sr
+
+
+def _check_chain_scales(scales, n_w: int, m0: int, n: int) -> tuple:
+    scales = tuple(scales)
+    _require(len(scales) == n_w,
+             f"expected {n_w} chain scales, got {len(scales)}")
+    s_first, *mid, s_last = scales
+    _require(tuple(s_first.shape) == (m0, 1),
+             f"chain lhs scale must be [{m0}, 1], got "
+             f"{tuple(s_first.shape)}")
+    _require(tuple(s_last.shape) == (1, n),
+             f"chain out scale must be [1, {n}], got {tuple(s_last.shape)}")
+    for j, s_ in enumerate(mid):
+        _require(tuple(s_.shape) == (1, 1),
+                 f"chain interior scale {j + 1} must be [1, 1], got "
+                 f"{tuple(s_.shape)}")
+    return scales
+
+
 def matmul_cuda(x: torch.Tensor, w: torch.Tensor, *,
-                transpose_rhs: bool = False, out_dtype=None) -> torch.Tensor:
+                transpose_rhs: bool = False, out_dtype=None,
+                scales=None) -> torch.Tensor:
     """``C[M, N] = X[M, K] @ W`` with W stored ``[K, N]`` or, with
-    ``transpose_rhs``, ``[N, K]``; f32 accumulation, output in X's dtype."""
+    ``transpose_rhs``, ``[N, K]``; f32 accumulation, output in X's dtype.
+
+    ``scales=(sl, sr)`` runs the scaled kernel: ``x``/``w`` hold fp8/int8
+    values, ``sl`` is the lhs scale per row (``[M, 1]`` f32), ``sr`` the
+    rhs scale per column (``[1, N]`` f32), and the f32 output is
+    ``(Xq @ Wq) * sl * sr``."""
     _require(x.dim() == 2 and w.dim() == 2,
              f"GEMM operands must be 2-D, got {tuple(x.shape)} and "
              f"{tuple(w.shape)}")
     m, k = x.shape
     n, k2 = w.shape if transpose_rhs else (w.shape[1], w.shape[0])
     _require(k == k2, f"contraction mismatch {k} vs {k2}")
-    if x.device.type == "cpu" and w.device.type == "cpu":
+    if scales is not None:
+        scales = _check_gemm_scales(scales, m, n, k)
+    on_cpu = all(t.device.type == "cpu" for t in (x, w, *(scales or ())))
+    if on_cpu and scales is None:
         return ref.matmul(x, w, transpose_rhs=transpose_rhs,
                           out_dtype=out_dtype)
+    if on_cpu:
+        if out_dtype not in (None, torch.float32):
+            raise ValueError("matmul_cuda: the scaled GEMM writes float32")
+        return ref.matmul_scaled(x, w, *scales, transpose_rhs=transpose_rhs)
     if x.device.type != "cuda":
         raise ValueError(f"matmul_cuda: no kernel for device {x.device}")
-    _check_cuda_operands("matmul_cuda", (x, w), out_dtype)
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    _check_cuda_operands("matmul_cuda", (x, w), out_dtype, scales or ())
+    out = torch.empty((m, n), device=x.device,
+                      dtype=x.dtype if scales is None else torch.float32)
     if m == 0 or n == 0:
         return out
     lib = _lib()
-    rc = lib.fc_matmul(_DTYPE_CODES[x.dtype], int(transpose_rhs),
-                       x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
-                       _stream())
+    if scales is None:
+        rc = lib.fc_matmul(_DTYPE_CODES[x.dtype], int(transpose_rhs),
+                           x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n,
+                           k, _stream())
+        key = "matmul"
+    else:
+        rc = lib.fc_matmul_scaled(_QUANT_CODES[x.dtype], int(transpose_rhs),
+                                  x.data_ptr(), w.data_ptr(),
+                                  scales[0].data_ptr(), scales[1].data_ptr(),
+                                  out.data_ptr(), m, n, k, _stream())
+        key = "matmul_scaled"
     _check_rc(lib, rc, "matmul_cuda")
-    LAUNCHES["matmul"] += 1
+    LAUNCHES[key] += 1
     return out
 
 
-def chain_n_cuda(x: torch.Tensor, weights, *, out_dtype=None
-                 ) -> torch.Tensor:
+def chain_n_cuda(x: torch.Tensor, weights, *, out_dtype=None,
+                 scales=None) -> torch.Tensor:
     """N-link contraction chain with every intermediate in shared memory.
 
     ``weights`` is a sequence of >= 2 matrices ``W_i[k_i, n_i]`` with
     ``k_1 == x.shape[1]``; link ``i+1`` reads link ``i``'s result
     regrouped row-major (:func:`chain_plan`).  The output is
     ``[m0 / prod(g), n_last]`` in X's dtype.
+
+    ``scales`` runs the quantized chain: operands hold fp8/int8 values
+    and ``scales`` is ``(s_first [m0, 1], c_2 [1, 1], ..., s_last [1,
+    n_last])``: the lhs row scales times W1's scale, each interior
+    weight's scale, W_n's scale per output column.  Each link multiplies
+    its f32 sum by its factor; intermediates are rounded to bf16; the
+    output is f32.
     """
     weights = tuple(weights)
     _require(len(weights) >= 2,
@@ -236,14 +325,21 @@ def chain_n_cuda(x: torch.Tensor, weights, *, out_dtype=None
              f"{x.shape[1]}")
     rows, _ = chain_plan(m0, shapes)
     band = chain_band_rows(m0, shapes)
-    if x.device.type == "cpu" and all(w.device.type == "cpu"
-                                      for w in weights):
-        return ref.chain_n(x, weights, out_dtype=out_dtype)
+    m_final, n_last = rows[-1], shapes[-1][1]
+    if scales is not None:
+        scales = _check_chain_scales(scales, len(weights), m0, n_last)
+    if all(t.device.type == "cpu" for t in (x, *weights, *(scales or ()))):
+        if scales is None:
+            return ref.chain_n(x, weights, out_dtype=out_dtype)
+        if out_dtype not in (None, torch.float32):
+            raise ValueError("chain_n_cuda: the scaled chain writes float32")
+        return ref.chain_n_scaled(x, weights, scales)
     if x.device.type != "cuda":
         raise ValueError(f"chain_n_cuda: no kernel for device {x.device}")
-    _check_cuda_operands("chain_n_cuda", (x, *weights), out_dtype)
-    m_final, n_last = rows[-1], shapes[-1][1]
-    out = torch.empty((m_final, n_last), dtype=x.dtype, device=x.device)
+    _check_cuda_operands("chain_n_cuda", (x, *weights), out_dtype,
+                         scales or ())
+    out = torch.empty((m_final, n_last), device=x.device,
+                      dtype=x.dtype if scales is None else torch.float32)
     if m_final == 0:
         return out
     links = len(weights)
@@ -255,9 +351,17 @@ def chain_n_cuda(x: torch.Tensor, weights, *, out_dtype=None
     widest = max(band * mults[i] * shapes[i][1] for i in range(links))
     threads = min(_THREADS, max(32, -(-widest // 32) * 32))
     lib = _lib()
-    rc = lib.fc_chain(_DTYPE_CODES[x.dtype], x.data_ptr(), ptrs, ks, ns, ms,
-                      links, m_final, band, threads, out.data_ptr(),
-                      _stream())
+    if scales is None:
+        rc = lib.fc_chain(_DTYPE_CODES[x.dtype], x.data_ptr(), ptrs, ks, ns,
+                          ms, links, m_final, band, threads, out.data_ptr(),
+                          _stream())
+        key = "chain_n"
+    else:
+        sptrs = (ctypes.c_void_p * links)(*(s_.data_ptr() for s_ in scales))
+        rc = lib.fc_chain_scaled(_QUANT_CODES[x.dtype], x.data_ptr(), ptrs,
+                                 sptrs, ks, ns, ms, links, m_final, band,
+                                 threads, out.data_ptr(), _stream())
+        key = "chain_n_scaled"
     _check_rc(lib, rc, "chain_n_cuda")
-    LAUNCHES["chain_n"] += 1
+    LAUNCHES[key] += 1
     return out

@@ -53,7 +53,11 @@ def make_train_step(model: LM, opt: AdamW, microbatches: int = 1):
 
     With ``microbatches > 1`` the batch splits along dim 0 and gradients
     accumulate over the pieces (summed, then averaged, as the reference's
-    scan).  Static loss scaling (``opt.loss_scale``) multiplies the loss
+    scan).  The ``quant_amax`` "gradients" are state deltas (``hist -
+    new_hist``): they combine by their minimum, i.e. the largest amax any
+    microbatch observed, and are never summed or averaged, so the delayed
+    scaling window records the worst microbatch instead of a diluted
+    mean.  Static loss scaling (``opt.loss_scale``) multiplies the loss
     before the backward; AdamW divides it back out of the gradients."""
     ls = opt.loss_scale
 
@@ -79,14 +83,25 @@ def make_train_step(model: LM, opt: AdamW, microbatches: int = 1):
                 raise ValueError(f"batch of {rows} does not split into "
                                  f"{microbatches} microbatches")
             n = rows // microbatches
+            amax = [p for name, p in params.items() if opt.is_amax(name)]
+            amax_acc: list = [None] * len(amax)
             loss = torch.zeros((), dtype=torch.float32)
             for i in range(microbatches):
                 mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
                 mb_loss, metrics = grad_fn(mb)
                 loss = loss.to(mb_loss.device) + mb_loss
+                for j, p in enumerate(amax):
+                    # Take each microbatch's delta out of autograd's sum.
+                    if p.grad is not None:
+                        amax_acc[j] = (p.grad if amax_acc[j] is None
+                                       else torch.minimum(amax_acc[j], p.grad))
+                        p.grad = None
             loss = loss / microbatches
-            for p in params.values():
-                p.grad.div_(microbatches)
+            for name, p in params.items():
+                if not opt.is_amax(name):
+                    p.grad.div_(microbatches)
+            for p, g in zip(amax, amax_acc):
+                p.grad = g
         grads = {n: p.grad for n, p in params.items()}
         params, new_opt, om = opt.update(grads, state["opt"], params)
         metrics = {k: v.detach() if torch.is_tensor(v) else v

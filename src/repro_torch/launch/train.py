@@ -7,15 +7,20 @@ Port of ``src/repro/launch/train.py`` (single device)::
   PYTHONPATH=src python -m repro_torch.launch.train --arch paper_atis_tt \
       --smoke --tnn --tnn-backend cuda --device cpu --steps 3 --batch 2 \
       --seq 16
+  PYTHONPATH=src python -m repro_torch.launch.train --arch paper_atis_tt \
+      --tnn --tnn-backend cuda --tnn-precision fp8 --loss-scale 128
 
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs the kernels'
 plain versions.  The loop, its ``train.step`` / ``train.data`` /
 ``train.step_fn`` spans and its log line are the reference's.  Weights
 are random from seed 0.
 
+``--tnn-precision`` (``fp8`` / ``fp8_e5m2`` / ``int8``, optional
+``:tile``) trains every tensorized layer quantized with delayed scaling;
+``--tnn-remat quantized[:dtype]`` stashes activations in fp8/int8.
+
 The reference's other flags are refused with the ROADMAP.md item that
-ports them, never ignored: ``--tnn-precision`` and a quantized
-``--tnn-remat`` (queue A item 3), ``--tnn-memory-budget`` (item 4),
+ports them, never ignored: ``--tnn-memory-budget`` (queue A item 4),
 ``--tnn-autotune`` and ``--tnn-search joint`` (item 5), ``--tnn-mesh``,
 ``--tnn-pipeline`` and ``--production-mesh`` (item 8), ``--ckpt-dir`` /
 ``--ckpt-every`` (item 10).  The activation-memory probe the reference
@@ -37,12 +42,12 @@ from repro_torch.distributed import fault_tolerance as ft
 from repro_torch.launch import steps as steps_lib
 from repro_torch.memory.stash import StashPolicy
 from repro_torch.optim.adamw import AdamW
+from repro_torch.precision.policy import QuantPolicy
 
 _log = tm.get_logger("train")
 
 #: reference flags this port refuses, with the ROADMAP.md item porting them
 UNPORTED_FLAGS = {
-    "tnn_precision": ("--tnn-precision", "queue A item 3 (precision)"),
     "tnn_memory_budget": ("--tnn-memory-budget", "queue A item 4 (memory)"),
     "tnn_autotune": ("--tnn-autotune", "queue A item 5 (autotune)"),
     "tnn_mesh": ("--tnn-mesh", "queue A item 8 (distributed)"),
@@ -53,19 +58,11 @@ UNPORTED_FLAGS = {
 }
 
 
-def _stash_policy(tnn_remat: str) -> StashPolicy:
-    policy = StashPolicy.parse(tnn_remat)
-    if policy.quantized:
-        raise NotImplementedError(
-            f"--tnn-remat {policy.tag()} needs the quantized stash, which "
-            "is not ported yet (ROADMAP.md, queue A item 3: precision)")
-    return policy
-
-
 def train(arch_id: str, *, smoke: bool, tnn: bool, steps: int,
           global_batch: int, seq_len: int, lr: float,
           microbatches: int = 1, log_every: int = 10,
           tnn_backend: str | None = None, tnn_remat: str | None = None,
+          tnn_precision: str | None = None,
           loss_scale: float = 1.0, trace_path: str | None = None,
           device: str = "cuda") -> dict:
     """Train ``arch_id`` for ``steps`` steps on synthetic data; returns
@@ -78,9 +75,15 @@ def train(arch_id: str, *, smoke: bool, tnn: bool, steps: int,
     tnn_cfg = arch.tnn_default if tnn else None
     if tnn_cfg is not None and tnn_backend is not None:
         tnn_cfg = dataclasses.replace(tnn_cfg, backend=tnn_backend)
+    if tnn_cfg is not None and tnn_precision:
+        # Quantized contraction execution with delayed scaling: every
+        # phase runs under the policy, CSSE prices the policy's byte
+        # widths, and the layers carry amax histories.
+        tnn_cfg = dataclasses.replace(
+            tnn_cfg, precision=QuantPolicy.parse(tnn_precision))
     if tnn_cfg is not None and tnn_remat:
-        tnn_cfg = dataclasses.replace(tnn_cfg,
-                                      remat=_stash_policy(tnn_remat).tag())
+        tnn_cfg = dataclasses.replace(
+            tnn_cfg, remat=StashPolicy.parse(tnn_remat).tag())
     model, cfg = steps_lib.build_model(arch, tnn=tnn_cfg, smoke=smoke,
                                        device=device, seed=0)
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq_len,
@@ -138,11 +141,18 @@ def build_parser() -> argparse.ArgumentParser:
                          "einsum (torch.einsum per step) or cuda (the "
                          "hand-written GEMM/chain kernels; pallas is an "
                          "alias)")
+    ap.add_argument("--tnn-precision", default=None, metavar="POLICY",
+                    help="quantized execution of the tensorized layers: "
+                         "bf16 (default) | fp8[_e4m3] | fp8_e5m2 | int8, "
+                         "optional ':tile'; the layers carry delayed-"
+                         "scaling amax histories and every FP/BP/WG plan "
+                         "runs through the scaled kernels")
     ap.add_argument("--tnn-remat", default=None, metavar="POLICY",
                     help="activation stash policy of the tensorized "
                          "layers: store (default) | recompute (per-layer "
                          "checkpointing re-runs the FP plans in the "
-                         "backward)")
+                         "backward) | quantized[:dtype] (fp8/int8 stash; "
+                         "lossless under --tnn-precision)")
     ap.add_argument("--tnn-trace", default=None, metavar="PATH",
                     help="write a telemetry trace of the run ('*.jsonl' "
                          "streams events, any other suffix writes Chrome "
@@ -161,7 +171,6 @@ def build_parser() -> argparse.ArgumentParser:
                          "versions)")
     unported = ap.add_argument_group(
         "not ported yet (refused; see ROADMAP.md)")
-    unported.add_argument("--tnn-precision", default=None)
     unported.add_argument("--tnn-memory-budget", default=None)
     unported.add_argument("--tnn-autotune", action="store_true")
     unported.add_argument("--tnn-search", choices=["per-axis", "joint"],
@@ -184,15 +193,18 @@ def main(argv=None) -> None:
         ap.error("--tnn-search joint is not ported yet (ROADMAP.md, "
                  "queue A item 5 (autotune and joint search))")
     for flag, val in (("--tnn-backend", args.tnn_backend),
-                      ("--tnn-remat", args.tnn_remat)):
+                      ("--tnn-remat", args.tnn_remat),
+                      ("--tnn-precision", args.tnn_precision)):
         if val is not None and not args.tnn:
             ap.error(f"{flag} requires --tnn (no tensorized layers "
                      "without it)")
-    if args.tnn_remat is not None:
-        try:
-            _stash_policy(args.tnn_remat)
-        except (NotImplementedError, ValueError) as e:
-            ap.error(str(e))
+    try:
+        if args.tnn_remat is not None:
+            StashPolicy.parse(args.tnn_remat)
+        if args.tnn_precision is not None:
+            QuantPolicy.parse(args.tnn_precision)
+    except ValueError as e:
+        ap.error(str(e))
     if args.device == "cuda" and not torch.cuda.is_available():
         ap.error("--device cuda: no CUDA card visible (use --device cpu "
                  "for the kernels' plain versions)")
@@ -203,6 +215,7 @@ def main(argv=None) -> None:
                     seq_len=args.seq, lr=args.lr,
                     microbatches=args.microbatches,
                     tnn_backend=args.tnn_backend, tnn_remat=args.tnn_remat,
+                    tnn_precision=args.tnn_precision,
                     loss_scale=args.loss_scale, trace_path=args.tnn_trace,
                     device=args.device)
         _log.info(f"done: final loss {out['final_loss']:.4f} "

@@ -2,13 +2,16 @@
 
 Part-port of ``src/repro/memory/stash.py``: the :class:`StashPolicy`
 dataclass and :data:`STORE`, which enter every execution-policy cache
-signature, and the residual pack/unpack pair :func:`stash` /
-:func:`unstash` the tensorized layer's backward reads, for the
-non-quantized policies.  ``store`` and ``recompute`` keep the activation
-as is (``recompute`` is realised by the model's per-layer
+signature, and the residual pack/unpack functions :func:`stash` /
+:func:`unstash` / :func:`stashed_amax` the tensorized layer's backward
+reads.  ``store`` and ``recompute`` keep the activation as is
+(``recompute`` is realised by the model's per-layer
 ``torch.utils.checkpoint``, which drops the residual and re-runs the
-forward).  A quantized stash needs the precision slice (ROADMAP.md, queue
-A item 3) and raises.
+forward).  ``quantized`` keeps an fp8/int8 payload, its f32 scale and the
+f32 amax of the activation; under a quantized execution policy whose
+delayed scale it pins, it is lossless: the WG phase would have quantized
+the activation with the same scale anyway.  The planner-side accounting
+(``stash_bytes``) arrives with the memory slice (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
@@ -17,7 +20,10 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.precision.policy import ALIASES, DTYPES
+from repro_torch.precision import quant
+from repro_torch.precision.policy import (
+    ALIASES, DTYPES, QuantPolicy, amax_of, compute_scale,
+)
 
 MODES = ("store", "recompute", "quantized")
 
@@ -42,6 +48,11 @@ class StashPolicy:
     def quantized(self) -> bool:
         return self.mode == "quantized"
 
+    @property
+    def quant_policy(self) -> QuantPolicy:
+        """The per-tensor quantization policy backing a quantized stash."""
+        return QuantPolicy(dtype=self.dtype, granularity="tensor")
+
     def tag(self) -> str:
         return self.mode if not self.quantized else f"quantized:{self.dtype}"
 
@@ -60,23 +71,33 @@ class StashPolicy:
 STORE = StashPolicy()
 
 
-def _refuse_quantized(policy: StashPolicy) -> None:
-    if policy.quantized:
-        raise NotImplementedError(
-            f"stash policy {policy.tag()!r} needs the quantized stash, "
-            "which is not ported yet (ROADMAP.md, queue A item 3: "
-            "precision)")
-
-
-def stash(x: torch.Tensor, policy: StashPolicy) -> tuple:
-    """Pack ``x`` into this policy's residual: ``(payload, scale,
-    amax)``, with ``scale`` and ``amax`` None for the non-quantized
-    policies (the reference's structure)."""
-    _refuse_quantized(policy)
-    return (x, None, None)
+def stash(x: torch.Tensor, policy: StashPolicy,
+          scale: torch.Tensor | None = None) -> tuple:
+    """Pack ``x`` into this policy's residual ``(payload, scale, amax)``:
+    ``scale`` and ``amax`` are f32 scalars under ``quantized`` and None
+    otherwise.  ``scale`` (delayed scaling) pins the quantization scale,
+    so the backward's re-quantization reproduces the forward's bits."""
+    if not policy.quantized:
+        return (x, None, None)
+    amax = amax_of(x)
+    if scale is None:
+        scale = compute_scale(amax, policy.quant_policy.qmax)
+    qt = quant.quantize(x, policy.quant_policy, scale=scale)
+    return (qt.q, qt.scale, amax)
 
 
 def unstash(res: tuple, policy: StashPolicy, dtype=None) -> torch.Tensor:
-    """Reconstruct the activation from a :func:`stash` residual."""
-    _refuse_quantized(policy)
-    return res[0]
+    """Reconstruct the activation from a :func:`stash` residual
+    (dequantized to ``dtype``, f32 by default, under ``quantized``)."""
+    payload, scale, _ = res
+    if not policy.quantized:
+        return payload
+    return quant.dequantize(quant.QTensor(q=payload, scale=scale),
+                            dtype or torch.float32)
+
+
+def stashed_amax(res: tuple, x_hat: torch.Tensor) -> torch.Tensor:
+    """The amax for history updates: the exact forward amax when
+    stashed, else the amax of the reconstructed activation."""
+    amax = res[2]
+    return amax if amax is not None else amax_of(x_hat)

@@ -15,6 +15,11 @@ like the reference's.
 * ``master_weights`` — f32 master copies in the state; the parameter
   becomes a cast of the updated master.
 * ``moment_dtype`` — the storage dtype of m and v.
+* ``quant_amax`` passthrough — a parameter named ``...quant_amax`` is a
+  quantized layer's delayed-scaling history, and its gradient is the
+  state delta ``hist - new_hist``: it updates as ``p - g`` and takes no
+  part in loss-scale unscaling, the grad norm, clipping, the moments or
+  weight decay.
 
 **Weight decay follows the reference's rule on the reference's leaves**:
 decay where ``p.ndim >= 2``, read on its *stacked* ``[L, ...]`` per-layer
@@ -22,8 +27,7 @@ leaves.  The port keeps per-layer tensors, so a per-layer ``ln1.scale``
 is ``[d]`` here but ``[L, d]`` there, and is decayed;
 :func:`repro_torch.convert.reference_ndim` counts the layer axis back in.
 
-Not ported: the ``quant_amax`` passthrough (precision slice, ROADMAP.md
-queue A item 3) and ``chunk_threshold`` (an XLA lowering knob).
+Not ported: ``chunk_threshold`` (an XLA lowering knob).
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.convert import reference_ndim
+from repro_torch.precision.policy import AMAX_KEY
 
 
 class OptState(NamedTuple):
@@ -87,6 +92,12 @@ class AdamW:
         return self.lr * warm * decay
 
     @staticmethod
+    def is_amax(name: str) -> bool:
+        """Whether ``name`` is a delayed-scaling amax history (the
+        reference's ``_path_has_amax``: any path key is ``quant_amax``)."""
+        return AMAX_KEY in name.split(".")
+
+    @staticmethod
     def decays(name: str, p: torch.Tensor) -> bool:
         """The reference's ``p.ndim >= 2`` on its stacked leaves."""
         return reference_ndim(name, p) >= 2
@@ -102,20 +113,32 @@ class AdamW:
             raise ValueError("gradients and parameters name different "
                              f"tensors: {sorted(set(grads) ^ set(names))}")
         flat_g = [grads[n] for n in names]
+        amax = [self.is_amax(n) for n in names]
+        # Unscale first (loss scaling), except the amax passthrough
+        # leaves, whose "gradient" is a state delta.
         if self.loss_scale != 1.0:
             inv_ls = 1.0 / self.loss_scale
-            flat_g = [g.float() * inv_ls for g in flat_g]
+            flat_g = [g if a else g.float() * inv_ls
+                      for g, a in zip(flat_g, amax)]
         gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                               for g in flat_g))
+                               for g, a in zip(flat_g, amax) if not a))
         scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
         step = state.step + 1
         lr = self.schedule(step)
         b1c = 1 - _f32(self.b1) ** step.to(torch.float32)
         b2c = 1 - _f32(self.b2) ** step.to(torch.float32)
-        for n, g in zip(names, flat_g):
+        for n, g, a in zip(names, flat_g, amax):
             p, m, v = params[n], state.m[n], state.v[n]
             master = state.master[n] if state.master is not None else None
+            if a:
+                # Delayed-scaling state channel: g = hist - new_hist, so
+                # the plain step with lr 1 is the state update.
+                new = (p.float() - g.float()).to(p.dtype)
+                p.copy_(new)
+                if master is not None:
+                    master.copy_(new.float())
+                continue
             src = p if master is None else master
             g = g.float() * scale
             m32 = self.b1 * m.float() + (1 - self.b1) * g

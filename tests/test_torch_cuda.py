@@ -10,7 +10,12 @@ toolkit::
 Tolerances: f32 1e-5 of the output scale (sums in another order); bf16
 2e-2 of the scale for the GEMM/chain kernels (one bf16 ulp, carried
 through a chain link) and one bf16 ulp of the scale for attention (one
-bf16 ulp of each element on the rounding probe).
+bf16 ulp of each element on the rounding probe).  The quantize and
+dequantize kernels are bit-exact; the scaled GEMM sums exact f32
+products in another order (1e-5 of the scale); the scaled chain rounds
+its intermediates to bf16, where a sum in another order now and then
+lands one ulp apart: at most 0.5% of the elements beyond 1e-5 of the
+scale and none beyond two bf16 ulps (``ref.chain_scaled_agreement``).
 """
 
 import math
@@ -24,7 +29,11 @@ from repro_torch.core import contraction, csse  # noqa: E402
 from repro_torch.core.tnetwork import TensorNetwork  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_contraction as fc  # noqa: E402
+from repro_torch.kernels import quantized as qk  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.precision import QuantPolicy, quant  # noqa: E402
+
+QUANT = ["fp8_e4m3", "fp8_e5m2", "int8"]
 
 
 @pytest.fixture
@@ -164,10 +173,124 @@ def test_cuda_train_step_matches_the_cpu(cuda_device):
                               for k, v in batch.items()})
         loss.backward()
         if device != "cpu":
-            assert all(fc.LAUNCHES[k] > before[k] for k in fc.LAUNCHES)
+            # The unquantized path's kernels (the scaled ones and the
+            # quantize/dequantize pair run only under a quantized policy).
+            assert all(fc.LAUNCHES[k] > before[k]
+                       for k in ("matmul", "chain_n", "flash_attention_fwd"))
         losses.append(float(loss.detach()))
         grads.append({n: p.grad.cpu() for n, p in model.named_parameters()})
     assert losses[1] == pytest.approx(losses[0], rel=1e-5)
     for name, g in grads[0].items():
         torch.testing.assert_close(grads[1][name], g, rtol=0,
                                    atol=1e-4 * float(g.abs().max()))
+
+
+def _bits(t):
+    """The raw bytes of ``t`` on the host, for bit-for-bit comparison."""
+    return t.contiguous().view(torch.uint8).cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", QUANT)
+def test_cuda_quantize_kernels_are_bit_exact(cuda_device, dtype):
+    """On the tie probe (every rounding a close call) and on random
+    inputs, in f32 and bf16: the quantize kernel's payload and the
+    dequantize kernel's f32/bf16 output equal the plain versions' bits."""
+    pol = QuantPolicy.parse(dtype)
+    x, s = ref.tie_probe(pol, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    r = torch.randn(300, 96, generator=gen, device=cuda_device) * 3
+    rs = quant.quantize(r, pol).row_scales()
+    for xin, sc in ((x, s), (x.bfloat16(), s), (r, rs), (r.bfloat16(), rs)):
+        before = dict(fc.LAUNCHES)
+        got = qk.quantize_cuda(xin, sc, pol)
+        want = ref.quantize(xin, sc, pol)
+        assert torch.equal(_bits(got), _bits(want))
+        for out in (torch.float32, torch.bfloat16):
+            d = qk.dequantize_cuda(got, sc, out)
+            assert torch.equal(_bits(d), _bits(ref.dequantize(want, sc,
+                                                              out)))
+        assert fc.LAUNCHES["quantize"] == before["quantize"] + 1
+        assert fc.LAUNCHES["dequantize"] == before["dequantize"] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", QUANT)
+@pytest.mark.parametrize("m,n,k,trans", [
+    (1024, 96, 8, True),           # an FP product of the ATIS layers
+    (768, 8, 3072, True),          # a WG product, K walked serially
+    (100, 120, 96, False),
+])
+def test_cuda_scaled_gemm_matches_plain_version(cuda_device, dtype, m, n, k,
+                                                trans):
+    pol = QuantPolicy.parse(dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(m + n + k)
+    x = torch.randn(m, k, generator=gen, device=cuda_device)
+    w = torch.randn((n, k) if trans else (k, n), generator=gen,
+                    device=cuda_device)
+    qx, qw = quant.quantize(x, pol), quant.quantize(w, pol)
+    sl = qx.row_scales() * 1.5
+    sr = torch.rand(1, n, generator=gen, device=cuda_device) + 0.5
+    before = fc.LAUNCHES["matmul_scaled"]
+    got = fc.matmul_cuda(qx.q, qw.q, transpose_rhs=trans, scales=(sl, sr))
+    want = ref.matmul_scaled(qx.q, qw.q, sl, sr, transpose_rhs=trans)
+    torch.cuda.synchronize()
+    assert fc.LAUNCHES["matmul_scaled"] == before + 1
+    assert got.dtype == torch.float32
+    assert _max_err(got, want) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", QUANT)
+@pytest.mark.parametrize("m0,links", [
+    (2048, ((192, 8), (128, 8))),          # regroup g = 16
+    (1536, ((8, 8), (64, 8), (96, 8))),    # 3 links, g = 8 then 12
+    (1024, ((96, 8), (8, 64))),            # g = 1
+])
+def test_cuda_scaled_chain_matches_plain_version(cuda_device, dtype, m0,
+                                                 links):
+    pol = QuantPolicy.parse(dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(m0)
+    x = quant.quantize(torch.randn(m0, links[0][0], generator=gen,
+                                   device=cuda_device), pol)
+    ws = [quant.quantize(torch.randn(s_, generator=gen, device=cuda_device),
+                         pol) for s_ in links]
+    s_first = x.row_scales() * ws[0].scale
+    mids = [w.scale.reshape(1, 1) for w in ws[1:-1]]
+    s_last = torch.full((1, links[-1][1]), float(ws[-1].scale),
+                        device=cuda_device)
+    scales = (s_first, *mids, s_last)
+    before = fc.LAUNCHES["chain_n_scaled"]
+    got = fc.chain_n_cuda(x.q, [w.q for w in ws], scales=scales)
+    want = ref.chain_n_scaled(x.q, [w.q for w in ws], scales)
+    torch.cuda.synchronize()
+    assert fc.LAUNCHES["chain_n_scaled"] == before + 1
+    good, nums = ref.chain_scaled_agreement(got, want)
+    assert good, nums
+
+
+@pytest.mark.cuda
+def test_cuda_refused_quantized_chain_raises(cuda_device, monkeypatch):
+    """A quantized chain the kernel refuses at run time is a fault on the
+    card: it propagates instead of running the plain chain math."""
+    from repro_torch.core import factorizations as F
+    from repro_torch.core import plan_compiler
+
+    net = F.tt((12, 8, 8), (8, 8, 12), 8).forward_network(
+        batch_axes=(("b", 128),))
+    plan = csse.search(net, csse.SearchOptions(fused_chain=True)).plan
+    compiled = plan_compiler.compile_plan(plan,
+                                          policy=QuantPolicy.parse("fp8"))
+    assert compiled.report()["num_chain"] >= 1
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    ts = [torch.randn(net.node_shape(i), generator=gen, device=cuda_device)
+          for i in range(net.num_nodes)]
+
+    def refuse(*a, **k):
+        raise fc.ChainLoweringError("refused for the test")
+
+    monkeypatch.setattr(plan_compiler, "chain_n_cuda", refuse)
+    plan_compiler.reset_degrade_counts()
+    with pytest.raises(fc.ChainLoweringError, match="refused for the test"):
+        plan_compiler.run(compiled, ts)
+    assert plan_compiler.DEGRADE_COUNTS["runtime_quantized"] == 0

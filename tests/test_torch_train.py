@@ -22,7 +22,8 @@
   largest at every step are held to the same 1e-5; the rest sit at the
   f32 noise floor, where Adam's sign-like step may go either way, and
   are held to twice the summed learning rates.
-* ``SyntheticLM`` batches are bit-equal; the train CLI runs on the CPU and
+* ``SyntheticLM`` batches are bit-equal; the train CLI runs on the CPU
+  (with ``--tnn-precision`` and a quantized ``--tnn-remat`` too) and
   refuses the flags it has not ported.
 """
 
@@ -62,7 +63,6 @@ from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.distributed import fault_tolerance as ft  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
-from repro_torch.memory import stash as tstash  # noqa: E402
 from repro_torch.optim.adamw import AdamW  # noqa: E402
 
 SPECS = {
@@ -173,14 +173,6 @@ def test_phase_paths_false_refuses_training_but_serves():
         assert layer(x).shape == (2, 16)
     with pytest.raises(NotImplementedError, match="item 10"):
         layer(x)
-
-
-def test_quantized_stash_is_refused():
-    policy = tstash.StashPolicy.parse("quantized:fp8")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tstash.stash(torch.ones(2), policy)
-    x = torch.ones(3)
-    assert tstash.unstash(tstash.stash(x, tstash.STORE), tstash.STORE) is x
 
 
 def test_outer_product_step_reaches_the_gemm():
@@ -518,13 +510,34 @@ def test_train_losses_are_finite_and_backends_agree():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--tnn-precision", "fp8"], ["--tnn-memory-budget", "64MB"],
+    ["--tnn-memory-budget", "64MB"],
     ["--tnn-autotune"], ["--tnn-search", "joint"], ["--tnn-mesh", "data"],
     ["--tnn-pipeline", "2"], ["--production-mesh"], ["--ckpt-dir", "x"],
-    ["--ckpt-every", "5"], ["--tnn-remat", "quantized"]])
+    ["--ckpt-every", "5"]])
 def test_unported_flags_are_refused(flag, capsys):
     with pytest.raises(SystemExit) as exc:
         train_cli.main(["--arch", "paper_atis_tt", "--smoke", "--tnn",
                         "--device", "cpu", "--steps", "1", *flag])
     assert exc.value.code == 2
     assert "ROADMAP.md" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [
+    ["--tnn-precision", "fp8", "--loss-scale", "128"],
+    ["--tnn-remat", "quantized"],
+    ["--tnn-precision", "int8:tile", "--tnn-remat", "quantized:int8"]])
+def test_precision_flags_run_on_the_cpu(flags, capsys):
+    """``--tnn-precision`` and a quantized ``--tnn-remat`` train (the
+    plain versions of the quantized kernels on the CPU)."""
+    train_cli.main(["--arch", "paper_atis_tt", "--smoke", "--tnn",
+                    "--tnn-backend", "cuda", "--device", "cpu", "--steps",
+                    "1", "--batch", "2", "--seq", "16", *flags])
+    assert "done: final loss" in capsys.readouterr().out
+
+
+def test_precision_flag_needs_tnn(capsys):
+    with pytest.raises(SystemExit) as exc:
+        train_cli.main(["--arch", "paper_atis_tt", "--smoke", "--device",
+                        "cpu", "--tnn-precision", "fp8"])
+    assert exc.value.code == 2
+    assert "--tnn-precision requires --tnn" in capsys.readouterr().err
