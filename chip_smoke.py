@@ -68,10 +68,33 @@ and failing the script when it fails:
    chaotic at roundoff from the first step: a flipped fp8 rounding
    spreads).
 
+11. ``kernel:linear_scan`` — the scan kernel (B8) against its plain
+   twin, output and final state, in bf16 and f32: at every scan shape of
+   the ``rwkv6_7b`` training path (BH 512, T 128, chunk 128, dk = dv =
+   64, ``rwkv6`` mode), at ``zamba2_7b``'s ``ssd`` shape (BH 512, T 128,
+   dk 64, dv 112) with the reference test's log-decay, and chunk 64
+   against chunk 128 (chunk boundaries invisible); timed in bf16 beside
+   the plain twin and the bound.  Then the GEMM and chain kernels at
+   every geometry of ``rwkv6_7b``'s FP/BP/WG plans (``cm_k``/``cm_v``,
+   TT rank 64), as in phase 2.
+12. ``train_rwkv6`` — ``rwkv6_7b`` at full width and depth (32 layers,
+   d 4096, vocab 65,536, nothing cut) through the train entry point,
+   ``cuda`` backend, bf16, batch 8, seq 128, 12 steps at lr 1e-3 (see
+   ``RWKV_LR``): every loss
+   finite, the mean of the last 5 below the first, the GEMM kernel and
+   the scan kernel launched on every step (the scan twice per layer:
+   forward and the checkpoint re-run), no ``EinsumOp`` in the plans and
+   no runtime degrade; its step time, tok/s and peak device memory.
+13. ``rwkv6_state`` — full width, 2 layers, bf16: ``prefill`` over 127
+   tokens (the scan kernel, whose final states become the decode
+   state), then ``decode_step`` on token 128 (the plain recurrence),
+   within 5% of the logit scale of the last row of ``forward`` over the
+   128 tokens.
+
 It then prints the ``{"kernels": [...]}`` line (every ported kernel with
-its launches in the serve, train and train_fp8 runs and its timings at
-the main paths' shapes), the card's ``nvidia-smi`` name and power limit,
-and, last, ``{"ok": true, ...}``.
+its launches in the serve, train, train_fp8 and train_rwkv6 runs and its
+timings at the main paths' shapes), the card's ``nvidia-smi`` name and
+power limit, and, last, ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -109,6 +132,18 @@ FLASH_SHAPES = [(8, 128, 12, 12, 64, True, None),
                 (2, 1024, 12, 12, 64, True, 256),
                 (2, 1024, 12, 12, 64, False, None),
                 (2, 256, 16, 4, 128, True, 64)]
+# RWKV-6 training at full width and depth, the train CLI's shape.  Its
+# learning rate is 1e-3, not the CLI's 3e-3 (set for the small models):
+# rwkv6_7b's gradient norm at init is ~5e5 (bf16 and f32 alike, a
+# property of the reference model: ROADMAP.md C), so clipping leaves
+# most gradients under AdamW's eps, and warm-up to 3e-3 sends the loss
+# back up after step 7 (PERF.md, Findings).
+RWKV_ARCH, RWKV_STEPS, RWKV_LR = "rwkv6_7b", 12, 1e-3
+# zamba2_7b's ssd scan: (BH = batch 8 x 64 heads, T, dk, dv, chunk).
+SSD_SHAPE = (8 * 64, 128, 64, 112, 128)
+# rwkv6_state: layers kept, batch and tokens (prefill T - 1, decode 1).
+STATE_LAYERS, STATE_BATCH, STATE_T = 2, 2, 128
+STATE_TOL_REL = 0.05
 
 DEVICE = "cuda"
 
@@ -120,6 +155,7 @@ REPLACES = {
     "chain_n_scaled": "src/repro/kernels/fused_contraction.py:287",
     "quantize": "src/repro/kernels/quantized.py:47",
     "dequantize": "src/repro/kernels/quantized.py:78",
+    "linear_scan": "src/repro/kernels/ssm_scan.py:86",
 }
 SOURCES = {
     "matmul": "src/repro_torch/kernels/csrc/fused_contraction.cu",
@@ -129,12 +165,14 @@ SOURCES = {
     "chain_n_scaled": "src/repro_torch/kernels/csrc/fused_contraction.cu",
     "quantize": "src/repro_torch/kernels/csrc/quantized.cu",
     "dequantize": "src/repro_torch/kernels/csrc/quantized.cu",
+    "linear_scan": "src/repro_torch/kernels/csrc/ssm_scan.cu",
 }
 KERNELS = ("matmul", "chain_n", "flash_attention_fwd")
 QUANT_KERNELS = ("matmul_scaled", "chain_n_scaled", "quantize", "dequantize")
-ALL_KERNELS = KERNELS + QUANT_KERNELS
-#: the main-path runs whose launches the kernel line counts
-RUNS = ("serve", "train", "train_fp8")
+ALL_KERNELS = KERNELS + QUANT_KERNELS + ("linear_scan",)
+#: the main-path runs whose launches the kernel line counts (and whose
+#: timed shapes it sums)
+RUNS = ("serve", "train", "train_fp8", "train_rwkv6")
 
 
 def emit(phase: str, **fields) -> None:
@@ -683,6 +721,231 @@ def flash_phase(torch, fa, ref, cfg, totals) -> None:
         (out.float() - w).abs().max().item())
 
 
+def scan_cases(cfg, ssm) -> list[tuple]:
+    """``(path, mode, BH, T, dk, dv, chunk)`` of every scan the checks
+    run: each distinct scan of the rwkv6 train path (one: every layer's
+    time mix at batch x seq tokens, in the chunk the model picks), then
+    zamba2's ssd shape."""
+    train = {("train_rwkv6", "rwkv6", TRAIN_BATCH * cfg.num_heads,
+              TRAIN_SEQ, cfg.hd, cfg.hd, ssm.scan_chunk(TRAIN_SEQ))}
+    return sorted(train) + [("zamba2_ssd", "ssd", *SSD_SHAPE)]
+
+
+def scan_bound(bh, t, dk, dv, chunk, mode, dtype) -> tuple[float, str]:
+    """Bytes: q, k, v, log-decay (and u) in, o and the final state out,
+    once each.  Operations: per chunk the two causal C x C products (att
+    and att v) and the two C x dk x dv products (q_t S and the state
+    update), at the operand type's peak."""
+    size = dtype.itemsize
+    nbytes = (bh * t * (2 * dk + 2 * dv) * size + bh * t * dk * 4
+              + (bh * dk * 4 if mode == "rwkv6" else 0) + bh * dk * dv * 4)
+    tri = chunk * (chunk + 1) // 2
+    flops = bh * (t // chunk) * 2 * (tri * (dk + dv) + 2 * chunk * dk * dv)
+    return bound_ms(nbytes, flops, str(dtype).split(".")[-1])
+
+
+def scan_phase(torch, sk, ref, ssm, cfg, totals) -> None:
+    """Hold the scan kernel against its plain twin (output and final
+    state) at every :func:`scan_cases` shape in bf16 and f32, time it in
+    bf16 (the rwkv6 shape's time adds to ``totals["linear_scan"]
+    ["train_rwkv6"]``), then check chunk 64 against chunk 128."""
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+
+    def rand(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=DEVICE) * scale
+
+    t_tot = totals["linear_scan"]
+    for path, mode, bh, t, dk, dv, chunk in scan_cases(cfg, ssm):
+        # rwkv6: the model's decay at init, -exp(w0 + tanh(xA)B) with w0
+        # = -2; ssd: the reference kernel test's -exp(N(0, 1)) * 0.1.
+        ld = (-torch.exp(-2.0 + rand((bh, t, dk), 0.3)) if mode == "rwkv6"
+              else -torch.exp(rand((bh, t, dk))) * 0.1)
+        u = rand((bh, dk), 0.1)
+        base = [rand((bh, t, dk)), rand((bh, t, dk)), rand((bh, t, dv))]
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[-1]
+            q, k, v = (x.to(dtype) for x in base)
+
+            def kernel():
+                return sk.linear_scan_cuda(q, k, v, ld, u, mode=mode,
+                                           chunk=chunk)
+
+            def plain():
+                return ref.chunked_linear_scan(q, k, v, ld, u, mode=mode,
+                                               chunk=chunk)
+
+            (o, st), (wo, wst) = kernel(), plain()
+            torch.cuda.synchronize()
+            scale = wo.float().abs().max().item()
+            err = (o.float() - wo.float()).abs().max().item()
+            st_scale = wst.abs().max().item()
+            st_err = (st - wst).abs().max().item()
+            # f32: sums in another order.  bf16 v: o is rounded to bf16
+            # once, which can land one ulp apart.  The state is f32.
+            tol = (1e-5 * scale if dtype == torch.float32
+                   else bf16_ulp(scale))
+            ok = err <= tol and st_err <= 1e-5 * st_scale
+            rec = {"path": path, "mode": mode, "BH": bh, "T": t, "dk": dk,
+                   "dv": dv, "chunk": chunk, "dtype": dname,
+                   "tile_rows": sk.scan_tile_rows(chunk, dk, dv),
+                   "smem_bytes": sk.scan_smem_bytes(
+                       chunk, dk, dv, sk.scan_tile_rows(chunk, dk, dv)),
+                   "max_abs_err": err, "max_rel_err": err / max(scale, 1e-30),
+                   "scale": scale, "tol": tol,
+                   "state_max_rel_err": st_err / max(st_scale, 1e-30),
+                   "state_tol_rel": 1e-5}
+            if not ok:
+                emit("kernel:linear_scan", ok=False, **rec)
+                raise AssertionError(f"scan kernel disagrees: {rec}")
+            if dtype == torch.bfloat16:
+                ms = device_ms(torch, kernel, inner=10, reps=15)
+                plain_ms = device_ms(torch, plain, inner=5, reps=9)
+                b, by = scan_bound(bh, t, dk, dv, chunk, mode, dtype)
+                rec.update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                           library_note="no PyTorch call computes this "
+                           "recurrence", bound_ms=b, bound_by=by)
+                add_total(t_tot.setdefault(path, new_totals()), ms,
+                          plain_ms, None, b, by)
+            t_tot["max_abs_err"] = max(t_tot["max_abs_err"], err)
+            emit("kernel:linear_scan", ok=True, **rec)
+    # Chunk boundaries are invisible: chunk 64 against 128 (f32, rwkv6
+    # shape), each also against its plain twin.
+    _, mode, bh, t, dk, dv, chunk = scan_cases(cfg, ssm)[0]
+    q, k, v = rand((bh, t, dk)), rand((bh, t, dk)), rand((bh, t, dv))
+    ld = -torch.exp(-2.0 + rand((bh, t, dk), 0.3))
+    u = rand((bh, dk), 0.1)
+    outs = {c: sk.linear_scan_cuda(q, k, v, ld, u, mode=mode, chunk=c)
+            for c in (64, 128)}
+    plain64 = ref.chunked_linear_scan(q, k, v, ld, u, mode=mode, chunk=64)
+    torch.cuda.synchronize()
+    scale = outs[128][0].abs().max().item()
+    st_scale = outs[128][1].abs().max().item()
+    rec = {"check": "chunk_continuity", "mode": mode, "BH": bh, "T": t,
+           "dk": dk, "dv": dv, "chunks": [64, 128], "dtype": "float32",
+           "o_64_vs_128_rel": (outs[64][0] - outs[128][0]).abs().max()
+           .item() / scale,
+           "state_64_vs_128_rel": (outs[64][1] - outs[128][1]).abs().max()
+           .item() / st_scale,
+           "o_64_vs_plain_rel": (outs[64][0] - plain64[0]).abs().max()
+           .item() / scale,
+           "state_64_vs_plain_rel": (outs[64][1] - plain64[1]).abs().max()
+           .item() / st_scale,
+           "tol_64_vs_128_rel": 1e-4, "tol_vs_plain_rel": 1e-5}
+    ok = (rec["o_64_vs_128_rel"] <= 1e-4 and rec["state_64_vs_128_rel"] <= 1e-4
+          and rec["o_64_vs_plain_rel"] <= 1e-5
+          and rec["state_64_vs_plain_rel"] <= 1e-5)
+    emit("kernel:linear_scan", ok=ok, **rec)
+    if not ok:
+        raise AssertionError(f"scan kernel fails chunk continuity: {rec}")
+
+
+def train_rwkv6_phase(torch, fc, plan_compiler, train_cli, cfg,
+                      einsum_ops) -> dict:
+    """``rwkv6_7b`` at full width and depth through the train entry
+    point; returns the run's kernel launches.  Each step must launch the
+    GEMM kernel and the scan kernel twice per layer (forward and the
+    checkpoint re-run)."""
+    import numpy as np
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fc.reset_launches()
+    plan_compiler.reset_degrade_counts()
+    seen = [dict(fc.LAUNCHES)]
+
+    def on_step(step, metrics):
+        seen.append(dict(fc.LAUNCHES))
+
+    t0 = time.perf_counter()
+    out = train_cli.train(RWKV_ARCH, smoke=False, tnn=True, steps=RWKV_STEPS,
+                          global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                          lr=RWKV_LR, tnn_backend="cuda", device=DEVICE,
+                          log_every=4, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fc.LAUNCHES)
+    degrades = dict(plan_compiler.DEGRADE_COUNTS)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = [{k: b[k] - a[k] for k in ("matmul", "chain_n",
+                                           "linear_scan")}
+                for a, b in zip(seen, seen[1:])]
+    losses = out["losses"]
+    rcfg = out["cfg"]
+    scans_per_step = 2 * rcfg.num_layers if rcfg.remat else rcfg.num_layers
+    step_ms = statistics.median(out["step_s"][3:]) * 1e3
+    last5 = statistics.mean(losses[-5:])
+    n_params = sum(p.numel() for p in out["state"]["params"].values())
+    first_step_s = out["step_s"][0]
+    out_gnorms = out["grad_norms"]
+    ok = (all(np.isfinite(losses)) and len(losses) == RWKV_STEPS
+          and last5 < losses[0] and len(per_step) == RWKV_STEPS
+          and all(s["matmul"] > 0 and s["linear_scan"] == scans_per_step
+                  for s in per_step)
+          and einsum_ops == 0 and degrades["runtime"] == 0)
+    del out
+    emit("train_rwkv6", ok=bool(ok), arch=RWKV_ARCH, d_model=rcfg.d_model,
+         layers=rcfg.num_layers, heads=rcfg.num_heads, d_ff=rcfg.d_ff,
+         vocab=rcfg.vocab, params=n_params, remat=rcfg.remat,
+         dtype=str(rcfg.compute_dtype).split(".")[-1], batch=TRAIN_BATCH,
+         seq=TRAIN_SEQ, steps=RWKV_STEPS, lr=RWKV_LR, losses=losses,
+         grad_norms=out_gnorms, first_loss=losses[0], last5_mean_loss=last5,
+         step_ms_median_after_3=step_ms,
+         tok_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+         first_step_s=first_step_s, wall_s=wall,
+         launches=launches, launches_per_step=per_step,
+         scans_per_step_expected=scans_per_step, degrades=degrades,
+         einsum_ops_in_plans=einsum_ops, max_memory_allocated=peak)
+    if not ok:
+        raise AssertionError("train_rwkv6 phase failed")
+    return launches
+
+
+def rwkv6_state_phase(torch, fc, lm_mod, cfgbase) -> None:
+    """The scan kernel's final state at the model level: ``rwkv6_7b`` at
+    full width, STATE_LAYERS layers, bf16, ``cuda`` backend.  ``prefill``
+    over the first STATE_T - 1 tokens (the kernel) then ``decode_step``
+    on the last (the plain recurrence on the kernel's states) against
+    the last row of ``forward`` over all STATE_T tokens."""
+    import dataclasses
+
+    import numpy as np
+    arch = cfgbase.get(RWKV_ARCH)
+    tnn = dataclasses.replace(arch.tnn_default, backend="cuda")
+    cfg = dataclasses.replace(arch.model(tnn), num_layers=STATE_LAYERS)
+    torch.cuda.empty_cache()
+    model = lm_mod.LM(cfg, device=DEVICE, seed=0)
+    rng = np.random.default_rng(4)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (STATE_BATCH, STATE_T)),
+                           device=DEVICE)
+    with torch.inference_mode():
+        full = model(toks)[:, -1].float()
+        fc.reset_launches()
+        lp, cache = model.prefill(toks[:, :-1], max_len=STATE_T)
+        prefill_scans = fc.LAUNCHES["linear_scan"]
+        ld, cache = model.decode_step(toks[:, -1], cache)
+        decode_scans = fc.LAUNCHES["linear_scan"] - prefill_scans
+        prev = model(toks[:, :-1])[:, -1].float()
+    torch.cuda.synchronize()
+    scale = full.abs().max().item()
+    diff = (ld.float() - full).abs().max().item()
+    pre_diff = (lp.float() - prev).abs().max().item()
+    ok = (diff <= STATE_TOL_REL * scale
+          and pre_diff <= STATE_TOL_REL * prev.abs().max().item()
+          and prefill_scans == STATE_LAYERS and decode_scans == 0
+          and int(cache.length) == STATE_T and bool(torch.isfinite(ld).all()))
+    emit("rwkv6_state", ok=bool(ok), arch=RWKV_ARCH, layers=STATE_LAYERS,
+         d_model=cfg.d_model, batch=STATE_BATCH, prefill_tokens=STATE_T - 1,
+         dtype=str(cfg.compute_dtype).split(".")[-1],
+         decode_vs_forward_max_abs=diff, logit_scale=scale,
+         decode_vs_forward_rel=diff / scale,
+         prefill_vs_forward_rel=pre_diff / prev.abs().max().item(),
+         tol_rel=STATE_TOL_REL, prefill_scan_launches=prefill_scans,
+         decode_scan_launches=decode_scans, cache_length=int(cache.length))
+    del model
+    if not ok:
+        raise AssertionError("rwkv6_state phase failed")
+
+
 def serve_requests(vocab: int, Request):
     import numpy as np
     rng = np.random.default_rng(0)
@@ -969,7 +1232,9 @@ def main() -> int:
     from repro_torch.kernels import build, fused_contraction as fc, ref
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quantized as qk
+    from repro_torch.kernels import ssm_scan as sk
     from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import lm as lm_mod, ssm
     from repro_torch.precision import QuantPolicy, quant
     from repro_torch.launch import train as train_cli
     from repro_torch.serving import profiles
@@ -1110,11 +1375,34 @@ def main() -> int:
     # -- 10. fp8 training parity with the einsum executor ----------------------
     train_fp8_parity_phase(torch, arch, steps_lib, QuantPolicy)
 
+    # -- 11. the scan kernel, then GEMM/chain at rwkv6's plan geometries -------
+    r_arch = cfgbase.get(RWKV_ARCH)
+    r_cfg = r_arch.model(r_arch.tnn_default)
+    scan_phase(torch, sk, ref, ssm, r_cfg, totals)
+    r_gemms, r_chains, r_einsum_ops = train_path_geometries(
+        r_cfg, plan_compiler, profiles, tensorized)
+    kernel_phase(torch, fc, ref, sorted(r_gemms), sorted(r_chains), totals,
+                 path="train_rwkv6", phases={**r_gemms, **r_chains},
+                 time_dtypes=("bfloat16",))
+    emit("kernel_totals_rwkv6", ok=True,
+         train_geometries={"gemm": len(r_gemms), "chain": len(r_chains),
+                           "einsum_ops": r_einsum_ops},
+         sums={name: {k: (sorted(v) if isinstance(v, set) else v)
+                      for k, v in totals[name]["train_rwkv6"].items()}
+               for name in ALL_KERNELS if "train_rwkv6" in totals[name]})
+
+    # -- 12. rwkv6_7b training at full width and depth --------------------------
+    launches["train_rwkv6"] = train_rwkv6_phase(
+        torch, fc, plan_compiler, train_cli, r_cfg, r_einsum_ops)
+
+    # -- 13. the scan's final state through prefill -> decode -------------------
+    rwkv6_state_phase(torch, fc, lm_mod, cfgbase)
+
     # -- the kernel line ---------------------------------------------------------
     kernels = []
     for name in ALL_KERNELS:
         t = totals[name]
-        sums = [t[p] for p in ("serve", "train", "train_fp8") if p in t]
+        sums = [t[p] for p in RUNS if p in t]
         by = set().union(*(s_["bound_by"] for s_ in sums))
         lib = [s_["library_ms"] for s_ in sums
                if s_["library_ms"] is not None]
@@ -1126,6 +1414,8 @@ def main() -> int:
             "launches_per_train_step": launches["train"][name] / TRAIN_STEPS,
             "launches_per_fp8_train_step":
                 launches["train_fp8"][name] / TRAIN_STEPS,
+            "launches_per_rwkv6_train_step":
+                launches["train_rwkv6"][name] / RWKV_STEPS,
             "max_abs_err": t["max_abs_err"],
             "ms": sum(s_["ms"] for s_ in sums),
             "plain_ms": sum(s_["plain_ms"] for s_ in sums),

@@ -1,11 +1,14 @@
 """Where a training step's time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.analysis.train_profile
+    PYTHONPATH=src python -m repro_torch.analysis.train_profile \
+        --arch rwkv6_7b --precision bf16
 
-Trains ``paper_atis_tt``'s full-width config (``tnn_default``, ``cuda``
-backend, bf16, seed 0) at the train CLI's default batch 8 x seq 128, once
-per entry of :data:`PRECISIONS` (the tensorized layers' ``--tnn-precision``
-with its loss scale; ``fp8`` runs every plan through the scaled and
+Trains ``--arch``'s full-width config (default ``paper_atis_tt``;
+``tnn_default``, ``cuda`` backend, bf16, seed 0) at the train CLI's
+default batch 8 x seq 128, once per ``--precision`` (default: each entry
+of :data:`PRECISIONS`, the tensorized layers' ``--tnn-precision`` with
+its loss scale; ``fp8`` runs every plan through the scaled and
 quantize/dequantize kernels), with
 the train loop's pieces (:func:`repro_torch.launch.steps.build_model`,
 :class:`~repro_torch.optim.adamw.AdamW`,
@@ -17,23 +20,27 @@ steps that end in a synchronise), device busy ms per step (the sum of
 device-side kernel and copy times; one stream, so they do not overlap),
 the device's idle share against the unprofiled wall time, device time
 by group — the port's kernels by their names (the scaled GEMM and chain
-by their fp8/int8 template arguments), the rest as ``torch`` — with the ten largest kernels by name, and
-device time by phase: the kernel time inside the tensorized layers'
-``tnn.fp`` / ``tnn.bp`` / ``tnn.wg`` ranges and attention's
-``attn.fwd`` / ``attn.bwd`` (``tnn.fp`` holds the forward plans twice
-under remat), beside each range's span on the device timeline.  Needs a CUDA card; if the profiler records no device time, the device
-figures are reported as not measured.
+by their fp8/int8 template arguments), PyTorch's own matrix products as
+``torch_gemm``, the rest as ``torch`` — with the ten largest kernels by
+name, and device time by phase: the kernel time inside the tensorized
+layers' ``tnn.fp`` / ``tnn.bp`` / ``tnn.wg`` ranges, attention's
+``attn.fwd`` / ``attn.bwd``, the scan's ``ssm.scan`` (forward kernel and
+the plain twin's backward) and AdamW's ``optim.update`` (``tnn.fp``
+holds the forward plans twice under remat), beside each range's span on
+the device timeline.  Needs a CUDA card; if the profiler records no
+device time, the device figures are reported as not measured.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import time
 
 import torch
 
-ARCH, BATCH, SEQ = "paper_atis_tt", 8, 128   # the train CLI's defaults
+BATCH, SEQ = 8, 128   # the train CLI's defaults
 WARMUP, STEPS = 5, 3
 #: (--tnn-precision, loss scale) of each profiled run
 PRECISIONS = (("bf16", 1.0), ("fp8", 128.0))
@@ -47,9 +54,12 @@ GROUPS = (("dequantize_kernel", "dequantize"),
           ("chain_kernel<__nv_fp8", "chain_n_scaled"),
           ("chain_kernel<signed char", "chain_n_scaled"),
           ("chain_kernel", "chain_n"),
-          ("flash_fwd_kernel", "flash_attention_fwd"))
+          ("flash_fwd_kernel", "flash_attention_fwd"),
+          ("scan_kernel", "linear_scan"),
+          ("gemm", "torch_gemm"))
 #: profiler ranges the training path opens around its phases
-PHASES = ("tnn.fp", "tnn.bp", "tnn.wg", "attn.fwd", "attn.bwd")
+PHASES = ("tnn.fp", "tnn.bp", "tnn.wg", "attn.fwd", "attn.bwd", "ssm.scan",
+          "optim.update")
 
 
 def _group(name: str) -> str:
@@ -59,7 +69,8 @@ def _group(name: str) -> str:
     return "torch"
 
 
-def profile(precision: str = "bf16", loss_scale: float = 1.0) -> dict:
+def profile(precision: str = "bf16", loss_scale: float = 1.0,
+            arch_id: str = "paper_atis_tt") -> dict:
     import dataclasses
 
     from torch.profiler import ProfilerActivity
@@ -74,7 +85,7 @@ def profile(precision: str = "bf16", loss_scale: float = 1.0) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("train_profile: needs a CUDA card")
     batch, seq, warmup, steps = BATCH, SEQ, WARMUP, STEPS
-    arch = cfgbase.get(ARCH)
+    arch = cfgbase.get(arch_id)
     tnn = dataclasses.replace(arch.tnn_default,
                               precision=QuantPolicy.parse(precision))
     model, cfg = steps_lib.build_model(arch, tnn, device="cuda", seed=0,
@@ -138,7 +149,7 @@ def profile(precision: str = "bf16", loss_scale: float = 1.0) -> dict:
     busy_ms = sum(by_group.values()) / 1e3 / steps
     measured = busy_ms > 0
     return {
-        "arch": ARCH, "precision": precision, "loss_scale": loss_scale,
+        "arch": arch_id, "precision": precision, "loss_scale": loss_scale,
         "batch": batch, "seq": seq,
         "steps_profiled": steps, "device": torch.cuda.get_device_name(0),
         "wall_ms_per_step": wall_ms,
@@ -158,10 +169,18 @@ def profile(precision: str = "bf16", loss_scale: float = 1.0) -> dict:
     }
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="paper_atis_tt")
+    ap.add_argument("--precision", action="append",
+                    choices=[p for p, _ in PRECISIONS],
+                    help="profile this precision (repeatable; default: "
+                         "all of PRECISIONS)")
+    args = ap.parse_args(argv)
     for precision, loss_scale in PRECISIONS:
-        print(json.dumps({"phase": "train_profile",
-                          **profile(precision, loss_scale)}), flush=True)
+        if args.precision is None or precision in args.precision:
+            print(json.dumps({"phase": "train_profile", **profile(
+                precision, loss_scale, args.arch)}), flush=True)
 
 
 if __name__ == "__main__":

@@ -3,8 +3,8 @@
 Port of ``src/repro/configs/base.py``: each architecture module defines an
 :class:`ArchConfig` with its published model config, a reduced smoke
 config of the same family and its TNN variant; ``--arch <id>`` resolves
-through :func:`get`.  Only the paper's own ``paper_atis_tt`` is ported so
-far; the other architectures are queued in ROADMAP.md.
+through :func:`get`.  Ported so far: the paper's own ``paper_atis_tt``
+and ``rwkv6_7b``; the other architectures are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -16,13 +16,13 @@ from typing import Any, Callable
 from repro_torch.core.tensorized import TNNConfig
 
 #: architectures this package has ported
-ARCH_IDS = ["paper_atis_tt"]
+ARCH_IDS = ["paper_atis_tt", "rwkv6_7b"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     id: str
-    family: str                     # dense | ...
+    family: str                     # dense | ssm | ...
     model_kind: str                 # "lm"
     make_model: Callable[..., Any]  # (tnn: TNNConfig|None) -> LMConfig
     make_smoke: Callable[..., Any]  # reduced same-family config

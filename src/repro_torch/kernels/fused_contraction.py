@@ -55,10 +55,11 @@ _THREADS = 256
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 #: (``flash_attention_fwd`` is counted by :mod:`.flash_attention`,
-#: ``quantize`` / ``dequantize`` by :mod:`.quantized`)
+#: ``quantize`` / ``dequantize`` by :mod:`.quantized`, ``linear_scan`` by
+#: :mod:`.ssm_scan`)
 LAUNCHES = {"matmul": 0, "chain_n": 0, "flash_attention_fwd": 0,
             "matmul_scaled": 0, "chain_n_scaled": 0, "quantize": 0,
-            "dequantize": 0}
+            "dequantize": 0, "linear_scan": 0}
 
 #: operand dtype codes of the CUDA sources (``csrc/*.cu``)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

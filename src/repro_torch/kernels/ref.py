@@ -1,14 +1,19 @@
 """Plain PyTorch versions of the kernels (the correctness contract).
 
-Port of ``src/repro/kernels/ref.py`` for the kernels the port has so
-far.  Each function computes what its kernel in
+Port of ``src/repro/kernels/ref.py``.  Each function computes what its
+kernel in
 :mod:`repro_torch.kernels.fused_contraction`,
-:mod:`repro_torch.kernels.flash_attention` or
-:mod:`repro_torch.kernels.quantized` computes, with the same rounding
+:mod:`repro_torch.kernels.flash_attention`,
+:mod:`repro_torch.kernels.quantized` or
+:mod:`repro_torch.kernels.ssm_scan` computes, with the same rounding
 points: products accumulate in f32 and each result is rounded to the
 operand type (the scaled kernels: to f32, with bf16 chain
-intermediates).  The kernel wrappers run these for tensors on the CPU;
-``chip_smoke.py`` holds each kernel against them on the card.
+intermediates).  For the scan there are two: the sequential oracle
+(:func:`linear_scan`, :func:`linear_scan_batched`) and
+:func:`chunked_linear_scan`, the kernel's blocked twin, which is also
+what autograd differentiates for the scan's backward.  The kernel
+wrappers run these for tensors on the CPU; ``chip_smoke.py`` holds each
+kernel against them on the card.
 
 Two helpers serve that comparison: :func:`tie_probe` builds quantizer
 inputs on which every rounding is a close call, and
@@ -200,3 +205,109 @@ def tie_probe(policy: QuantPolicy, rows: int = 56, *, device=None
     x = y[None, :] * scale[:, None]
     return (x.to(device).contiguous(),
             scale[:, None].to(device).contiguous())
+
+
+def linear_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                log_decay: torch.Tensor, u: torch.Tensor | None = None, *,
+                mode: str = "ssd", out_dtype=None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sequential-oracle linear recurrence (single stream)::
+
+        S_t = diag(d_t) S_{t-1} + k_t^T v_t
+        o_t = q_t (diag(a_t) S_{t-1} + diag(g_t) k_t^T v_t)
+
+    mode ``ssd``: a = d, g = 1 (Mamba-2: ``o_t = q_t S_t``); mode
+    ``rwkv6``: a = 1, g = u (bonus on the current token).  Shapes: q, k,
+    log_decay ``[T, dk]``; v ``[T, dv]``; u ``[dk]``.  Returns ``(o [T,
+    dv], final state [dk, dv] f32)``."""
+    o, state = linear_scan_batched(
+        q[None], k[None], v[None], log_decay[None],
+        None if u is None else u[None], mode=mode, out_dtype=out_dtype)
+    return o[0], state[0]
+
+
+def linear_scan_batched(q, k, v, log_decay, u=None, *, mode: str = "ssd",
+                        out_dtype=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`linear_scan` over a leading ``[BH]`` axis, one token at a
+    time.  Returns ``(o [BH, T, dv], final state [BH, dk, dv] f32)``."""
+    _check_mode(mode)
+    bh, t, dk = q.shape
+    dv = v.shape[-1]
+    f32 = torch.float32
+    d = torch.exp(log_decay.float())
+    u = (torch.zeros((bh, dk), dtype=f32, device=q.device) if u is None
+         else u.float())
+    qf, kf, vf = q.float(), k.float(), v.float()
+    state = torch.zeros((bh, dk, dv), dtype=f32, device=q.device)
+    outs = []
+    for i in range(t):
+        kv = kf[:, i, :, None] * vf[:, i, None, :]
+        if mode == "ssd":
+            seen = state * d[:, i, :, None] + kv
+        else:
+            seen = state + u[:, :, None] * kv
+        outs.append(torch.einsum("bk,bkv->bv", qf[:, i], seen))
+        state = state * d[:, i, :, None] + kv
+    o = (torch.stack(outs, dim=1) if outs
+         else torch.zeros((bh, 0, dv), dtype=f32, device=q.device))
+    return o.to(out_dtype or v.dtype), state
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in ("ssd", "rwkv6"):
+        raise ValueError(f"scan mode {mode!r} is not 'ssd' or 'rwkv6'")
+
+
+def chunked_linear_scan(q, k, v, log_decay, u=None, *, mode: str = "ssd",
+                        chunk: int = 128, out_dtype=None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of the chunked scan kernel (the same blocked math).
+
+    Port of the reference's ``chunked_linear_scan``.  Per chunk of
+    ``chunk`` tokens: ``lc`` = in-chunk cumulative log-decay, ``ex = lc``
+    (ssd) or ``lc - log_decay`` (rwkv6), ``q_t = q * exp(ex)``, ``k_t = k
+    * exp(-lc)``, ``att = q_t k_t^T`` masked to the lower triangle (ssd:
+    with the diagonal; rwkv6: strict, plus ``sum(q * u * k)`` on the
+    diagonal), ``o = att v + q_t S``, then ``S = S * exp(lc[-1]) + (k *
+    exp(lc[-1] - lc))^T v``.  All in f32.  The factorization overflows
+    f32 where a chunk's ``lc`` falls below about -88.7, as the
+    reference's does.  Differentiable; shapes as
+    :func:`linear_scan_batched`; ``T`` must be a multiple of ``chunk``."""
+    _check_mode(mode)
+    bh, t, dk = q.shape
+    dv = v.shape[-1]
+    if chunk < 1 or t % chunk:
+        raise ValueError(f"T={t} not a multiple of chunk={chunk}")
+    nc, c = t // chunk, chunk
+    f32 = torch.float32
+    dev = q.device
+    if u is None:
+        u = torch.zeros((bh, dk), dtype=f32, device=dev)
+
+    def blocks(z, d):
+        return z.float().reshape(bh, nc, c, d)
+
+    qb, kb, vb, ldb = (blocks(q, dk), blocks(k, dk), blocks(v, dv),
+                       blocks(log_decay, dk))
+    row = torch.arange(c, device=dev)[:, None]
+    col = torch.arange(c, device=dev)[None, :]
+    tri = (row >= col) if mode == "ssd" else (row > col)
+    state = torch.zeros((bh, dk, dv), dtype=f32, device=dev)
+    outs = []
+    for n in range(nc):
+        qc, kc, vc, ldc = qb[:, n], kb[:, n], vb[:, n], ldb[:, n]
+        lc = torch.cumsum(ldc, dim=1)
+        ex = lc if mode == "ssd" else lc - ldc
+        qt = qc * torch.exp(ex)
+        kt = kc * torch.exp(-lc)
+        att = torch.where(tri, qt @ kt.transpose(1, 2), 0.0)
+        if mode == "rwkv6":
+            diag = torch.sum(qc * u[:, None, :].float() * kc, dim=-1)
+            att = att + torch.diag_embed(diag)
+        outs.append(att @ vc + qt @ state)
+        k_s = kc * torch.exp(lc[:, -1:, :] - lc)
+        state = (state * torch.exp(lc[:, -1])[..., None]
+                 + k_s.transpose(1, 2) @ vc)
+    o = (torch.stack(outs, dim=1).reshape(bh, t, dv) if outs
+         else torch.zeros((bh, 0, dv), dtype=f32, device=dev))
+    return o.to(out_dtype or v.dtype), state

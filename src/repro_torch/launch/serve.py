@@ -27,7 +27,9 @@ from repro_torch.core.contraction import canonical_backend
 from repro_torch.launch import steps as steps_lib
 from repro_torch.memory.planner import format_bytes
 from repro_torch.serving import profiles as profiles_lib
-from repro_torch.serving.engine import Request, ServeEngine
+from repro_torch.serving.engine import (
+    Request, ServeEngine, require_attention,
+)
 
 _log = tm.get_logger("serve")
 
@@ -76,6 +78,9 @@ def main(argv=None) -> list[Request]:
 
     arch = cfgbase.get(args.arch)
     tnn_cfg = arch.tnn_default if args.tnn else None
+    # Refuse an SSM model before building it (rwkv6_7b is 3.8 B weights).
+    require_attention(arch.smoke(tnn_cfg) if args.smoke
+                      else arch.model(tnn_cfg))
     model, cfg = steps_lib.build_model(arch, tnn=tnn_cfg, smoke=args.smoke,
                                        device=args.device,
                                        backend=args.tnn_backend)

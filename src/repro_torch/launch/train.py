@@ -9,6 +9,8 @@ Port of ``src/repro/launch/train.py`` (single device)::
       --seq 16
   PYTHONPATH=src python -m repro_torch.launch.train --arch paper_atis_tt \
       --tnn --tnn-backend cuda --tnn-precision fp8 --loss-scale 128
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6_7b \
+      --tnn --tnn-backend cuda --steps 12 --batch 8 --seq 128
 
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs the kernels'
 plain versions.  The loop, its ``train.step`` / ``train.data`` /
@@ -64,10 +66,11 @@ def train(arch_id: str, *, smoke: bool, tnn: bool, steps: int,
           tnn_backend: str | None = None, tnn_remat: str | None = None,
           tnn_precision: str | None = None,
           loss_scale: float = 1.0, trace_path: str | None = None,
-          device: str = "cuda") -> dict:
+          device: str = "cuda", on_step=None) -> dict:
     """Train ``arch_id`` for ``steps`` steps on synthetic data; returns
     the per-step losses, grad norms and step seconds, and the final
-    state."""
+    state.  ``on_step(step, metrics)``, when given, runs after each
+    step."""
     owns_trace = bool(trace_path) and not tm.enabled()
     if owns_trace:
         tm.configure(trace_path)
@@ -112,6 +115,8 @@ def train(arch_id: str, *, smoke: bool, tnn: bool, steps: int,
         history.append(loss)
         gnorms.append(float(metrics["grad_norm"]))
         step_s.append(dur)
+        if on_step is not None:
+            on_step(step, metrics)
         if step % log_every == 0 or step == steps - 1:
             tok_s = global_batch * seq_len / max(dur, 1e-9)
             _log.info(f"step {step:5d} loss {loss:8.4f} "

@@ -2,7 +2,8 @@
 
 Port of ``src/repro/models/blocks.py``: :func:`make_dense` (a dense
 matrix, or a :class:`~repro_torch.core.tensorized.TensorizedLinear` when a
-TNN config targets the projection), :func:`rmsnorm`, :func:`rope`,
+TNN config targets the projection), :func:`rmsnorm`,
+:func:`groupnorm_heads` (RWKV-6's per-head output norm), :func:`rope`,
 :class:`KVCache`, the GQA :class:`Attention` with its full-sequence
 training forward and its serving paths (``extend`` — chunked prefill at
 per-slot depths — and ``decode_step``), :func:`blockwise_attention` with
@@ -91,6 +92,16 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+def groupnorm_heads(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
+                    ) -> torch.Tensor:
+    """Per-head normalisation of the RWKV-6 output (``x [..., H, D]``,
+    ``scale [H, D]``): mean and biased variance over D, in f32."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    return ((xf - mean) * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0

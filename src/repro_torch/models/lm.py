@@ -1,13 +1,19 @@
-"""Decoder-only language model, dense-attention family.
+"""Decoder-only language model: the dense-attention and RWKV-6 families.
 
 Port of ``src/repro/models/lm.py``: :class:`LMConfig`, and :class:`LM`
 with the training forward (``forward`` — the reference's ``__call__`` —
 over :meth:`LM.apply_layers`, and the masked next-token loss
 ``token_loss`` / ``loss``) and the serving entry points ``init_cache``,
-``extend`` (chunked prefill at per-slot depths) and ``decode_step``.
+``extend`` (chunked prefill at per-slot depths, attention only),
+``prefill`` (RWKV-6 only) and ``decode_step``.
 Every projection consults ``cfg.tnn``
 (:func:`repro_torch.models.blocks.make_dense`), which is how the paper's
 technique, and with ``backend="cuda"`` the CUDA kernels, enter the model.
+
+``block="rwkv6"`` stacks RWKV-6 layers (:mod:`repro_torch.models.ssm`):
+their full-sequence time mix runs the scan kernel (B8), and ``prefill``
+hands the kernel's final states to ``decode_step``'s single-step
+recurrence through a :class:`StateCache`.
 
 ``remat`` re-runs each layer's forward inside the backward
 (``torch.utils.checkpoint`` per layer, non-reentrant), the reference's
@@ -17,11 +23,13 @@ an eager loop over per-layer modules has nothing to choose, so they are
 left out.
 
 Parameter names follow the reference's tree with the stacked ``[L, ...]``
-layer leaves split per layer (``layers.<l>.attn.q.cores.<i>``), so
+layer leaves split per layer (``layers.<l>.attn.q.cores.<i>``,
+``layers.<l>.rwkv.mix.r``), so
 :func:`repro_torch.convert.params_from_numpy` loads reference parameters.
 
-Not ported yet: MoE and its auxiliary loss, RWKV6/Mamba2 and hybrid
-blocks (ROADMAP.md, queue A items 6-7), and ``prefill`` (item 10).
+Not ported yet: MoE and its auxiliary loss (ROADMAP.md, queue A item 7),
+Mamba-2 and the hybrid blocks (items 6-7), and the attention family's
+``prefill`` (item 10).
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.tensorized import TNNConfig
+from repro_torch.models import ssm
 from repro_torch.models.blocks import (
     Attention, Dense, KVCache, RMSNorm, SwiGLU,
 )
@@ -50,7 +59,7 @@ class LMConfig:
     d_ff: int
     vocab: int
     head_dim: int | None = None            # default d_model // num_heads
-    block: str = "attn"                    # only attn is ported
+    block: str = "attn"                    # attn | rwkv6 (mamba2: not yet)
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
@@ -67,10 +76,12 @@ class LMConfig:
         return self.head_dim or self.d_model // self.num_heads
 
     def validate(self):
-        if self.block != "attn":
+        if self.block == "mamba2":
             raise NotImplementedError(
-                f"block {self.block!r} is not ported yet (ROADMAP.md, "
-                "queue A: SSM and remaining models)")
+                "block 'mamba2' is not ported yet (ROADMAP.md, queue A "
+                "item 6: Mamba-2 and zamba2_7b; its hybrid path is item 7)")
+        if self.block not in ("attn", "rwkv6"):
+            raise ValueError(f"unknown block {self.block!r}")
 
 
 class DecodeCache(NamedTuple):
@@ -78,6 +89,16 @@ class DecodeCache(NamedTuple):
     k: torch.Tensor       # [L, B, T, KV, hd] on the model's device
     v: torch.Tensor       # [L, B, T, KV, hd]
     length: torch.Tensor  # [B] (or [] scalar) int32, on the CPU
+
+
+class StateCache(NamedTuple):
+    """RWKV-6 decode state: per-layer states stacked ``[L, ...]``."""
+    layers: ssm.RWKVState  # wkv [L, B, H, hd, hd] f32, shifts [L, B, D]
+    length: torch.Tensor   # [] int32 tokens seen, on the CPU
+
+
+def _stacked(states: list[ssm.RWKVState]) -> ssm.RWKVState:
+    return ssm.RWKVState(*(torch.stack(s) for s in zip(*states)))
 
 
 class DecoderLayer(nn.Module):
@@ -96,6 +117,19 @@ class DecoderLayer(nn.Module):
         self.mlp = SwiGLU(c.d_model, c.d_ff, tnn=tnn, **common)
 
 
+class RWKVLayer(nn.Module):
+    def __init__(self, cfg: LMConfig, device=None, generator=None):
+        super().__init__()
+        c = cfg
+        self.ln1 = RMSNorm(c.d_model, device=device)
+        self.ln2 = RMSNorm(c.d_model, device=device)
+        self.rwkv = ssm.RWKV6Block(
+            c.d_model, head_dim=c.hd, d_ff=c.d_ff,
+            tnn=c.tnn if c.tnn.enabled else None,
+            param_dtype=c.param_dtype, compute_dtype=c.compute_dtype,
+            device=device, generator=generator)
+
+
 class LM(nn.Module):
     """``device`` defaults to ``cuda``; weights are random from ``seed``
     (or loaded with ``load_state_dict``)."""
@@ -111,8 +145,9 @@ class LM(nn.Module):
             (torch.randn(c.vocab, c.d_model, generator=gen) * std).to(
                 device=self.device, dtype=c.param_dtype))
         self.ln_f = RMSNorm(c.d_model, device=self.device)
+        layer = RWKVLayer if c.block == "rwkv6" else DecoderLayer
         self.layers = nn.ModuleList(
-            DecoderLayer(c, device=self.device, generator=gen)
+            layer(c, device=self.device, generator=gen)
             for _ in range(c.num_layers))
         if not c.tie_embeddings:
             self.lm_head = Dense(c.d_model, c.vocab,
@@ -142,16 +177,35 @@ class LM(nn.Module):
         x = x + layer.attn(layer.ln1(x, c.norm_eps), positions)
         return x + layer.mlp(layer.ln2(x, c.norm_eps))
 
+    def _rwkv_layer(self, layer: RWKVLayer, x: torch.Tensor,
+                    want_state: bool = False):
+        """One RWKV-6 layer; with ``want_state`` also its decode state
+        (the scan's final wkv state and the two shift tokens)."""
+        c = self.cfg
+        xn1 = layer.ln1(x, c.norm_eps)
+        tm, wkv = layer.rwkv.time_mix(xn1)
+        x = x + tm
+        xn2 = layer.ln2(x, c.norm_eps)
+        x = x + layer.rwkv.channel_mix(xn2, ssm.token_shift(xn2))
+        if want_state:
+            return x, ssm.RWKVState(
+                wkv=wkv, shift_tm=xn1[:, -1].to(c.compute_dtype),
+                shift_cm=xn2[:, -1].to(c.compute_dtype))
+        return x
+
     def apply_layers(self, x: torch.Tensor, positions: torch.Tensor
                      ) -> torch.Tensor:
         """Run the layer stack; with ``cfg.remat`` and grad enabled, each
         layer's activations are recomputed in the backward."""
+        if self.cfg.block == "rwkv6":
+            fn, extra = self._rwkv_layer, ()
+        else:
+            fn, extra = self._attn_layer, (positions,)
         for layer in self.layers:
             if self.cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(self._attn_layer, layer, x, positions,
-                               use_reentrant=False)
+                x = checkpoint(fn, layer, x, *extra, use_reentrant=False)
             else:
-                x = self._attn_layer(layer, x, positions)
+                x = fn(layer, x, *extra)
         return x
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
@@ -186,8 +240,15 @@ class LM(nn.Module):
 
     # -- caches ---------------------------------------------------------------
 
-    def init_cache(self, batch: int, max_len: int) -> DecodeCache:
+    def init_cache(self, batch: int, max_len: int
+                   ) -> DecodeCache | StateCache:
+        """Zeroed decode state: K/V buffers of ``max_len`` positions, or
+        for RWKV-6 the per-layer recurrent states (``max_len`` unused)."""
         c = self.cfg
+        if c.block == "rwkv6":
+            states = [layer.rwkv.init_state(batch) for layer in self.layers]
+            return StateCache(_stacked(states),
+                              torch.zeros((), dtype=torch.int32))
         shape = (c.num_layers, batch, max_len, c.num_kv_heads, c.hd)
         return DecodeCache(
             k=torch.zeros(shape, dtype=c.compute_dtype, device=self.device),
@@ -204,8 +265,11 @@ class LM(nn.Module):
         ``cache.length`` may be per-slot ([B]); ``valid`` ([B], None =
         all C) bounds how many chunk tokens are real per slot.  Returns
         logits for every chunk position ([B, C, V]) and the advanced
-        cache."""
+        cache.  Attention blocks only, as in the reference."""
         c = self.cfg
+        if c.block != "attn":
+            raise NotImplementedError(
+                "extend() requires an attention-block model")
         x = self._embed(tokens)
         ks, vs = [], []
         for li, layer in enumerate(self.layers):
@@ -222,8 +286,44 @@ class LM(nn.Module):
         return logits, DecodeCache(torch.stack(ks), torch.stack(vs),
                                    cache.length + adv)
 
-    def decode_step(self, token: torch.Tensor, cache: DecodeCache
-                    ) -> tuple[torch.Tensor, DecodeCache]:
-        """token: [B] ids -> (logits [B, V], advanced cache)."""
-        logits, new = self.extend(token[:, None], cache)
-        return logits[:, 0], new
+    def decode_step(self, token: torch.Tensor,
+                    cache: DecodeCache | StateCache
+                    ) -> tuple[torch.Tensor, DecodeCache | StateCache]:
+        """token: [B] ids -> (logits [B, V], advanced cache).  RWKV-6
+        runs each layer's single-step recurrence on its carried state."""
+        c = self.cfg
+        if c.block != "rwkv6":
+            logits, new = self.extend(token[:, None], cache)
+            return logits[:, 0], new
+        x = self._embed(token[:, None])
+        new_states = []
+        for li, layer in enumerate(self.layers):
+            st = ssm.RWKVState(*(s[li] for s in cache.layers))
+            tm, wkv, sh_tm = layer.rwkv.time_mix_step(
+                layer.ln1(x, c.norm_eps), st.wkv, st.shift_tm)
+            x = x + tm
+            cm, sh_cm = layer.rwkv.channel_mix_step(
+                layer.ln2(x, c.norm_eps), st.shift_cm)
+            x = x + cm
+            new_states.append(ssm.RWKVState(wkv, sh_tm, sh_cm))
+        logits = self._logits(self.ln_f(x, c.norm_eps))[:, 0]
+        return logits, StateCache(_stacked(new_states), cache.length + 1)
+
+    def prefill(self, inputs: torch.Tensor, max_len: int
+                ) -> tuple[torch.Tensor, StateCache]:
+        """Ingest the prompt ``[B, T]`` with the full-sequence (scan
+        kernel) path; returns the last position's logits ``[B, V]`` and
+        the decode state.  RWKV-6 only so far."""
+        c = self.cfg
+        if c.block != "rwkv6":
+            raise NotImplementedError(
+                "prefill of an attention model is not ported yet "
+                "(ROADMAP.md, queue A item 10)")
+        x = self._embed(inputs)
+        states = []
+        for layer in self.layers:
+            x, st = self._rwkv_layer(layer, x, want_state=True)
+            states.append(st)
+        logits = self._logits(self.ln_f(x, c.norm_eps)[:, -1:])[:, 0]
+        return logits, StateCache(
+            _stacked(states), torch.tensor(inputs.shape[1], dtype=torch.int32))

@@ -37,6 +37,7 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.convert import reference_ndim
 from repro_torch.precision.policy import AMAX_KEY
@@ -107,7 +108,12 @@ class AdamW:
                params: dict[str, torch.Tensor]
                ) -> tuple[dict, OptState, dict]:
         """One step; updates ``params`` and the moments in place and
-        returns ``(params, new_state, {"grad_norm", "lr"})``."""
+        returns ``(params, new_state, {"grad_norm", "lr"})``.  Runs in a
+        ``torch.profiler`` range ``optim.update``."""
+        with record_function("optim.update"):
+            return self._update(grads, state, params)
+
+    def _update(self, grads, state, params):
         names = list(params)
         if set(grads) != set(names):
             raise ValueError("gradients and parameters name different "

@@ -28,8 +28,10 @@ Differences from the reference: the tick functions run eagerly (no
 ``jit``); sampling draws from a ``torch.Generator`` seeded from ``seed``,
 so sampled (temperature > 0) streams differ from the reference's while
 greedy ones match; a quantized ``kv_policy`` raises NotImplementedError
-(ROADMAP.md, queue A: quantized KV cache); models without ``extend`` are
-not supported yet.  With tracing on, the ``serve.prefill_chunk`` and
+(ROADMAP.md, queue A: quantized KV cache); models whose blocks are not
+attention (RWKV-6; the reference serves them through a sequential
+``decode_step`` fallback) raise, naming their ROADMAP.md item.  With
+tracing on, the ``serve.prefill_chunk`` and
 ``serve.decode_step`` spans wait for the card before they close, so on a
 GPU they hold the tick's device time, not its launch time; tracing off,
 the engine never synchronizes inside a tick.
@@ -79,6 +81,18 @@ class Request:
         return self.t_first - self.t_submit
 
 
+def require_attention(cfg) -> None:
+    """Refuse a model whose blocks are not attention: the reference
+    serves those through a sequential ``decode_step`` fallback, which is
+    not ported yet."""
+    block = getattr(cfg, "block", "attn")
+    if block != "attn":
+        raise NotImplementedError(
+            f"serving block {block!r} is not ported yet (ROADMAP.md, queue "
+            "A item 6: SSM serving through the engine's sequential "
+            "decode_step fallback)")
+
+
 class ServeEngine:
     def __init__(self, model, *, batch_size: int, max_len: int,
                  eos_id: int | None = None, seed: int = 0,
@@ -106,6 +120,7 @@ class ServeEngine:
             raise NotImplementedError(
                 f"quantized KV cache ({kv_policy.dtype}) is not ported yet "
                 "(ROADMAP.md, queue A: quantized KV cache)")
+        require_attention(getattr(model, "cfg", None))
         if not hasattr(model, "extend"):
             raise NotImplementedError(
                 "models without extend() (SSM/hybrid) are not ported yet "

@@ -55,6 +55,16 @@ def tensorized_projections(cfg) -> list[tuple[str, int, int]]:
             out.append((name, d_in, d_out))
 
     targets = c.tnn.targets
+    if c.block == "rwkv6":
+        # RWKV-6: r/k/v/g and cm_r are "mix", o is "out", cm_k/cm_v "mlp"
+        if "mix" in targets:
+            add("rwkv.mix", c.d_model, c.d_model)
+        if "out" in targets:
+            add("rwkv.o", c.d_model, c.d_model)
+        if "mlp" in targets:
+            add("rwkv.cm_k", c.d_model, c.d_ff)
+            add("rwkv.cm_v", c.d_ff, c.d_model)
+        return out
     if "qkv" in targets:
         add("attn.q", c.d_model, c.num_heads * c.hd)
         add("attn.kv", c.d_model, c.num_kv_heads * c.hd)

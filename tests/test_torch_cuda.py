@@ -16,6 +16,9 @@ products in another order (1e-5 of the scale); the scaled chain rounds
 its intermediates to bf16, where a sum in another order now and then
 lands one ulp apart: at most 0.5% of the elements beyond 1e-5 of the
 scale and none beyond two bf16 ulps (``ref.chain_scaled_agreement``).
+The scan kernel: output as the GEMM's f32 rule and one bf16 ulp of the
+scale in bf16 (one rounding of the f32 result); its f32 final state
+within 1e-5 of the state's scale.
 """
 
 import math
@@ -31,6 +34,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_contraction as fc  # noqa: E402
 from repro_torch.kernels import quantized as qk  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import ssm_scan as sk  # noqa: E402
 from repro_torch.precision import QuantPolicy, quant  # noqa: E402
 
 QUANT = ["fp8_e4m3", "fp8_e5m2", "int8"]
@@ -185,6 +189,47 @@ def test_cuda_train_step_matches_the_cpu(cuda_device):
                                    atol=1e-4 * float(g.abs().max()))
 
 
+@pytest.mark.cuda
+def test_cuda_rwkv6_train_step_matches_the_cpu(cuda_device):
+    """One f32 training step of the rwkv6_7b smoke LM (remat on, TT
+    channel mix) through the GEMM and scan kernels on the card and
+    through their plain versions on the CPU: loss within 1e-5 and every
+    gradient within 1e-4 of its scale."""
+    import dataclasses
+
+    from repro_torch.configs import base
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import steps
+
+    arch = base.get("rwkv6_7b")
+    grads, losses = [], []
+    for device in ("cpu", cuda_device):
+        model, cfg = steps.build_model(arch, arch.tnn_default, smoke=True,
+                                       device=device, backend="cuda",
+                                       compute_dtype=torch.float32)
+        model.cfg = dataclasses.replace(cfg, remat=True)
+        if grads:
+            model.load_state_dict(base_sd)
+        else:
+            base_sd = {k: v.clone() for k, v in model.state_dict().items()}
+        batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                       global_batch=4)).batch(0)
+        before = dict(fc.LAUNCHES)
+        loss, _ = model.loss({k: torch.from_numpy(v)
+                              for k, v in batch.items()})
+        loss.backward()
+        if device != "cpu":
+            # forward and the checkpoint re-run of each of the 2 layers
+            assert fc.LAUNCHES["linear_scan"] == before["linear_scan"] + 4
+            assert fc.LAUNCHES["matmul"] > before["matmul"]
+        losses.append(float(loss.detach()))
+        grads.append({n: p.grad.cpu() for n, p in model.named_parameters()})
+    assert losses[1] == pytest.approx(losses[0], rel=1e-5)
+    for name, g in grads[0].items():
+        torch.testing.assert_close(grads[1][name], g, rtol=0,
+                                   atol=1e-4 * float(g.abs().max()))
+
+
 def _bits(t):
     """The raw bytes of ``t`` on the host, for bit-for-bit comparison."""
     return t.contiguous().view(torch.uint8).cpu()
@@ -294,3 +339,56 @@ def test_cuda_refused_quantized_chain_raises(cuda_device, monkeypatch):
     with pytest.raises(fc.ChainLoweringError, match="refused for the test"):
         plan_compiler.run(compiled, ts)
     assert plan_compiler.DEGRADE_COUNTS["runtime_quantized"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode,dv,chunk", [("rwkv6", 64, 128),
+                                           ("ssd", 112, 128),
+                                           ("rwkv6", 48, 64)])
+def test_cuda_scan_matches_plain_twin(cuda_device, mode, dv, chunk, dtype):
+    """The scan kernel's output and final state against its plain twin:
+    f32 output within 1e-5 of its scale, bf16 within one bf16 ulp of it
+    (one rounding of the f32 result), the f32 state within 1e-5."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    bh, t, dk = 16, 256, 64
+    q, k = (torch.randn(bh, t, dk, generator=gen, device=cuda_device)
+            .to(dtype) for _ in range(2))
+    v = torch.randn(bh, t, dv, generator=gen, device=cuda_device).to(dtype)
+    ld = -torch.exp(torch.randn(bh, t, dk, generator=gen,
+                                device=cuda_device)) * 0.1
+    u = torch.randn(bh, dk, generator=gen, device=cuda_device) * 0.5
+    before = fc.LAUNCHES["linear_scan"]
+    o, st = sk.linear_scan_cuda(q, k, v, ld, u, mode=mode, chunk=chunk)
+    wo, wst = ref.chunked_linear_scan(q, k, v, ld, u, mode=mode, chunk=chunk)
+    torch.cuda.synchronize()
+    assert fc.LAUNCHES["linear_scan"] == before + 1
+    assert o.dtype == dtype and st.dtype == torch.float32
+    scale = float(wo.float().abs().max())
+    tol = 1e-5 * scale if dtype == torch.float32 else _bf16_ulp(scale)
+    assert _max_err(o, wo) <= tol
+    assert _max_err(st, wst) <= 1e-5 * float(wst.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_scan_refuses_what_it_cannot_take(cuda_device):
+    z = torch.zeros(2, 128, 256, device=cuda_device)
+    u = torch.zeros(2, 256, device=cuda_device)
+    before = fc.LAUNCHES["linear_scan"]
+    with pytest.raises(sk.ScanLoweringError, match="shared memory"):
+        sk.linear_scan_cuda(z, z, z, z, u, mode="rwkv6")
+    z = torch.zeros(2, 100, 16, device=cuda_device)
+    with pytest.raises(ValueError, match="not a multiple"):
+        sk.linear_scan_cuda(z, z, z, z, u[:, :16], mode="rwkv6", chunk=64)
+    assert fc.LAUNCHES["linear_scan"] == before
+
+
+@pytest.mark.cuda
+def test_cuda_scan_footprint_rule_matches_the_kernel(cuda_device):
+    """The wrapper's footprint rule is the kernel's, shape for shape."""
+    lib = sk._lib()
+    for chunk, dk, dv in ((128, 64, 64), (128, 64, 112), (96, 32, 64),
+                          (1, 64, 64), (64, 128, 128)):
+        rows = sk.scan_tile_rows(chunk, dk, dv)
+        assert lib.ss_smem_bytes(chunk, dk, dv, rows) == \
+            sk.scan_smem_bytes(chunk, dk, dv, rows) <= 232_448
