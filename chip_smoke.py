@@ -10,7 +10,9 @@ and failing the script when it fails:
 
 1. ``env`` — card name and power limit, torch/CUDA versions, and the
    time to build every CUDA kernel from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, all at once).
+   (one ``nvcc`` per source, all at once); then ``ptxas``: each kernel's
+   registers, stack and spills as ``nvcc -Xptxas -v`` reported them in
+   that build.
 2. ``kernel:matmul`` / ``kernel:chain_n`` — every GEMM and chain geometry
    the serving path gives the kernels (``paper_atis_tt`` at full width,
    the prefill and decode token batches), in bf16 and f32, then every
@@ -18,7 +20,9 @@ and failing the script when it fails:
    128 tokens), checked in both types and timed in bf16: the kernel
    against its plain PyTorch version on the same inputs, and the times
    of kernel, plain version and (for the GEMM) ``torch.matmul`` as a
-   yardstick, beside the least time the card could take.
+   yardstick, beside the least time the card could take.  Each GEMM line
+   carries the configuration ``gemm_config`` chose (tile, K splits, copy
+   width, tensor cores or not).
 3. ``kernel:flash_attention_fwd`` — the attention kernel against its
    plain version (out and lse) in bf16 and f32, both stepping over the
    same kv chunk: at the training shape and the model's chunks, at T 1024
@@ -53,7 +57,8 @@ and failing the script when it fails:
    (quantize/dequantize bit for bit, also on ``ref.tie_probe``) and
    timed in fp8_e4m3 beside the plain version, the bound at the fp8
    peak, and for the GEMM ``torch._scaled_mm`` where its shape rules
-   admit the geometry (the reason where they do not).
+   admit the geometry (the reason where they do not) and its
+   configuration, as in phase 2.
 9. ``train_fp8`` — the ``train`` phase with ``--tnn-precision fp8`` and
    loss scale 128: every loss finite, the mean of the last 5 below the
    first and within 0.05 of the bf16 phase's, the four kernels of the
@@ -90,11 +95,18 @@ and failing the script when it fails:
    state), then ``decode_step`` on token 128 (the plain recurrence),
    within 5% of the logit scale of the last row of ``forward`` over the
    128 tokens.
+14. ``rwkv6_parity`` — ``rwkv6_7b`` at full width, 2 layers, f32, on
+   the ``cuda`` and ``einsum`` backends for 3 steps from the same
+   weights and batches (the GEMM kernel at every rank-64 FP/BP/WG
+   geometry): every step's loss and grad norm within three times the
+   envelope that weights scaled by ``1 ± 2**-22`` open on either
+   backend, or within 1e-4 where that envelope is narrower.
 
 It then prints the ``{"kernels": [...]}`` line (every ported kernel with
-its launches in the serve, train, train_fp8 and train_rwkv6 runs and its
-timings at the main paths' shapes), the card's ``nvidia-smi`` name and
-power limit, and, last, ``{"ok": true, ...}``.
+its launches in the serve, train, train_fp8 and train_rwkv6 runs, for
+the GEMM also its split-K reduce launches, and its timings at the main
+paths' shapes), the card's ``nvidia-smi`` name and power limit, and,
+last, ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -102,6 +114,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -216,11 +229,44 @@ def device_ms(torch, fn, inner: int = 20, reps: int = 25) -> float:
     return statistics.median(times)
 
 
+def ptxas_report(log: str, demangler: str | None = None) -> list[dict]:
+    """Registers, stack and spills of every kernel in ``nvcc -Xptxas -v``
+    output, the names demangled by ``demangler`` (``cu++filt``) if given."""
+    rows = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            rows.append({"kernel": m.group(1)})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and rows:
+            rows[-1].update(stack=int(m.group(1)),
+                            spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and rows:
+            rows[-1]["registers"] = int(m.group(1))
+    if demangler:
+        for r in rows:
+            r["kernel"] = subprocess.run(
+                [demangler, r["kernel"]], capture_output=True, text=True,
+                check=True, timeout=60).stdout.strip()
+    return rows
+
+
 def bound_ms(nbytes: int, flops: int, dtype: str) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def gemm_config_rec(fc, x, w, trans: bool) -> dict:
+    """The configuration ``matmul_cuda`` launches these operands with."""
+    c = fc.gemm_config_for(x, w, trans)
+    return {"tile": [c.bm, c.bn], "splits": c.splits,
+            "copy_bytes": c.copy_bytes, "tensor_cores": c.tensor_cores}
 
 
 def bf16_ulp(scale: float) -> float:
@@ -448,7 +494,8 @@ def quant_kernel_phase(torch, fc, qk, ref, quant, QuantPolicy, geo, totals
                    "transpose_rhs": trans, "phases": sorted(phases),
                    "dtype": dname, "max_abs_err": err,
                    "max_rel_err": err / max(scale, 1e-30), "scale": scale,
-                   "tol": 1e-5 * scale}
+                   "tol": 1e-5 * scale,
+                   "config": gemm_config_rec(fc, qx.q, qw.q, trans)}
             if not err <= 1e-5 * scale:
                 fail("matmul_scaled", rec)
             timed = None
@@ -567,7 +614,7 @@ def kernel_phase(torch, fc, ref, gemms, chains, totals, *, path: str,
                    "transpose_rhs": trans, "phases": sorted(phases.get(
                        geo, ())), "dtype": dname, "max_abs_err": err,
                    "max_rel_err": err / max(scale, 1e-30), "scale": scale,
-                   "tol": tol}
+                   "tol": tol, "config": gemm_config_rec(fc, x, w, trans)}
             if not err <= tol:
                 emit("kernel:matmul", ok=False, **rec)
                 raise AssertionError(f"matmul kernel disagrees: {rec}")
@@ -866,8 +913,8 @@ def train_rwkv6_phase(torch, fc, plan_compiler, train_cli, cfg,
     launches = dict(fc.LAUNCHES)
     degrades = dict(plan_compiler.DEGRADE_COUNTS)
     peak = torch.cuda.max_memory_allocated()
-    per_step = [{k: b[k] - a[k] for k in ("matmul", "chain_n",
-                                           "linear_scan")}
+    per_step = [{k: b[k] - a[k] for k in ("matmul", "matmul_reduce",
+                                           "chain_n", "linear_scan")}
                 for a, b in zip(seen, seen[1:])]
     losses = out["losses"]
     rcfg = out["cfg"]
@@ -944,6 +991,77 @@ def rwkv6_state_phase(torch, fc, lm_mod, cfgbase) -> None:
     del model
     if not ok:
         raise AssertionError("rwkv6_state phase failed")
+
+
+def rwkv6_parity_phase(torch, fc, arch, steps_lib) -> None:
+    """``rwkv6_7b`` at full width, STATE_LAYERS layers, f32, on the cuda
+    and einsum backends for PARITY_STEPS steps from the same weights and
+    batches: the GEMM kernel at every rank-64 FP/BP/WG geometry against
+    ``torch.einsum``.  The model magnifies f32 roundoff (gradients at the
+    noise floor, then AdamW's sign-like step on them), so, as in
+    ``train_fp8_parity``, each backend is also run from its weights
+    scaled by ``1 ± 2**-22``: at every step the backends' loss and grad
+    norm differ by at most FP8_PARITY_FACTOR times that envelope, or by
+    ``train_parity``'s f32 tolerance (1e-4) where the envelope is
+    narrower.  The cuda runs must launch the GEMM kernel, the einsum runs
+    must not."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim.adamw import AdamW
+    base_sd = None
+
+    def train(backend, nudge=0.0):
+        nonlocal base_sd
+        model, cfg = steps_lib.build_model(
+            arch, arch.tnn_default, device=DEVICE, seed=0, backend=backend,
+            compute_dtype=torch.float32, num_layers=STATE_LAYERS)
+        if base_sd is None:
+            base_sd = {k: v.clone() for k, v in model.state_dict().items()}
+        model.load_state_dict({k: v * (1 + nudge) if v.is_floating_point()
+                               else v for k, v in base_sd.items()})
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH))
+        opt = AdamW(lr=TRAIN_LR, total_steps=TRAIN_STEPS,
+                    warmup_steps=TRAIN_STEPS)
+        params = dict(model.named_parameters())
+        state = {"params": params, "opt": opt.init(params)}
+        step = steps_lib.make_train_step(model, opt)
+        before, metrics = fc.LAUNCHES["matmul"], []
+        for s_ in range(PARITY_STEPS):
+            batch = {k: torch.as_tensor(v).to(DEVICE)
+                     for k, v in data.batch(s_).items()}
+            state, m = step(state, batch)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        return metrics, fc.LAUNCHES["matmul"] - before
+
+    def rel(a, b):
+        return [[abs(x - y) / abs(y) for x, y in zip(sa, sb)]
+                for sa, sb in zip(a, b)]
+
+    runs = {b: train(b) for b in ("cuda", "einsum")}
+    launches = {b: [r[1]] for b, r in runs.items()}
+    spreads = []
+    for b in runs:
+        for n in (2.0 ** -22, -2.0 ** -22):
+            metrics, count = train(b, n)
+            spreads.append(rel(metrics, runs[b][0]))
+            launches[b].append(count)
+    gap = rel(runs["cuda"][0], runs["einsum"][0])
+    ok = min(launches["cuda"]) > 0 and max(launches["einsum"]) == 0
+    report = {}
+    for i, metric in enumerate(("loss", "grad_norm")):
+        env = [max(sp[s_][i] for sp in spreads) for s_ in range(PARITY_STEPS)]
+        tol = [max(1e-4, FP8_PARITY_FACTOR * e) for e in env]
+        good = all(g[i] <= t for g, t in zip(gap, tol))
+        report[metric] = {"ok": good,
+                          "cuda_vs_einsum_rel": [g[i] for g in gap],
+                          "envelope_rel": env, "tol_rel": tol}
+        ok = ok and good
+    emit("rwkv6_parity", ok=ok, arch=RWKV_ARCH, layers=STATE_LAYERS,
+         dtype="float32", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         steps=PARITY_STEPS, runs={b: r[0] for b, r in runs.items()},
+         gemm_launches=launches, **report)
+    if not ok:
+        raise AssertionError("rwkv6 parity failed")
 
 
 def serve_requests(vocab: int, Request):
@@ -1249,6 +1367,10 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], build_s=build_s,
          build_wall_s=time.perf_counter() - t0)
+    filt = os.path.join(os.path.dirname(build.nvcc()), "cu++filt")
+    emit("ptxas", ok=True, kernels={
+        name: ptxas_report(log, filt if os.path.exists(filt) else None)
+        for name, log in build.BUILD_LOGS.items()})
 
     # -- 2./3. kernels at every main-path geometry ------------------------------
     arch = cfgbase.get(ARCH)
@@ -1398,6 +1520,9 @@ def main() -> int:
     # -- 13. the scan's final state through prefill -> decode -------------------
     rwkv6_state_phase(torch, fc, lm_mod, cfgbase)
 
+    # -- 14. the GEMM at rwkv6's geometries against einsum, in f32 --------------
+    rwkv6_parity_phase(torch, fc, r_arch, steps_lib)
+
     # -- the kernel line ---------------------------------------------------------
     kernels = []
     for name in ALL_KERNELS:
@@ -1411,6 +1536,9 @@ def main() -> int:
             "replaces": REPLACES[name],
             "launches": sum(launches[r][name] for r in RUNS),
             **{f"launches_{r}_run": launches[r][name] for r in RUNS},
+            **({"splitk_reduce_launches": sum(launches[r][name + "_reduce"]
+                                              for r in RUNS)}
+               if name + "_reduce" in launches["serve"] else {}),
             "launches_per_train_step": launches["train"][name] / TRAIN_STEPS,
             "launches_per_fp8_train_step":
                 launches["train_fp8"][name] / TRAIN_STEPS,

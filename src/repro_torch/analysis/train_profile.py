@@ -48,9 +48,13 @@ PRECISIONS = (("bf16", 1.0), ("fp8", 128.0))
 #: wins (a scaled kernel's name carries its fp8/int8 operand type)
 GROUPS = (("dequantize_kernel", "dequantize"),
           ("quantize_kernel", "quantize"),
-          ("gemm_kernel<__nv_fp8", "matmul_scaled"),
-          ("gemm_kernel<signed char", "matmul_scaled"),
-          ("gemm_kernel", "matmul"),
+          ("gemm_tc_kernel<__nv_fp8", "matmul_scaled"),
+          ("gemm_tc_kernel<signed char", "matmul_scaled"),
+          ("gemm_splitk_reduce<__nv_fp8", "matmul_scaled"),
+          ("gemm_splitk_reduce<signed char", "matmul_scaled"),
+          ("gemm_tc_kernel", "matmul"),
+          ("gemm_simt_kernel", "matmul"),
+          ("gemm_splitk_reduce", "matmul"),
           ("chain_kernel<__nv_fp8", "chain_n_scaled"),
           ("chain_kernel<signed char", "chain_n_scaled"),
           ("chain_kernel", "chain_n"),

@@ -24,11 +24,14 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("fused_contraction", "flash_attention", "quantized",
            "ssm_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 #: wall seconds each library's build took in this process (0.0 = cached)
 BUILD_SECONDS: dict[str, float] = {}
+#: nvcc's output for each library built in this process: with ``-Xptxas
+#: -v``, every kernel's registers, stack and spills
+BUILD_LOGS: dict[str, str] = {}
 
 
 def nvcc() -> str:
@@ -79,6 +82,7 @@ def build_all(names=SOURCES) -> dict[str, float]:
                                f"(exit {proc.returncode}):\n{log}")
         os.replace(tmp, out)
         BUILD_SECONDS[name] = time.perf_counter() - t0
+        BUILD_LOGS[name] = log
     return {n: BUILD_SECONDS[n] for n in names}
 
 

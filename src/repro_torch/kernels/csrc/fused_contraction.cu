@@ -2,24 +2,49 @@
 //
 // Port of the Pallas TPU kernels of src/repro/kernels/fused_contraction.py:
 //
-// * gemm_kernel replaces _matmul_kernel / matmul_pallas: C[M,N] = X[M,K] @ W
-//   with W stored [K,N] or [N,K] ("transpose_rhs").  The [N,K] tile is
-//   transposed while it is staged into shared memory, never in device
-//   memory: FETTA's "layout reordering during computation".  f32
-//   accumulation, K innermost, output rounded to the operand type.
-//   Bound on the H100: on the serving path K = 8, so one product does
-//   2*K = 16 FLOPs per output element written; the kernel is bound by the
-//   bytes of C (and X, W) it moves.  Design: SIMT, one 64x64 output tile per
-//   256-thread block, 4x4 outputs per thread with stride-16 rows/columns so
-//   each warp writes contiguous runs of C.  K = 8 is below one bf16 mma
-//   k-step (16), so tensor cores, wgmma and TMA are left to a later PR.
-//   Its scaled form replaces _matmul_scaled_kernel (matmul_pallas with
-//   scales=): fp8 e4m3/e5m2 or int8 operands are upcast to f32 (exactly) as
-//   they are staged into the same tiles, and the epilogue writes
-//   (acc * sl[row]) * sr[col] in f32: the dequantization never takes its
-//   own pass over device memory.  Operands are 1 byte, the output 4, so
-//   the scaled GEMM is bound by the bytes of C as well.  fp8 wgmma needs
-//   K >= 32; the ATIS plans' K = 8 is below it, so this stays SIMT.
+// * The GEMM replaces _matmul_kernel / matmul_pallas: C[M,N] = X[M,K] @ W
+//   with W stored [K,N] or [N,K] ("transpose_rhs"), f32 accumulation,
+//   output rounded to the operand type.  Its scaled form replaces
+//   _matmul_scaled_kernel (matmul_pallas with scales=): fp8 e4m3/e5m2 or
+//   int8 operands, epilogue (acc * sl[row]) * sr[col] in f32, so the
+//   dequantization never takes its own pass over device memory.
+//   What bounds it on the H100: bytes, at every geometry of the main
+//   paths.  The TT plans' products have one small side (K = 1..128 with
+//   M, N in the thousands: C's bytes; or M and N = 8..128 with K =
+//   768..14,336: the operands' bytes), at most ~64 operations per byte
+//   where the bf16 tensor cores need ~295 to be the limit.
+//   Design: four warps per block and one output tile from a small table
+//   (128x64 and 64x64, and 128x16 and 128x8 for the N = 12..16 and N = 8
+//   products; fused_contraction.gemm_config picks it), operand tiles
+//   staged 64 bytes of K at a time through a 4-deep ring of cp.async
+//   copies (16 bytes each, narrower where a row pitch or base address is
+//   not 16-byte aligned, e.g. K = 12 in bf16 or fp8; zero-filled past the
+//   edges, so a ragged K adds zero terms), rows padded to an odd number of
+//   16-byte units so ldmatrix reads hit distinct banks.  bf16 runs
+//   mma.sync m16n8k16 and int8 m16n8k32 on the tensor cores; the [N,K]
+//   layout is read by ldmatrix and the [K,N] one by ldmatrix.trans (an
+//   8-bit [K,N] tile as byte pairs, regrouped by byte permutes): FETTA's
+//   "layout reordering during computation" happens between shared memory
+//   and registers, never in device memory.  The output tile is staged in
+//   shared memory and written in 16-byte rows, which the C-bound products
+//   (K = 8..64) need more than anything else.  Where the output tiles
+//   cannot fill the card's 132 SMs and K is long, K is split into slices
+//   (whole stages), each block writes an f32 partial tile and
+//   gemm_splitk_reduce sums the slices in a fixed order and applies the
+//   epilogue: no atomics, so the same inputs give the same bits on every
+//   run.  f32 keeps the FMA units (TF32 holds ~3 decimal digits, under the
+//   1e-5 gate) with the same tiles, ring and split-K.
+//   fp8: the DeepSeek-V3 report (arXiv:2412.19437, section 3.3.2) measured
+//   Hopper's fp8 tensor-core sums to keep ~14 significant bits.  Here the
+//   fp8 bytes are widened exactly to f16 in registers (every e4m3 and e5m2
+//   value is an f16) and run through the f16 mma with f32 accumulators,
+//   and, as for int8's s32 sums, each stage's tensor-core sums (64
+//   elements of K) are promoted into separate f32 registers: one promotion
+//   per <= 128 elements, the report's interval.  The widening is kept
+//   over the native e4m3/e5m2 mma.sync because its sums rest on the
+//   documented f32 accumulation of the f16 mma, not on the fp8
+//   datapath's undocumented width; measured on the H100, the native form
+//   had no lower error and was no faster (PERF.md).
 //
 // * chain_kernel replaces _chain_n_kernel / chain_n_pallas:
 //   Y = (((X @ W1) -> regroup -> @ W2) ... @ Wn).  One block owns a band of
@@ -48,10 +73,14 @@
 // stream, allocates nothing, and returns cudaGetLastError().
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -84,91 +113,716 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// GEMM with the rhs transpose fused into the shared-memory stage
+// GEMM: a cp.async ring, tensor cores, deterministic split-K
 // ---------------------------------------------------------------------------
 
-constexpr int kBM = 64, kBN = 64, kBK = 16, kGemmThreads = 256;
+constexpr int kGemmThreads = 128;  // four warps
+constexpr int kGemmStages = 4;     // depth of the cp.async ring
+constexpr int kStageBytes = 64;    // bytes of K per operand row per stage
+// Blocks per SM the kernels are compiled for: a register cap of 170
+// (65,536 / (3 * 128)).  Only the 8-bit 128x64 tile meets it (12-44 bytes
+// of spills), and it measured faster so than at 2 blocks without them.
+constexpr int kGemmMinBlocks = 3;
+// The tile table (BM, BN), shared with fused_contraction.py's GEMM_TILES:
+// 2x2 warps on the 64-wide tiles, 4x1 on the narrow ones.
+constexpr int kGemmTiles = 4;
+constexpr int kTileBM[kGemmTiles] = {128, 64, 128, 128};
+constexpr int kTileBN[kGemmTiles] = {64, 64, 16, 8};
 
-// TOut is T for the plain GEMM; the scaled form (kScaled) reads fp8/int8
-// T, writes f32 and multiplies by sl[row] and sr[col] in its epilogue.
-template <typename T, typename TOut, bool kTransRhs, bool kScaled>
-__global__ void __launch_bounds__(kGemmThreads)
-    gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                const float* __restrict__ sl, const float* __restrict__ sr,
-                TOut* __restrict__ out, int M, int N, int K) {
-  __shared__ float xs[kBK][kBM + 1];  // X tile, k-major
-  __shared__ float ws[kBK][kBN + 1];  // W tile as [k][n] whatever its layout
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int row0 = blockIdx.y * kBM, col0 = blockIdx.x * kBN;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+// Shared-memory row pitch: whole 16-byte units, an odd number of them, so
+// the 8 rows one ldmatrix phase reads fall in 8 distinct bank groups.
+__host__ __device__ constexpr int gemm_pitch(int row_bytes) {
+  return 16 * (((row_bytes + 15) / 16) | 1);
+}
 
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    for (int e = tid; e < kBM * kBK; e += kGemmThreads) {
-      const int m = e / kBK, kk = e % kBK;
-      const int gm = row0 + m, gk = k0 + kk;
-      xs[kk][m] = (gm < M && gk < K) ? to_f(x[(size_t)gm * K + gk]) : 0.f;
-    }
-    for (int e = tid; e < kBK * kBN; e += kGemmThreads) {
-      if (kTransRhs) {  // W stored [N, K]: read along k, store as [k][n]
-        const int n = e / kBK, kk = e % kBK;
-        const int gn = col0 + n, gk = k0 + kk;
-        ws[kk][n] = (gn < N && gk < K) ? to_f(w[(size_t)gn * K + gk]) : 0.f;
-      } else {  // W stored [K, N]
-        const int kk = e / kBN, n = e % kBN;
-        const int gn = col0 + n, gk = k0 + kk;
-        ws[kk][n] = (gn < N && gk < K) ? to_f(w[(size_t)gk * N + gn]) : 0.f;
+// Bytes of dynamic shared memory one block of the GEMM uses (mirrored by
+// fused_contraction.gemm_smem_bytes).
+__host__ __device__ constexpr int gemm_smem_bytes(int size, bool trans,
+                                                  int bm, int bn) {
+  return kGemmStages *
+         (bm * gemm_pitch(kStageBytes) +
+          (trans ? bn * gemm_pitch(kStageBytes)
+                 : (kStageBytes / size) * gemm_pitch(bn * size)));
+}
+
+// Bytes of the f32 output tile the tensor-core kernel stages in shared
+// memory before it writes C (rows padded by 4 floats, 16-byte aligned).
+__host__ __device__ constexpr int gemm_out_tile_bytes(int bm, int bn) {
+  return bm * (bn + 4) * 4;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of kW bytes; the bytes past src_bytes are zero-filled.
+template <int kW>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
+                                         int src_bytes) {
+  if constexpr (kW == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(src_bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+                 "l"(src), "n"(kW), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2_t(uint32_t addr, uint32_t* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr));
+}
+
+// D += A[16x16] B[16x8], f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void mma_f16(float* d, const uint32_t* a,
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// D += A[16x32] B[32x8] in int8, exact s32 accumulators.
+__device__ __forceinline__ void mma_s8(int* d, const uint32_t* a, uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two fp8 values (the low 16 bits of v, lower byte first) as f16x2, the
+// lower one in the low half: exact for e4m3 and e5m2 alike.
+template <typename T>
+__device__ __forceinline__ uint32_t fp8x2_to_f16x2(uint32_t v) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(v & 0xffffu),
+      std::is_same<T, __nv_fp8_e5m2>::value ? __NV_E5M2 : __NV_E4M3);
+  return static_cast<uint32_t>(h.x) | (static_cast<uint32_t>(h.y) << 16);
+}
+
+// Copy rows [r0, r0 + kRows) x bytes [c0, c0 + kRowBytes) of a row-major
+// global array (pitch gpitch bytes) into shared memory (pitch spitch),
+// kW bytes per copy; rows >= rlim and bytes >= clim are zero-filled.
+// kW >= 4 goes through cp.async; 2 and 1 (a row pitch or base that no
+// wider copy divides) through plain loads and stores.
+template <int kRows, int kRowBytes, int kW>
+__device__ __forceinline__ void copy_tile_w(unsigned char* dst, int spitch,
+                                            const unsigned char* src,
+                                            size_t gpitch, int r0, int rlim,
+                                            int c0, int clim) {
+  constexpr int kChunks = kRowBytes / kW;
+  if constexpr (kChunks > 0) {
+    // Rolled: unrolled, the per-copy addresses of every width would be
+    // hoisted out of the K loop and hold registers for the whole kernel.
+#pragma unroll 1
+    for (int e = threadIdx.x; e < kRows * kChunks; e += kGemmThreads) {
+      const int r = e / kChunks, c = (e % kChunks) * kW;
+      const int gr = r0 + r, gc = c0 + c;
+      const int valid = gr < rlim ? min(max(clim - gc, 0), kW) : 0;
+      const unsigned char* s = src + (valid > 0 ? gr * gpitch + gc : 0);
+      unsigned char* d = dst + r * spitch + c;
+      if constexpr (kW >= 4) {
+        cp_async<kW>(smem_u32(d), s, valid);
+      } else {
+#pragma unroll
+        for (int b = 0; b < kW; ++b) d[b] = b < valid ? s[b] : 0;
       }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = row0 + ty + 16 * i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = col0 + tx + 16 * j;
-      if (gn >= N) continue;
-      float v = acc[i][j];
-      if (kScaled) v = __fmul_rn(__fmul_rn(v, sl[gm]), sr[gn]);
-      out[(size_t)gm * N + gn] = from_f<TOut>(v);
     }
   }
 }
 
-template <typename T, typename TOut, bool kScaled>
-int launch_gemm(int trans, const void* x, const void* w, const float* sl,
-                const float* sr, void* out, int M, int N, int K,
-                cudaStream_t stream) {
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+template <int kRows, int kRowBytes>
+__device__ __forceinline__ void copy_tile(int cw, unsigned char* dst,
+                                          int spitch, const void* src,
+                                          size_t gpitch, int r0, int rlim,
+                                          int c0, int clim) {
+  const unsigned char* s = static_cast<const unsigned char*>(src);
+  switch (cw) {  // uniform across the grid
+    case 16:
+      copy_tile_w<kRows, kRowBytes, 16>(dst, spitch, s, gpitch, r0, rlim, c0,
+                                        clim);
+      break;
+    case 8:
+      copy_tile_w<kRows, kRowBytes, 8>(dst, spitch, s, gpitch, r0, rlim, c0,
+                                       clim);
+      break;
+    case 4:
+      copy_tile_w<kRows, kRowBytes, 4>(dst, spitch, s, gpitch, r0, rlim, c0,
+                                       clim);
+      break;
+    case 2:
+      copy_tile_w<kRows, kRowBytes, 2>(dst, spitch, s, gpitch, r0, rlim, c0,
+                                       clim);
+      break;
+    default:
+      copy_tile_w<kRows, kRowBytes, 1>(dst, spitch, s, gpitch, r0, rlim, c0,
+                                       clim);
+  }
+}
+
+// The ring: stage kt of this block's K slice is loaded kGemmStages - 1
+// stages ahead of its product; one barrier per stage.
+template <typename Load, typename Compute>
+__device__ __forceinline__ void gemm_pipeline(int nk, Load&& load,
+                                              Compute&& compute) {
+#pragma unroll
+  for (int s = 0; s < kGemmStages - 1; ++s) {
+    if (s < nk) load(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kGemmStages - 2>();
+    __syncthreads();  // stage kt landed; stage kt - 1's slot is free
+    const int next = kt + kGemmStages - 1;
+    if (next < nk) load(next % kGemmStages, next);
+    cp_async_commit();
+    compute(kt % kGemmStages);
+  }
+}
+
+// The one block's operand tiles of stage kt (K elements [kb, kb + BK)).
+template <typename T, bool kTransRhs, int BM, int BN>
+struct GemmTiles {
+  static constexpr int kSize = sizeof(T);
+  static constexpr int BK = kStageBytes / kSize;
+  static constexpr int kXPitch = gemm_pitch(kStageBytes);
+  static constexpr int kWPitch =
+      kTransRhs ? gemm_pitch(kStageBytes) : gemm_pitch(BN * kSize);
+  static constexpr int kXStage = BM * kXPitch;
+  static constexpr int kWStage = (kTransRhs ? BN : BK) * kWPitch;
+  static constexpr int kStage = kXStage + kWStage;  // one ring slot: X, then W
+
+  __device__ static void load(unsigned char* smem, int slot, int kb,
+                              int k_end, const T* x, const T* w, int M, int N,
+                              int K, int m0, int n0, int cw) {
+    unsigned char* xs = smem + slot * kStage;
+    unsigned char* ws = xs + kXStage;
+    copy_tile<BM, kStageBytes>(cw, xs, kXPitch, x, (size_t)K * kSize, m0, M,
+                               kb * kSize, k_end * kSize);
+    if constexpr (kTransRhs)  // W [N, K]: rows n, k contiguous
+      copy_tile<BN, kStageBytes>(cw, ws, kWPitch, w, (size_t)K * kSize, n0,
+                                 N, kb * kSize, k_end * kSize);
+    else  // W [K, N]: rows k, n contiguous
+      copy_tile<BK, BN * kSize>(cw, ws, kWPitch, w, (size_t)N * kSize, kb,
+                                k_end, n0 * kSize, N * kSize);
+  }
+};
+
+// The epilogue of one output element: the operand type's rounding, or
+// (acc * sl[row]) * sr[col] in f32 for the scaled form.
+template <typename T, typename TOut>
+__device__ __forceinline__ TOut gemm_epilogue(float v, const float* sl,
+                                              const float* sr, int row,
+                                              int col) {
+  if constexpr (sizeof(T) == 1)
+    return __fmul_rn(__fmul_rn(v, sl[row]), sr[col]);
+  else
+    return from_f<TOut>(v);
+}
+
+// Write a BM x BN f32 tile staged in shared memory (pitch tp floats) to C
+// through the epilogue, or to a split's partials, 4 columns (16 bytes of
+// f32, 8 of bf16) per store where N allows.
+template <typename T, typename TOut, int BM, int BN>
+__device__ __forceinline__ void gemm_write_tile(const float* tile, int tp,
+                                                TOut* out, float* part,
+                                                const float* sl,
+                                                const float* sr, int M, int N,
+                                                int m0, int n0) {
+  constexpr int kQ = BN / 4;
+  const bool vec = (N % 4) == 0;
+#pragma unroll 1
+  for (int e = threadIdx.x; e < BM * kQ; e += kGemmThreads) {
+    const int r = e / kQ, c = (e % kQ) * 4;
+    const int row = m0 + r, col = n0 + c;
+    if (row >= M || col >= N) continue;
+    const float4 v = *reinterpret_cast<const float4*>(tile + r * tp + c);
+    const float vs[4] = {v.x, v.y, v.z, v.w};
+    const size_t o = (size_t)row * N + col;
+    const bool full = vec && col + 3 < N;
+    if (part != nullptr) {
+      if (full) {
+        *reinterpret_cast<float4*>(part + o) = v;
+      } else {
+        for (int k = 0; k < 4 && col + k < N; ++k) part[o + k] = vs[k];
+      }
+      continue;
+    }
+    TOut y[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      y[k] = gemm_epilogue<T, TOut>(vs[k], sl, sr, row, min(col + k, N - 1));
+    if (!full) {
+      for (int k = 0; k < 4 && col + k < N; ++k) out[o + k] = y[k];
+    } else if constexpr (std::is_same<TOut, float>::value) {
+      *reinterpret_cast<float4*>(out + o) = make_float4(y[0], y[1], y[2], y[3]);
+    } else {
+      __nv_bfloat162 lo, hi;
+      lo.x = y[0];
+      lo.y = y[1];
+      hi.x = y[2];
+      hi.y = y[3];
+      uint2 pk;
+      pk.x = *reinterpret_cast<uint32_t*>(&lo);
+      pk.y = *reinterpret_cast<uint32_t*>(&hi);
+      *reinterpret_cast<uint2*>(out + o) = pk;
+    }
+  }
+}
+
+// Tensor-core GEMM, one BM x BN output tile and one K slice per block
+// (blockIdx.z; gridDim.z == 1 writes C, more write f32 partials to
+// part[z] for gemm_splitk_reduce).  bf16: m16n8k16 with f32 accumulators.
+// fp8: each m16n8k32 step as two f16 m16n8k16 steps on the bytes widened
+// exactly to f16 in registers, the tensor-core sums promoted into f32
+// registers once per stage (64 elements of K).  int8: m16n8k32 with s32
+// accumulators (exact), widened to f32 once per stage.  X and a [N, K] W
+// reach the fragments with ldmatrix, a [K, N] W with ldmatrix.trans.
+template <typename T, typename TOut, bool kTransRhs, int BM, int BN,
+          int kWarpsM, int kWarpsN>
+__global__ void __launch_bounds__(kGemmThreads, kGemmMinBlocks)
+    gemm_tc_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                   const float* __restrict__ sl, const float* __restrict__ sr,
+                   TOut* __restrict__ out, float* __restrict__ part, int M,
+                   int N, int K, int k_slice, int cw) {
+  using Tiles = GemmTiles<T, kTransRhs, BM, BN>;
+  constexpr int kSize = sizeof(T);
+  constexpr bool kInt8 = std::is_same<T, int8_t>::value;
+  constexpr bool kFp8 = kSize == 1 && !kInt8;
+  constexpr int kWTM = BM / kWarpsM, kWTN = BN / kWarpsN;
+  constexpr int MI = kWTM / 16, NI = kWTN / 8;
+  constexpr int kXPitch = Tiles::kXPitch, kWPitch = Tiles::kWPitch;
+  static_assert(kWarpsM * kWarpsN * 32 == kGemmThreads, "four warps");
+  static_assert(MI >= 1 && NI >= 1, "warp tile below one mma atom");
+  extern __shared__ __align__(16) unsigned char gemm_smem[];
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int wm0 = (warp / kWarpsN) * kWTM, wn0 = (warp % kWarpsN) * kWTN;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int k_begin = blockIdx.z * k_slice;
+  const int k_end = min(K, k_begin + k_slice);
+  const int nk = (k_end - k_begin + Tiles::BK - 1) / Tiles::BK;
+
+  float acc[MI][NI][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  // Per-lane shared-memory addresses of the fragments in ring slot 0; a
+  // slot adds slot * kStage, a k-step 32 bytes (X, [N, K] W) or 16 (bf16)
+  // or 32 (8-bit) rows ([K, N] W).
+  const uint32_t x_frag = smem_u32(gemm_smem) +
+                          (wm0 + (lane & 15)) * kXPitch + (lane >> 4) * 16;
+  const uint32_t w_base = smem_u32(gemm_smem) + Tiles::kXStage;
+  uint32_t w_frag;
+  if constexpr (kTransRhs)  // [n][k] rows: matrices (n 0-7 | 8-15) x (k lo | hi)
+    w_frag = w_base + (wn0 + (lane & 7) + (lane >> 4) * 8) * kWPitch +
+             ((lane >> 3) & 1) * 16;
+  else if constexpr (kSize == 2)  // bf16 [k][n]: (k 0-7 | 8-15) x (n 0-7 | 8-15)
+    w_frag = w_base + ((lane & 7) + ((lane >> 3) & 1) * 8) * kWPitch +
+             (wn0 + (lane >> 4) * 8) * 2;
+  else  // 8-bit [k][n], see kPairCols
+    w_frag = w_base +
+             (16 * (lane >> 4) + 4 * ((lane & 7) >> 1) + (lane & 1) +
+              2 * ((lane >> 3) & 1)) * kWPitch + wn0;
+  // 8-bit [K, N] W with an even number of n8 blocks: ldmatrix.trans reads
+  // byte pairs, so one x4 covers 16 columns x 2 x 16 k.  Matrix rows are
+  // picked so that lane (g, q) holds k = 4q, 4q+1 (lo) and 4q+2, 4q+3 (hi)
+  // of columns 2g and 2g+1; byte permutes make them the k32 fragments of
+  // two mma blocks over the even and the odd columns, which the epilogue
+  // puts back in order.  An odd count (the 128x8 tile) gathers bytes.
+  constexpr bool kPairCols = kSize == 1 && !kTransRhs && NI % 2 == 0;
+
+  auto load = [&](int slot, int kt) {
+    Tiles::load(gemm_smem, slot, k_begin + kt * Tiles::BK, k_end, x, w, M, N, K,
+                m0, n0, cw);
+  };
+  auto compute = [&](int slot) {
+    const uint32_t xs = x_frag + slot * Tiles::kStage;
+    const uint32_t wsa = w_frag + slot * Tiles::kStage;
+    const unsigned char* ws = gemm_smem + slot * Tiles::kStage + Tiles::kXStage;
+    // The 8-bit kinds sum each stage apart and promote it to acc after.
+    using Part = typename std::conditional<kInt8, int, float>::type;
+    Part stage[MI][NI][4];
+    if constexpr (kSize == 1) {
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) stage[i][j][e] = 0;
+    }
+#pragma unroll
+    for (int ks = 0; ks < kStageBytes / 32; ++ks) {  // 32 bytes of K a step
+      const int kb = ks * 32;                       // byte column
+      uint32_t a[MI][4], b[NI][2];
+#pragma unroll
+      for (int i = 0; i < MI; ++i) ldsm_x4(xs + i * 16 * kXPitch + kb, a[i]);
+      if constexpr (kTransRhs) {  // [n][k] rows: as X
+#pragma unroll
+        for (int j = 0; j + 1 < NI; j += 2) {
+          uint32_t r[4];
+          ldsm_x4(wsa + j * 8 * kWPitch + kb, r);
+          b[j][0] = r[0];
+          b[j][1] = r[1];
+          b[j + 1][0] = r[2];
+          b[j + 1][1] = r[3];
+        }
+        if constexpr (NI & 1)
+          ldsm_x2(wsa + (NI - 1) * 8 * kWPitch + kb, b[NI - 1]);
+      } else if constexpr (kSize == 2) {  // bf16 [k][n] rows: transposed
+#pragma unroll
+        for (int j = 0; j + 1 < NI; j += 2) {
+          uint32_t r[4];
+          ldsm_x4_t(wsa + ks * 16 * kWPitch + j * 16, r);
+          b[j][0] = r[0];
+          b[j][1] = r[1];
+          b[j + 1][0] = r[2];
+          b[j + 1][1] = r[3];
+        }
+        if constexpr (NI & 1)
+          ldsm_x2_t(wsa + ks * 16 * kWPitch + (NI - 1) * 16, b[NI - 1]);
+      } else if constexpr (kPairCols) {
+#pragma unroll
+        for (int j = 0; j < NI; j += 2) {
+          uint32_t r[4];
+          ldsm_x4_t(wsa + kb * kWPitch + j * 8, r);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            b[j][h] = __byte_perm(r[2 * h], r[2 * h + 1], 0x6420);
+            b[j + 1][h] = __byte_perm(r[2 * h], r[2 * h + 1], 0x7531);
+          }
+        }
+      } else {  // 8-bit [k][n], one n8 block: gather 4 k of column n
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const unsigned char* p =
+                ws + (kb + h * 16 + q * 4) * kWPitch + wn0 + j * 8 + g;
+            b[j][h] = static_cast<uint32_t>(p[0]) |
+                      (static_cast<uint32_t>(p[kWPitch]) << 8) |
+                      (static_cast<uint32_t>(p[2 * kWPitch]) << 16) |
+                      (static_cast<uint32_t>(p[3 * kWPitch]) << 24);
+          }
+      }
+      if constexpr (kSize == 2) {
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int j = 0; j < NI; ++j) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
+      } else if constexpr (kInt8) {
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int j = 0; j < NI; ++j)
+            mma_s8(stage[i][j], a[i], b[j][0], b[j][1]);
+      } else {
+        static_assert(kFp8, "fp8 operands");
+        // A k32 register holds k = 4q..4q+3 of its row; widened, its lower
+        // pair fills f16 slots 2q, 2q+1 and its upper pair slots 2q+8,
+        // 2q+9 of a k16 step.  B is widened the same way, so slot s pairs
+        // A and B at the same k and each k16 step sums the same 16 terms.
+        uint32_t bw[NI][2][2];
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            bw[j][h][0] = fp8x2_to_f16x2<T>(b[j][h]);
+            bw[j][h][1] = fp8x2_to_f16x2<T>(b[j][h] >> 16);
+          }
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {  // k 0..15, then 16..31
+            const uint32_t aw[4] = {fp8x2_to_f16x2<T>(a[i][2 * h]),
+                                    fp8x2_to_f16x2<T>(a[i][2 * h + 1]),
+                                    fp8x2_to_f16x2<T>(a[i][2 * h] >> 16),
+                                    fp8x2_to_f16x2<T>(a[i][2 * h + 1] >> 16)};
+#pragma unroll
+            for (int j = 0; j < NI; ++j)
+              mma_f16(stage[i][j], aw, bw[j][h][0], bw[j][h][1]);
+          }
+      }
+    }
+    if constexpr (kSize == 1) {
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[i][j][e] += static_cast<float>(stage[i][j][e]);
+    }
+  };
+  gemm_pipeline(nk, load, compute);
+
+  float* p = gridDim.z > 1 ? part + (size_t)blockIdx.z * M * N : nullptr;
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is drained: reuse it for the output tile
+  constexpr int kTP = BN + 4;  // gemm_out_tile_bytes' pitch
+  float* tile = reinterpret_cast<float*>(gemm_smem);
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* trow = tile + (wm0 + i * 16 + g + 8 * h) * kTP + wn0;
+      if constexpr (kPairCols) {
+#pragma unroll
+        for (int j = 0; j < NI; j += 2)
+          *reinterpret_cast<float4*>(trow + j * 8 + 4 * q) =
+              make_float4(acc[i][j][2 * h], acc[i][j + 1][2 * h],
+                          acc[i][j][2 * h + 1], acc[i][j + 1][2 * h + 1]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+          *reinterpret_cast<float2*>(trow + j * 8 + 2 * q) =
+              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+    }
+  __syncthreads();
+  gemm_write_tile<T, TOut, BM, BN>(tile, kTP, out, p, sl, sr, M, N, m0, n0);
+}
+
+// f32 GEMM on the FMA units (no TF32: it keeps ~3 decimal digits), the
+// same tiles, ring and split-K as gemm_tc_kernel; each thread owns a
+// TM x TN register tile with stride-TY rows and stride-TX columns, so a
+// warp writes contiguous runs of C.  K is summed with fmaf in order.
+template <bool kTransRhs, int BM, int BN>
+__global__ void __launch_bounds__(kGemmThreads, kGemmMinBlocks)
+    gemm_simt_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     float* __restrict__ out, float* __restrict__ part, int M,
+                     int N, int K, int k_slice, int cw) {
+  using Tiles = GemmTiles<float, kTransRhs, BM, BN>;
+  constexpr int TX = BN < 16 ? BN : 16, TY = kGemmThreads / TX;
+  constexpr int TM = BM / TY, TN = BN / TX;
+  constexpr int kXP = Tiles::kXPitch / 4, kWP = Tiles::kWPitch / 4;
+  extern __shared__ __align__(16) unsigned char gemm_smem[];
+
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int k_begin = blockIdx.z * k_slice;
+  const int k_end = min(K, k_begin + k_slice);
+  const int nk = (k_end - k_begin + Tiles::BK - 1) / Tiles::BK;
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  auto load = [&](int slot, int kt) {
+    Tiles::load(gemm_smem, slot, k_begin + kt * Tiles::BK, k_end, x, w, M, N, K,
+                m0, n0, cw);
+  };
+  auto compute = [&](int slot) {
+    const float* xs =
+        reinterpret_cast<const float*>(gemm_smem + slot * Tiles::kStage);
+    const float* ws = xs + Tiles::kXStage / 4;
+#pragma unroll
+    for (int kk = 0; kk < Tiles::BK; ++kk) {
+      float a[TM], b[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = xs[(ty + TY * i) * kXP + kk];
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        b[j] = kTransRhs ? ws[(tx + TX * j) * kWP + kk]
+                         : ws[kk * kWP + tx + TX * j];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  };
+  gemm_pipeline(nk, load, compute);
+
+  float* p = gridDim.z > 1 ? part + (size_t)blockIdx.z * M * N : out;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = m0 + ty + TY * i;
+    if (row >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int col = n0 + tx + TX * j;
+      if (col < N) p[(size_t)row * N + col] = acc[i][j];
+    }
+  }
+}
+
+// Split-K's second pass: C = epilogue(part[0] + part[1] + ... +
+// part[S-1]), summed in that fixed order (no atomics: the same inputs
+// give the same bits on every run).
+template <typename T, typename TOut>
+__global__ void __launch_bounds__(256)
+    gemm_splitk_reduce(const float* __restrict__ part, int splits,
+                       const float* __restrict__ sl,
+                       const float* __restrict__ sr, TOut* __restrict__ out,
+                       int M, int N) {
+  const size_t total = (size_t)M * N;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float v = part[i];
+    for (int z = 1; z < splits; ++z) v += part[(size_t)z * total + i];
+    const int row = static_cast<int>(i / N), col = static_cast<int>(i % N);
+    out[i] = gemm_epilogue<T, TOut>(v, sl, sr, row, col);
+  }
+}
+
+// Whether (tile, splits, cw) is a configuration the kernels take for
+// these operands (the rule fused_contraction.gemm_config follows); sets
+// k_slice, the elements of K each split walks.
+template <typename T>
+bool gemm_config_ok(int trans, int tile, int splits, int cw, const void* x,
+                    const void* w, const void* part, int M, int N, int K,
+                    int* k_slice) {
+  constexpr int kSize = sizeof(T);
+  if (tile < 0 || tile >= kGemmTiles) return false;
+  if (M <= 0 || N <= 0 || K < 0) return false;
+  if (cw != 1 && cw != 2 && cw != 4 && cw != 8 && cw != 16) return false;
+  if (reinterpret_cast<uintptr_t>(x) % cw ||
+      reinterpret_cast<uintptr_t>(w) % cw || ((size_t)K * kSize) % cw)
+    return false;
+  if (!trans && (((size_t)N * kSize) % cw || cw > kTileBN[tile] * kSize))
+    return false;
+  const int bk = kStageBytes / kSize;
+  const int steps = (K + bk - 1) / bk;
+  if (splits < 1 || splits > 65535) return false;
+  if (steps == 0) {
+    *k_slice = bk;
+    return splits == 1;
+  }
+  const int per = (steps + splits - 1) / splits;
+  if ((steps + per - 1) / per != splits) return false;  // no empty split
+  if (splits > 1 && part == nullptr) return false;
+  *k_slice = per * bk;
+  return true;
+}
+
+template <typename T, typename TOut, bool kTrans, int BM, int BN, int kWM,
+          int kWN>
+int launch_gemm_tile(const void* x, const void* w, const float* sl,
+                     const float* sr, void* out, float* part, int M, int N,
+                     int K, int splits, int k_slice, int cw,
+                     cudaStream_t stream) {
+  constexpr int kRing = gemm_smem_bytes(sizeof(T), kTrans, BM, BN);
+  static_assert(kRing <= kSmemLimit, "GEMM tile over the shared-memory budget");
+  static_assert(gemm_out_tile_bytes(BM, BN) <= kRing, "output tile over the ring");
+  // A slice of fewer stages than the ring uses only that many slots.
+  const int stages = (k_slice * static_cast<int>(sizeof(T)) + kStageBytes - 1) /
+                     kStageBytes;
+  int smem = kRing / kGemmStages * std::max(1, std::min(stages, kGemmStages));
+  if constexpr (!std::is_same<T, float>::value)  // the staged output tile
+    smem = std::max(smem, gemm_out_tile_bytes(BM, BN));
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
   const T* xp = static_cast<const T*>(x);
   const T* wp = static_cast<const T*>(w);
   TOut* op = static_cast<TOut*>(out);
-  if (trans)
-    gemm_kernel<T, TOut, true, kScaled><<<grid, kGemmThreads, 0, stream>>>(
-        xp, wp, sl, sr, op, M, N, K);
-  else
-    gemm_kernel<T, TOut, false, kScaled><<<grid, kGemmThreads, 0, stream>>>(
-        xp, wp, sl, sr, op, M, N, K);
+  static bool attr_set = false;
+  if constexpr (std::is_same<T, float>::value) {
+    auto kern = gemm_simt_kernel<kTrans, BM, BN>;
+    if (!attr_set) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kRing);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      attr_set = true;
+    }
+    kern<<<grid, kGemmThreads, smem, stream>>>(xp, wp, op, part, M, N, K,
+                                               k_slice, cw);
+  } else {
+    auto kern = gemm_tc_kernel<T, TOut, kTrans, BM, BN, kWM, kWN>;
+    if (!attr_set) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kRing);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      attr_set = true;
+    }
+    kern<<<grid, kGemmThreads, smem, stream>>>(xp, wp, sl, sr, op, part, M,
+                                               N, K, k_slice, cw);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const size_t total = (size_t)M * N;
+  const int blocks = static_cast<int>(
+      std::min<size_t>((total + 255) / 256, (size_t)132 * 8));
+  gemm_splitk_reduce<T, TOut>
+      <<<blocks, 256, 0, stream>>>(part, splits, sl, sr, op, M, N);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename TOut, bool kTrans>
+int launch_gemm_trans(int tile, const void* x, const void* w, const float* sl,
+                      const float* sr, void* out, float* part, int M, int N,
+                      int K, int splits, int k_slice, int cw,
+                      cudaStream_t s) {
+  switch (tile) {
+    case 0:
+      return launch_gemm_tile<T, TOut, kTrans, 128, 64, 2, 2>(
+          x, w, sl, sr, out, part, M, N, K, splits, k_slice, cw, s);
+    case 1:
+      return launch_gemm_tile<T, TOut, kTrans, 64, 64, 2, 2>(
+          x, w, sl, sr, out, part, M, N, K, splits, k_slice, cw, s);
+    case 2:
+      return launch_gemm_tile<T, TOut, kTrans, 128, 16, 4, 1>(
+          x, w, sl, sr, out, part, M, N, K, splits, k_slice, cw, s);
+    case 3:
+      return launch_gemm_tile<T, TOut, kTrans, 128, 8, 4, 1>(
+          x, w, sl, sr, out, part, M, N, K, splits, k_slice, cw, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T, typename TOut>
+int launch_gemm(int trans, int tile, int splits, int cw, const void* x,
+                const void* w, const float* sl, const float* sr, void* out,
+                void* part, int M, int N, int K, cudaStream_t s) {
+  int k_slice = 0;
+  if (!gemm_config_ok<T>(trans, tile, splits, cw, x, w, part, M, N, K,
+                         &k_slice))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* pp = static_cast<float*>(part);
+  if (trans)
+    return launch_gemm_trans<T, TOut, true>(tile, x, w, sl, sr, out, pp, M, N,
+                                            K, splits, k_slice, cw, s);
+  return launch_gemm_trans<T, TOut, false>(tile, x, w, sl, sr, out, pp, M, N,
+                                           K, splits, k_slice, cw, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -292,35 +946,70 @@ extern "C" {
 
 // dtype codes (shared with kernels/quantized.cu): 0 = float32,
 // 1 = bfloat16, 2 = fp8 e4m3, 3 = fp8 e5m2, 4 = int8.
+//
+// The GEMMs take the configuration fused_contraction.gemm_config chose:
+// tile (an index into kTileBM/kTileBN), splits (K slices, one block each
+// per output tile; above 1, part is an f32 workspace [splits, M, N]) and
+// cw (bytes per copy: 16, 8, 4 by cp.async, 2 or 1 by plain loads).  A
+// configuration the kernels do not take returns cudaErrorInvalidValue.
 int fc_matmul(int dtype, int trans, const void* x, const void* w, void* out,
-              int M, int N, int K, void* stream) {
+              void* part, int M, int N, int K, int tile, int splits, int cw,
+              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_gemm<float, float, false>(trans, x, w, nullptr, nullptr,
-                                            out, M, N, K, s);
+    return launch_gemm<float, float>(trans, tile, splits, cw, x, w, nullptr,
+                                     nullptr, out, part, M, N, K, s);
   if (dtype == 1)
-    return launch_gemm<__nv_bfloat16, __nv_bfloat16, false>(
-        trans, x, w, nullptr, nullptr, out, M, N, K, s);
+    return launch_gemm<__nv_bfloat16, __nv_bfloat16>(
+        trans, tile, splits, cw, x, w, nullptr, nullptr, out, part, M, N, K,
+        s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // C[M, N] = (Xq @ Wq) * sl[M] * sr[N] in f32; dtype 2, 3 or 4.
 int fc_matmul_scaled(int dtype, int trans, const void* x, const void* w,
-                     const void* sl, const void* sr, void* out, int M, int N,
-                     int K, void* stream) {
+                     const void* sl, const void* sr, void* out, void* part,
+                     int M, int N, int K, int tile, int splits, int cw,
+                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(sl);
   const float* r = static_cast<const float*>(sr);
   if (dtype == 2)
-    return launch_gemm<__nv_fp8_e4m3, float, true>(trans, x, w, l, r, out, M,
-                                                   N, K, s);
+    return launch_gemm<__nv_fp8_e4m3, float>(trans, tile, splits, cw, x, w, l,
+                                             r, out, part, M, N, K, s);
   if (dtype == 3)
-    return launch_gemm<__nv_fp8_e5m2, float, true>(trans, x, w, l, r, out, M,
-                                                   N, K, s);
+    return launch_gemm<__nv_fp8_e5m2, float>(trans, tile, splits, cw, x, w, l,
+                                             r, out, part, M, N, K, s);
   if (dtype == 4)
-    return launch_gemm<int8_t, float, true>(trans, x, w, l, r, out, M, N, K,
-                                            s);
+    return launch_gemm<int8_t, float>(trans, tile, splits, cw, x, w, l, r,
+                                      out, part, M, N, K, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The GEMM's shared memory per block for an operand of `size` bytes, or -1
+// for a tile the table does not have.
+int fc_gemm_smem_bytes(int size, int trans, int tile) {
+  if (tile < 0 || tile >= kGemmTiles) return -1;
+  return gemm_smem_bytes(size, trans != 0, kTileBM[tile], kTileBN[tile]);
+}
+
+// The elements of K each split walks under this configuration, or -1
+// where the kernels refuse it (pointers are only checked for alignment).
+int fc_gemm_k_slice(int dtype, int trans, int tile, int splits, int cw,
+                    const void* x, const void* w, int M, int N, int K) {
+  int k_slice = -1;
+  const void* part = reinterpret_cast<const void*>(uintptr_t{16});
+  bool ok = false;
+  if (dtype == 0)
+    ok = gemm_config_ok<float>(trans, tile, splits, cw, x, w, part, M, N, K,
+                               &k_slice);
+  else if (dtype == 1)
+    ok = gemm_config_ok<__nv_bfloat16>(trans, tile, splits, cw, x, w, part, M,
+                                       N, K, &k_slice);
+  else if (dtype >= 2 && dtype <= 4)
+    ok = gemm_config_ok<int8_t>(trans, tile, splits, cw, x, w, part, M, N, K,
+                                &k_slice);
+  return ok ? k_slice : -1;
 }
 
 static bool chain_args_ok(int links, int band, int threads) {

@@ -7,11 +7,19 @@ the H100 and how the design answers it):
 
 * :func:`matmul_cuda` replaces ``matmul_pallas`` (``_matmul_kernel``):
   ``C[M, N] = X[M, K] @ W`` with W stored ``[K, N]`` or ``[N, K]``; the
-  ``[N, K]`` tile is transposed in shared memory, never in device memory.
-  With ``scales=(sl, sr)`` it replaces ``matmul_pallas(scales=...)``
-  (``_matmul_scaled_kernel``): fp8/int8 operands, f32
-  ``C = (Xq @ Wq) * sl[M, 1] * sr[1, N]``, the scales applied in the
-  epilogue.
+  layout is reordered between shared memory and registers, never in
+  device memory.  With ``scales=(sl, sr)`` it replaces
+  ``matmul_pallas(scales=...)`` (``_matmul_scaled_kernel``): fp8/int8
+  operands, f32 ``C = (Xq @ Wq) * sl[M, 1] * sr[1, N]``, the scales
+  applied in the epilogue.  Every main-path geometry is bound by bytes;
+  bf16, fp8 (widened exactly to f16) and int8 run on the tensor cores
+  (``mma.sync``) and f32 on the FMA units, all fed by a ring of
+  ``cp.async`` copies, with K split across blocks where the output tiles
+  cannot fill the card and the slices summed in a fixed order (so a
+  call's bits never vary).  The fp8 tensor-core sums are promoted into
+  f32 registers every 64 elements of K.  :func:`gemm_config` is the one
+  rule for tile, split and copy width that the wrapper, the kernel's
+  check and the tests share.
 * :func:`chain_n_cuda` replaces ``chain_n_pallas`` (``_chain_n_kernel``):
   an N-link contraction chain whose intermediates stay in shared memory,
   with the row-major regroup ``[r, n_i] -> [r/g, g*n_i]`` between links
@@ -37,6 +45,8 @@ TPU VMEM.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -49,17 +59,31 @@ CHAIN_SMEM_BUDGET_BYTES = 232_448
 MAX_CHAIN_LINKS = 8
 #: largest band of final rows one chain block owns
 MAX_BAND_ROWS = 128
-#: SMs of one H100: the chain wrapper sizes bands to give each one a block
+#: SMs of one H100: the chain wrapper sizes bands to give each one a
+#: block, the GEMM splits K until its blocks cover them
 _NUM_SMS = 132
+#: the GEMM's output tiles (BM, BN), indexed as ``kTileBM``/``kTileBN`` in
+#: ``csrc/fused_contraction.cu``: 128x64 for large outputs, 64x64 where
+#: 128x64 tiles would not cover the SMs, 128x16 for N <= 16, 128x8 for
+#: N <= 8 (the ``m16n8`` atom's width)
+GEMM_TILES = ((128, 64), (64, 64), (128, 16), (128, 8))
+#: depth of the GEMM's cp.async ring and the bytes of K a stage holds
+GEMM_STAGES, GEMM_STAGE_BYTES = 4, 64
+#: stages of K a split walks at least (the ring's depth)
+GEMM_MIN_SPLIT_STEPS = 4
 _THREADS = 256
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 #: (``flash_attention_fwd`` is counted by :mod:`.flash_attention`,
 #: ``quantize`` / ``dequantize`` by :mod:`.quantized`, ``linear_scan`` by
-#: :mod:`.ssm_scan`)
+#: :mod:`.ssm_scan`).  A split-K GEMM call launches two kernels: the tile
+#: kernel, counted under ``matmul`` / ``matmul_scaled``, and
+#: ``gemm_splitk_reduce``, counted under ``matmul_reduce`` /
+#: ``matmul_scaled_reduce``.
 LAUNCHES = {"matmul": 0, "chain_n": 0, "flash_attention_fwd": 0,
             "matmul_scaled": 0, "chain_n_scaled": 0, "quantize": 0,
-            "dequantize": 0, "linear_scan": 0}
+            "dequantize": 0, "linear_scan": 0, "matmul_reduce": 0,
+            "matmul_scaled_reduce": 0}
 
 #: operand dtype codes of the CUDA sources (``csrc/*.cu``)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -150,6 +174,114 @@ def chain_band_rows(m0: int, shapes) -> int:
     return band
 
 
+class GemmConfig(NamedTuple):
+    """How the GEMM kernel runs one call (:func:`gemm_config`)."""
+    tile: int          #: index into :data:`GEMM_TILES`
+    bm: int
+    bn: int
+    splits: int        #: K slices, one block each per output tile
+    k_slice: int       #: elements of K a slice holds (whole stages)
+    copy_bytes: int    #: bytes per copy: 16, 8, 4 (cp.async), 2 or 1
+    tensor_cores: bool
+    smem_bytes: int
+
+
+def _gemm_pitch(row_bytes: int) -> int:
+    """Shared-memory row pitch: an odd number of 16-byte units."""
+    return 16 * (-(-row_bytes // 16) | 1)
+
+
+def gemm_smem_bytes(itemsize: int, transpose_rhs: bool, tile: int) -> int:
+    """Dynamic shared memory of one GEMM block: the ring's stages of the
+    X tile ``[BM, stage]`` and the W tile (``[BN, stage]`` for ``[N, K]``,
+    ``[stage / itemsize, BN]`` for ``[K, N]``).  Mirrors
+    ``gemm_smem_bytes`` in the CUDA source."""
+    bm, bn = GEMM_TILES[tile]
+    x = bm * _gemm_pitch(GEMM_STAGE_BYTES)
+    w = (bn * _gemm_pitch(GEMM_STAGE_BYTES) if transpose_rhs
+         else GEMM_STAGE_BYTES // itemsize * _gemm_pitch(bn * itemsize))
+    return GEMM_STAGES * (x + w)
+
+
+@functools.lru_cache(maxsize=4096)   # called on every launch
+def gemm_config(m: int, n: int, k: int, dtype: torch.dtype,
+                transpose_rhs: bool, alignment: int = 16) -> GemmConfig:
+    """The GEMM's tile, K split and copy width for ``[m, k] @ W``.
+
+    * Splits: where the tiles do not cover the 132 SMs, K is cut into
+      slices of whole stages (64 bytes of K each) so the blocks come to
+      at most ``2 * 132``, each slice walking at least
+      :data:`GEMM_MIN_SPLIT_STEPS` stages, and no slice is empty.
+    * Tile: 128x8 for ``n <= 8``, 128x16 for ``n <= 16``, else 128x64
+      where ``m > 64`` and its blocks, split, cover the SMs, and 64x64
+      otherwise (twice the blocks for a short K or a small output).
+    * Copy width: the widest of 16, 8, 4, 2, 1 bytes that divides
+      ``alignment`` (the operands' base addresses), both operands' row
+      pitches and, for a ``[K, N]`` W, its tile's row.
+
+    The CUDA side refuses (``cudaErrorInvalidValue``) what breaks these
+    rules; :func:`matmul_cuda` then raises."""
+    size = dtype.itemsize
+
+    steps = -(-k // (GEMM_STAGE_BYTES // size))
+
+    def tiles(t):
+        bm, bn = GEMM_TILES[t]
+        return -(-m // bm) * -(-n // bn)
+
+    def splits_for(t):
+        if tiles(t) >= _NUM_SMS:
+            return 1
+        return max(1, min(2 * _NUM_SMS // tiles(t),
+                          steps // GEMM_MIN_SPLIT_STEPS))
+
+    if n <= 8:
+        tile = 3
+    elif n <= 16:
+        tile = 2
+    elif m > 64 and tiles(0) * splits_for(0) >= _NUM_SMS:
+        tile = 0
+    else:
+        tile = 1
+    bm, bn = GEMM_TILES[tile]
+    splits = splits_for(tile)
+    per = -(-steps // splits) if steps else 1
+    if steps:
+        splits = -(-steps // per)
+    pitches = [k * size] if transpose_rhs else [k * size, n * size]
+    copy = 16
+    while copy > 1 and (alignment % copy or any(p % copy for p in pitches)
+                        or (not transpose_rhs and copy > bn * size)):
+        copy //= 2
+    return GemmConfig(tile=tile, bm=bm, bn=bn, splits=splits,
+                      k_slice=per * GEMM_STAGE_BYTES // size,
+                      copy_bytes=copy, tensor_cores=dtype != torch.float32,
+                      smem_bytes=gemm_smem_bytes(size, transpose_rhs, tile))
+
+
+def _alignment(*tensors: torch.Tensor) -> int:
+    """The largest power of two up to 16 dividing every base address."""
+    a = 16
+    for t in tensors:
+        while t.data_ptr() % a:
+            a //= 2
+    return a
+
+
+def gemm_config_for(x: torch.Tensor, w: torch.Tensor,
+                    transpose_rhs: bool = False) -> GemmConfig:
+    """:func:`gemm_config` for these operands (their shapes, dtype and
+    base addresses): what :func:`matmul_cuda` launches with."""
+    m, k = x.shape
+    n = w.shape[0] if transpose_rhs else w.shape[1]
+    return gemm_config(m, n, k, x.dtype, transpose_rhs,
+                       _alignment(x, w))
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
 def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
@@ -159,15 +291,21 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("fused_contraction")
     if not getattr(lib, "_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.fc_matmul.argtypes = [ci, ci, vp, vp, vp, ci, ci, ci, vp]
+        lib.fc_matmul.argtypes = [ci, ci, vp, vp, vp, vp, ci, ci, ci, ci,
+                                  ci, ci, vp]
         lib.fc_matmul.restype = ci
         lib.fc_chain.argtypes = [ci, vp, ctypes.POINTER(vp),
                                  ctypes.POINTER(ci), ctypes.POINTER(ci),
                                  ctypes.POINTER(ci), ci, ci, ci, ci, vp, vp]
         lib.fc_chain.restype = ci
-        lib.fc_matmul_scaled.argtypes = [ci, ci, vp, vp, vp, vp, vp, ci, ci,
-                                         ci, vp]
+        lib.fc_matmul_scaled.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, ci,
+                                         ci, ci, ci, ci, ci, vp]
         lib.fc_matmul_scaled.restype = ci
+        lib.fc_gemm_smem_bytes.argtypes = [ci, ci, ci]
+        lib.fc_gemm_smem_bytes.restype = ci
+        lib.fc_gemm_k_slice.argtypes = [ci, ci, ci, ci, ci, vp, vp, ci, ci,
+                                        ci]
+        lib.fc_gemm_k_slice.restype = ci
         lib.fc_chain_scaled.argtypes = [ci, vp, ctypes.POINTER(vp),
                                         ctypes.POINTER(vp),
                                         ctypes.POINTER(ci), ctypes.POINTER(ci),
@@ -279,20 +417,28 @@ def matmul_cuda(x: torch.Tensor, w: torch.Tensor, *,
                       dtype=x.dtype if scales is None else torch.float32)
     if m == 0 or n == 0:
         return out
+    cfg = gemm_config_for(x, w, transpose_rhs)
+    # split-K's partials, on the caller's stream (no buffer outlives the
+    # call, so a CUDA graph can capture it)
+    part = (torch.empty((cfg.splits, m, n), device=x.device,
+                        dtype=torch.float32) if cfg.splits > 1 else None)
+    geo = (m, n, k, cfg.tile, cfg.splits, cfg.copy_bytes, _stream())
     lib = _lib()
     if scales is None:
         rc = lib.fc_matmul(_DTYPE_CODES[x.dtype], int(transpose_rhs),
-                           x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n,
-                           k, _stream())
+                           x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                           _ptr(part), *geo)
         key = "matmul"
     else:
         rc = lib.fc_matmul_scaled(_QUANT_CODES[x.dtype], int(transpose_rhs),
                                   x.data_ptr(), w.data_ptr(),
                                   scales[0].data_ptr(), scales[1].data_ptr(),
-                                  out.data_ptr(), m, n, k, _stream())
+                                  out.data_ptr(), _ptr(part), *geo)
         key = "matmul_scaled"
     _check_rc(lib, rc, "matmul_cuda")
     LAUNCHES[key] += 1
+    if part is not None:
+        LAUNCHES[key + "_reduce"] += 1
     return out
 
 

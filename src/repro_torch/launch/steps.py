@@ -24,11 +24,13 @@ from repro_torch.optim.adamw import AdamW
 
 def build_model(arch: ArchConfig, tnn: TNNConfig | None = None,
                 smoke: bool = False, *, device="cuda", seed: int = 0,
-                backend: str | None = None, compute_dtype=None):
+                backend: str | None = None, compute_dtype=None,
+                num_layers: int | None = None):
     """``(model, cfg)`` for ``arch``: its published config (or the smoke
     one), random weights from ``seed`` on ``device``.  ``backend``
-    overrides the TNN executor (``einsum`` | ``cuda`` | ``pallas``) and
-    ``compute_dtype`` the model's compute dtype."""
+    overrides the TNN executor (``einsum`` | ``cuda`` | ``pallas``),
+    ``compute_dtype`` the model's compute dtype and ``num_layers`` its
+    depth."""
     if arch.model_kind != "lm":
         raise NotImplementedError(f"model kind {arch.model_kind!r} is not "
                                   "ported yet (ROADMAP.md, queue A)")
@@ -38,6 +40,8 @@ def build_model(arch: ArchConfig, tnn: TNNConfig | None = None,
             cfg, tnn=dataclasses.replace(cfg.tnn, backend=backend))
     if compute_dtype is not None:
         cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
+    if num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
     if (cfg.tnn.enabled and cfg.tnn.stash_policy().mode == "recompute"
             and not cfg.remat):
         # The recompute stash is realised at the model level: per-layer

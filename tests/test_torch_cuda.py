@@ -392,3 +392,162 @@ def test_cuda_scan_footprint_rule_matches_the_kernel(cuda_device):
         rows = sk.scan_tile_rows(chunk, dk, dv)
         assert lib.ss_smem_bytes(chunk, dk, dv, rows) == \
             sk.scan_smem_bytes(chunk, dk, dv, rows) <= 232_448
+
+
+GEMM_DTYPES = [torch.float32, torch.bfloat16] + QUANT
+
+
+def _gemm_case(device, dtype, m, n, k, trans, seed, x_offset=0):
+    """X, W (and, for a quantized dtype, the scales) on the card, with X
+    ``x_offset`` elements into its storage; the call and its plain twin."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    xs = torch.randn(m * k + x_offset, generator=gen, device=device)
+    w = torch.randn((n, k) if trans else (k, n), generator=gen, device=device)
+    if isinstance(dtype, str):
+        pol = QuantPolicy.parse(dtype)
+        qx, qw = quant.quantize(xs, pol), quant.quantize(w, pol)
+        x = qx.q[x_offset:].view(m, k)
+        sl = qx.scale * (torch.rand(m, 1, generator=gen, device=device) + .5)
+        sr = qw.scale * (torch.rand(1, n, generator=gen, device=device) + .5)
+        kw = dict(transpose_rhs=trans, scales=(sl, sr))
+        return (x, qw.q, kw,
+                lambda: ref.matmul_scaled(x, qw.q, sl, sr,
+                                          transpose_rhs=trans))
+    x = xs.to(dtype)[x_offset:].view(m, k)
+    w = w.to(dtype)
+    return (x, w, dict(transpose_rhs=trans),
+            lambda: ref.matmul(x, w, transpose_rhs=trans))
+
+
+def _gemm_tol(dtype, scale):
+    """The kernel gates: one bf16 ulp of the scale in bf16 (one rounding
+    of an f32 sum), 1e-5 of it in f32 and for the scaled kinds (f32 sums
+    of exact products, in another order)."""
+    return _bf16_ulp(scale) if dtype == torch.bfloat16 else 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", GEMM_DTYPES, ids=str)
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("m,n,k,split", [
+    (12, 64, 1, False),          # an outer product
+    (100, 8, 8, False),          # N = 8, ragged M
+    (12, 40, 12, False),         # M = 12, K = 12: rows 24 (bf16) / 12 bytes
+    (200, 72, 112, False),       # ragged M, N and last stage
+    (130, 20, 1000, True),       # ragged everything, split
+    (768, 8, 3072, True),        # the ATIS WG product
+    (64, 1024, 14336, True),     # rwkv6's longest K
+])
+def test_cuda_gemm_matches_plain_version_in_every_config(
+        cuda_device, dtype, trans, m, n, k, split):
+    """Both GEMM kernels (tensor cores for bf16/fp8/int8, FMA for f32)
+    against ``ref.matmul`` / ``ref.matmul_scaled`` in both W layouts,
+    split-K and not, at the existing gates."""
+    x, w, kw, plain = _gemm_case(cuda_device, dtype, m, n, k, trans,
+                                 m + n + k)
+    cfg = fc.gemm_config_for(x, w, trans)
+    assert (cfg.splits > 1) == split, cfg
+    key = "matmul" if isinstance(dtype, torch.dtype) else "matmul_scaled"
+    before = dict(fc.LAUNCHES)
+    got = fc.matmul_cuda(x, w, **kw)
+    want = plain()
+    torch.cuda.synchronize()
+    assert fc.LAUNCHES[key] == before[key] + 1
+    assert (fc.LAUNCHES[key + "_reduce"]
+            == before[key + "_reduce"] + int(split))
+    assert got.dtype == want.dtype and got.shape == (m, n)
+    scale = float(want.float().abs().max())
+    assert _max_err(got, want) <= _gemm_tol(dtype, scale), cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, "fp8_e4m3", "int8",
+                                   torch.float32], ids=str)
+@pytest.mark.parametrize("offset", [1, 12])
+def test_cuda_gemm_reads_misaligned_views(cuda_device, dtype, offset):
+    """X a row-offset view (``offset`` elements into its storage, K = 12):
+    the wrapper narrows the copies to what the base address allows."""
+    m, n, k = 96, 8, 12
+    x, w, kw, plain = _gemm_case(cuda_device, dtype, m, n, k, False, 7,
+                                 x_offset=offset)
+    cfg = fc.gemm_config_for(x, w, False)
+    size, want_copy = x.element_size(), 16
+    while any(b % want_copy for b in (offset * size, k * size, n * size)):
+        want_copy //= 2
+    assert cfg.copy_bytes == want_copy
+    got = fc.matmul_cuda(x, w, **kw)
+    want = plain()
+    scale = float(want.float().abs().max())
+    assert _max_err(got, want) <= _gemm_tol(dtype, scale), cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,m,n,k,trans", [
+    (torch.bfloat16, 64, 1024, 14336, True),
+    ("fp8_e4m3", 1024, 8, 3072, True),
+    ("int8", 768, 8, 3072, False),
+    (torch.float32, 1024, 64, 14336, False),
+], ids=str)
+def test_cuda_gemm_split_k_is_deterministic(cuda_device, dtype, m, n, k,
+                                            trans):
+    """Two calls on the same inputs give the same bits (the split slices
+    are summed in a fixed order, without atomics)."""
+    x, w, kw, _ = _gemm_case(cuda_device, dtype, m, n, k, trans, 11)
+    assert fc.gemm_config_for(x, w, trans).splits > 1
+    a = fc.matmul_cuda(x, w, **kw)
+    b = fc.matmul_cuda(x, w, **kw)
+    assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,m,n,k,trans", [
+    ("fp8_e4m3", 1024, 8, 3072, True),     # the longest fp8 K
+    ("fp8_e5m2", 1024, 8, 3072, True),
+    (torch.bfloat16, 64, 1024, 14336, True),   # the longest bf16 K
+], ids=str)
+def test_cuda_gemm_error_at_the_longest_k(cuda_device, dtype, m, n, k,
+                                          trans):
+    """The tensor cores' sums stay within the gates at the main paths'
+    longest K: fp8's promoted into f32 every stage (1e-5 of the scale),
+    bf16's within one bf16 ulp of it."""
+    x, w, kw, plain = _gemm_case(cuda_device, dtype, m, n, k, trans, 13)
+    got, want = fc.matmul_cuda(x, w, **kw), plain()
+    scale = float(want.float().abs().max())
+    assert _max_err(got, want) <= _gemm_tol(dtype, scale)
+
+
+@pytest.mark.cuda
+def test_cuda_gemm_config_rule_matches_the_kernel(cuda_device,
+                                                  monkeypatch):
+    """The kernel's check takes every configuration ``gemm_config``
+    picks, with the same K slice and shared memory, and refuses one it
+    cannot run; the wrapper then raises and counts no launch."""
+    lib = fc._lib()
+    codes = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2,
+             torch.int8: 4}
+    for dtype, code in codes.items():
+        for trans in (False, True):
+            for tile in range(len(fc.GEMM_TILES)):
+                assert lib.fc_gemm_smem_bytes(dtype.itemsize, int(trans),
+                                              tile) == \
+                    fc.gemm_smem_bytes(dtype.itemsize, trans, tile)
+            for m, n, k in ((768, 8, 3072), (12, 40, 12), (1024, 14336, 64),
+                            (64, 64, 4096), (2048, 12, 8), (12, 64, 1)):
+                for align in (16, 8, 4, 2, 1):
+                    cfg = fc.gemm_config(m, n, k, dtype, trans, align)
+                    ptr = 1 << 20 | align
+                    assert lib.fc_gemm_k_slice(
+                        code, int(trans), cfg.tile, cfg.splits,
+                        cfg.copy_bytes, ptr, 1 << 20, m, n, k) == \
+                        cfg.k_slice, (dtype, trans, m, n, k, align, cfg)
+    # a 16-byte copy from an address 2 bytes in: refused
+    assert lib.fc_gemm_k_slice(1, 0, 1, 1, 16, (1 << 20) + 2, 1 << 20, 64,
+                               64, 64) == -1
+    x = torch.zeros(64, 64, device=cuda_device, dtype=torch.bfloat16)
+    bad = fc.gemm_config(64, 64, 64, torch.bfloat16, False)._replace(
+        splits=3)      # 2 stages of K cannot make 3 slices
+    monkeypatch.setattr(fc, "gemm_config_for", lambda *a: bad)
+    before = fc.LAUNCHES["matmul"]
+    with pytest.raises(RuntimeError, match="matmul_cuda launch failed"):
+        fc.matmul_cuda(x, x)
+    assert fc.LAUNCHES["matmul"] == before

@@ -441,6 +441,15 @@ def test_recompute_stash_turns_on_remat():
     assert cfg.remat and not arch.smoke(tnn).remat
 
 
+def test_build_model_cuts_depth_only():
+    arch = tbase.get("rwkv6_7b")
+    model, cfg = steps.build_model(arch, tnn=arch.tnn_default, device="meta",
+                                   num_layers=2)
+    full = arch.model(arch.tnn_default)
+    assert len(model.layers) == cfg.num_layers == 2
+    assert dataclasses.replace(cfg, num_layers=full.num_layers) == full
+
+
 def test_unported_blocks_raise_with_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="item 6"):
         LMConfig(name="m", num_layers=1, d_model=8, num_heads=1,
