@@ -23,8 +23,9 @@ and failing the script when it fails:
    yardstick, beside the least time the card could take.  Each GEMM line
    carries the configuration ``gemm_config`` chose (tile, K splits, copy
    width, tensor cores or not).
-3. ``kernel:flash_attention_fwd`` — the attention kernel against its
-   plain version (out and lse) in bf16 and f32, both stepping over the
+3. ``kernel:flash_attention_fwd`` — the attention kernels against their
+   plain version (out and lse) in bf16 (the tensor-core kernel) and f32
+   (the SIMT one; each record names its kernel), both stepping over the
    same kv chunk: at the training shape and the model's chunks, at T 1024
    causal (4 chunks) and not (1 chunk of 1024), and at a GQA shape (G 4,
    D 128, 4 chunks); its time beside the plain version's,
@@ -79,7 +80,12 @@ and failing the script when it fails:
    64, ``rwkv6`` mode), at ``zamba2_7b``'s ``ssd`` shape (BH 512, T 128,
    dk 64, dv 112) with the reference test's log-decay, and chunk 64
    against chunk 128 (chunk boundaries invisible); timed in bf16 beside
-   the plain twin and the bound.  Then the GEMM and chain kernels at
+   the plain twin and the bound.  Then the overflow check: zamba2's
+   shape with the ``ssd`` log-decay one scalar per token, broadcast over
+   dk (Mamba-2's form), at -0.7 a token, where the reference's
+   factorization overflows f32: kernel and twin finite, the kernel within
+   the f32 and bf16 gates of the twin and of the sequential oracle, and
+   its time.  Then the GEMM and chain kernels at
    every geometry of ``rwkv6_7b``'s FP/BP/WG plans (``cm_k``/``cm_v``,
    TT rank 64), as in phase 2.
 12. ``train_rwkv6`` — ``rwkv6_7b`` at full width and depth (32 layers,
@@ -710,6 +716,7 @@ def flash_phase(torch, fa, ref, cfg, totals) -> None:
             ok = err <= tol and lse_err <= 1e-5 * lse_scale
             rec = {"B": B, "T": T, "H": H, "KV": KV, "D": D,
                    "causal": causal, **chunks, "dtype": dname,
+                   "kernel": fa.kernel_for(q, k, v),
                    "max_abs_err": err,
                    "max_rel_err": err / max(scale, 1e-30), "scale": scale,
                    "tol": tol, "lse_max_rel_err": lse_err / lse_scale}
@@ -753,6 +760,7 @@ def flash_phase(torch, fa, ref, cfg, totals) -> None:
 
     rec = {"check": "rounding_probe", "B": B, "T": T, "H": H, "D": D,
            "kv_chunk": kc, "dtype": "bfloat16",
+           "kernel": fa.kernel_for(q, k, v),
            "max_elem_ulps": ulps(out).max().item(),
            "unrounded_min_elem_ulps": ulps(unrounded).min().item(),
            "half_chunk_min_elem_ulps_peak_last":
@@ -778,13 +786,20 @@ def scan_cases(cfg, ssm) -> list[tuple]:
     return sorted(train) + [("zamba2_ssd", "ssd", *SSD_SHAPE)]
 
 
-def scan_bound(bh, t, dk, dv, chunk, mode, dtype) -> tuple[float, str]:
-    """Bytes: q, k, v, log-decay (and u) in, o and the final state out,
-    once each.  Operations: per chunk the two causal C x C products (att
-    and att v) and the two C x dk x dv products (q_t S and the state
-    update), at the operand type's peak."""
+def scan_bound(bh, t, dk, dv, chunk, mode, dtype, *,
+               scalar_decay=False) -> tuple[float, str]:
+    """Bytes: q, k, v, log-decay (one f32 per channel, or per token for a
+    decay broadcast over dk) and u in, o and the final state out, once
+    each.  Operations: per chunk the two causal C x C products (att and
+    att v) and the two C x dk x dv products (q_t S and the state update),
+    at the operand type's peak, which for bf16 is the tensor cores'
+    rate.  So the bound assumes tensor cores: the products are f32 (q_t =
+    q * exp(ex) is no bf16 value), and at the f32 FMA rate alone (67
+    TFLOP/s) rwkv6's 2.156 GFLOP would take 32 us, above its bytes'
+    17.6 us."""
     size = dtype.itemsize
-    nbytes = (bh * t * (2 * dk + 2 * dv) * size + bh * t * dk * 4
+    nbytes = (bh * t * (2 * dk + 2 * dv) * size
+              + bh * t * (1 if scalar_decay else dk) * 4
               + (bh * dk * 4 if mode == "rwkv6" else 0) + bh * dk * dv * 4)
     tri = chunk * (chunk + 1) // 2
     flops = bh * (t // chunk) * 2 * (tri * (dk + dv) + 2 * chunk * dk * dv)
@@ -834,9 +849,10 @@ def scan_phase(torch, sk, ref, ssm, cfg, totals) -> None:
             ok = err <= tol and st_err <= 1e-5 * st_scale
             rec = {"path": path, "mode": mode, "BH": bh, "T": t, "dk": dk,
                    "dv": dv, "chunk": chunk, "dtype": dname,
-                   "tile_rows": sk.scan_tile_rows(chunk, dk, dv),
-                   "smem_bytes": sk.scan_smem_bytes(
-                       chunk, dk, dv, sk.scan_tile_rows(chunk, dk, dv)),
+                   "smem_bytes": sk.scan_smem_bytes(chunk, dk, dv,
+                                                    dtype.itemsize),
+                   "blocks_per_sm": sk.blocks_per_sm(chunk, dk, dv, dtype,
+                                                     mode),
                    "max_abs_err": err, "max_rel_err": err / max(scale, 1e-30),
                    "scale": scale, "tol": tol,
                    "state_max_rel_err": st_err / max(st_scale, 1e-30),
@@ -884,6 +900,70 @@ def scan_phase(torch, sk, ref, ssm, cfg, totals) -> None:
     emit("kernel:linear_scan", ok=ok, **rec)
     if not ok:
         raise AssertionError(f"scan kernel fails chunk continuity: {rec}")
+    scan_overflow_check(torch, sk, ref, gen)
+
+
+def scan_overflow_check(torch, sk, ref, gen) -> None:
+    """zamba2's ssd shape with the log-decay one scalar per token,
+    broadcast over dk (an expanded view, Mamba-2's form), at -0.7 a token:
+    a chunk's lc reaches -89.6, where the factored form's exp(-lc)
+    overflows f32 (as the reference does on this input).  The kernel
+    takes the exp(lc_i - lc_j) form: it and the twin must be finite, and
+    the kernel within the f32 / bf16 gates of the twin and of the
+    sequential oracle, output and final state; timed in bf16."""
+    bh, t, dk, dv, chunk = SSD_SHAPE
+    ld = torch.full((bh, t, 1), -0.7, device=DEVICE).expand(bh, t, dk)
+    base = [torch.randn(s, generator=gen, device=DEVICE)
+            for s in ((bh, t, dk), (bh, t, dk), (bh, t, dv))]
+    factored, _ = ref.chunked_linear_scan(*base, ld.contiguous(),
+                                          mode="ssd", chunk=chunk)
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        q, k, v = (x.to(dtype) for x in base)
+
+        def kernel():
+            return sk.linear_scan_cuda(q, k, v, ld, mode="ssd", chunk=chunk)
+
+        o, st = kernel()
+        wo, wst = ref.chunked_linear_scan(q, k, v, ld, mode="ssd",
+                                          chunk=chunk)
+        oo, ost = ref.linear_scan_batched(q, k, v, ld, mode="ssd",
+                                          out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        rec = {"check": "ssd_broadcast_overflow", "mode": "ssd",
+               "log_decay_per_token": -0.7, "BH": bh, "T": t, "dk": dk,
+               "dv": dv, "chunk": chunk, "dtype": dname,
+               "factored_form_finite": bool(torch.isfinite(factored).all()),
+               "kernel_finite": bool(torch.isfinite(o).all()
+                                     and torch.isfinite(st).all()),
+               "twin_finite": bool(torch.isfinite(wo).all()
+                                   and torch.isfinite(wst).all())}
+        # The input must reach the overflow the form repairs.
+        ok = (rec["kernel_finite"] and rec["twin_finite"]
+              and not rec["factored_form_finite"])
+        for name, want, want_st in (("twin", wo, wst), ("oracle", oo, ost)):
+            scale = want.float().abs().max().item()
+            err = (o.float() - want.float()).abs().max().item()
+            st_scale = want_st.abs().max().item()
+            st_err = (st - want_st).abs().max().item()
+            tol = (1e-5 * scale if dtype == torch.float32
+                   else bf16_ulp(scale))
+            rec.update({f"max_abs_err_vs_{name}": err, f"scale_{name}": scale,
+                        f"tol_vs_{name}": tol,
+                        f"state_max_rel_err_vs_{name}":
+                            st_err / max(st_scale, 1e-30)})
+            ok = ok and err <= tol and st_err <= 1e-5 * st_scale
+        rec["state_tol_rel"] = 1e-5
+        if not ok:
+            emit("kernel:linear_scan", ok=False, **rec)
+            raise AssertionError(f"scan kernel fails the overflow check: "
+                                 f"{rec}")
+        if dtype == torch.bfloat16:
+            b, by = scan_bound(bh, t, dk, dv, chunk, "ssd", dtype,
+                               scalar_decay=True)
+            rec.update(ms=device_ms(torch, kernel, inner=10, reps=15),
+                       bound_ms=b, bound_by=by)
+        emit("kernel:linear_scan", ok=True, **rec)
 
 
 def train_rwkv6_phase(torch, fc, plan_compiler, train_cli, cfg,

@@ -58,8 +58,8 @@ GROUPS = (("dequantize_kernel", "dequantize"),
           ("chain_kernel<__nv_fp8", "chain_n_scaled"),
           ("chain_kernel<signed char", "chain_n_scaled"),
           ("chain_kernel", "chain_n"),
-          ("flash_fwd_kernel", "flash_attention_fwd"),
-          ("scan_kernel", "linear_scan"),
+          ("flash_fwd", "flash_attention_fwd"),
+          ("scan_tc_kernel", "linear_scan"),
           ("gemm", "torch_gemm"))
 #: profiler ranges the training path opens around its phases
 PHASES = ("tnn.fp", "tnn.bp", "tnn.wg", "attn.fwd", "attn.bwd", "ssm.scan",

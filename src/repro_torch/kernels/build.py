@@ -4,8 +4,9 @@ Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded with :mod:`ctypes`; nothing includes
 PyTorch's headers, so a build takes seconds.  The build happens at first
 use, into ``build/repro_torch/<name>-<hash>.so`` at the repository root,
-keyed by a hash of the source and the flags, so an edited source always
-rebuilds and an unchanged one never does.  :func:`build_all` starts one
+keyed by a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source or header always rebuilds and an
+unchanged one never does.  :func:`build_all` starts one
 ``nvcc`` per source at once.  A failed build raises; nothing falls back.
 """
 
@@ -50,8 +51,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

@@ -1,12 +1,16 @@
 """Hand-written CUDA flash-attention forward: the wrapper.
 
-Port of ``src/repro/kernels/flash_attention.py``.  One kernel, CUDA C++
-for ``sm_90a`` in ``csrc/flash_attention.cu`` (its header says what bounds
-it on the H100 and how the design answers it):
+Port of ``src/repro/kernels/flash_attention.py``.  CUDA C++ for
+``sm_90a`` in ``csrc/flash_attention.cu`` (its header says what bounds it
+on the H100 and how the design answers it):
 
 * :func:`flash_attention_fwd` replaces the Pallas ``flash_attention_fwd``
   (``_flash_kernel``): GQA attention with an online softmax, returning
   ``out [B, Tq, H, D]`` in q's dtype and ``lse [B, Tq, KV, G]`` in f32.
+  It launches one of two kernels (:func:`kernel_for`): bf16 with a head
+  dim that is a multiple of 8 runs ``flash_fwd_tc_kernel`` on the tensor
+  cores; f32, and any other head dim, ``flash_fwd_kernel`` (SIMT: TF32
+  tensor cores would miss the f32 gate).
 
 :func:`rounding_probe` builds bf16 inputs on which the reference's
 rounding of ``p`` to v's dtype moves the outputs by many ulps, so a check
@@ -44,6 +48,7 @@ MAX_HEAD_DIM = 128
 MAX_KV_CHUNK = 1024
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNELS = {"simt": 0, "tensor_cores": 1}
 
 
 class AttentionLoweringError(ValueError):
@@ -55,8 +60,8 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     if not getattr(lib, "_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.fa_forward.argtypes = [ci, vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                                   ci, ci, ci, ctypes.c_float, ci, vp]
+        lib.fa_forward.argtypes = [ci, ci, vp, vp, vp, vp, vp, ci, ci, ci,
+                                   ci, ci, ci, ci, ctypes.c_float, ci, vp]
         lib.fa_forward.restype = ci
         lib.fa_max_head_dim.restype = ci
         lib.fa_max_kv_chunk.restype = ci
@@ -101,6 +106,16 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return kc
 
 
+def kernel_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """Which kernel a launch on these operands runs: ``"tensor_cores"``
+    for bf16 with a head dim that is a multiple of 8 and 16-byte aligned
+    operands, else ``"simt"``."""
+    if q.dtype == torch.bfloat16 and q.shape[-1] % 8 == 0 and all(
+            t.data_ptr() % 16 == 0 for t in (q, k, v)):
+        return "tensor_cores"
+    return "simt"
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, q_chunk: int = 512,
                         kv_chunk: int = 512,
@@ -139,9 +154,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if Tk == 0:
         raise AttentionLoweringError("attention over zero keys")
     lib = _lib()
-    rc = lib.fa_forward(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
-                        v.data_ptr(), out.data_ptr(), lse.data_ptr(), B, Tq,
-                        Tk, H, KV, D, kc, float(scale), int(causal),
+    rc = lib.fa_forward(_DTYPE_CODES[q.dtype], _KERNELS[kernel_for(q, k, v)],
+                        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), lse.data_ptr(), B, Tq, Tk, H, KV, D,
+                        kc, float(scale), int(causal),
                         ctypes.c_void_p(torch.cuda.current_stream()
                                         .cuda_stream))
     if rc != 0:

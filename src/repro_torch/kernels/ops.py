@@ -55,10 +55,15 @@ def linear_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns ``(o [BH, T, dv] in v.dtype, final_state [BH, dk, dv] f32)``.
     Differentiable in q, k, v, log_decay and u.  ``u=None`` becomes
     zeros, as in the reference.  log_decay and u enter the kernel as
-    f32."""
+    f32.  An ``ssd`` log-decay broadcast over ``dk`` (an expanded view,
+    :func:`repro_torch.kernels.ref.scalar_decay`) stays a view, so the
+    forward and the backward both take the overflow-free form."""
     if u is None:
         u = torch.zeros((q.shape[0], q.shape[-1]), dtype=torch.float32,
                         device=q.device)
+    if ref.scalar_decay(log_decay, mode):
+        ld = log_decay[..., :1].float().contiguous().expand(log_decay.shape)
+    else:
+        ld = log_decay.float().contiguous()
     return _LinearScan.apply(q.contiguous(), k.contiguous(), v.contiguous(),
-                             log_decay.float().contiguous(),
-                             u.float().contiguous(), mode, chunk)
+                             ld, u.float().contiguous(), mode, chunk)

@@ -258,6 +258,15 @@ def _check_mode(mode: str) -> None:
         raise ValueError(f"scan mode {mode!r} is not 'ssd' or 'rwkv6'")
 
 
+def scalar_decay(log_decay: torch.Tensor, mode: str) -> bool:
+    """Whether a scan takes the overflow-free ``ssd`` form: ``ssd`` mode
+    with a log-decay that is one scalar per (stream, token), broadcast
+    over ``dk`` as an expanded view (last stride 0), as Mamba-2 passes
+    it."""
+    return (mode == "ssd" and log_decay.dim() == 3
+            and log_decay.shape[-1] > 1 and log_decay.stride(-1) == 0)
+
+
 def chunked_linear_scan(q, k, v, log_decay, u=None, *, mode: str = "ssd",
                         chunk: int = 128, out_dtype=None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -269,9 +278,17 @@ def chunked_linear_scan(q, k, v, log_decay, u=None, *, mode: str = "ssd",
     * exp(-lc)``, ``att = q_t k_t^T`` masked to the lower triangle (ssd:
     with the diagonal; rwkv6: strict, plus ``sum(q * u * k)`` on the
     diagonal), ``o = att v + q_t S``, then ``S = S * exp(lc[-1]) + (k *
-    exp(lc[-1] - lc))^T v``.  All in f32.  The factorization overflows
+    exp(lc[-1] - lc))^T v``.  All in f32.  This factorization overflows
     f32 where a chunk's ``lc`` falls below about -88.7, as the
-    reference's does.  Differentiable; shapes as
+    reference's does; ``rwkv6`` and a per-channel ``ssd`` decay keep it,
+    so they agree with the reference.
+
+    An ``ssd`` decay broadcast over ``dk`` (:func:`scalar_decay`) takes
+    the form whose every exponent is ``<= 0``: with ``lc`` one scalar per
+    token, ``att_ij = (q_i . k_j) * exp(lc_i - lc_j)`` for ``j <= i``,
+    ``o = att v + exp(lc) * (q S)`` and ``S = S * exp(lc[-1]) + (k *
+    exp(lc[-1] - lc))^T v``; it never overflows, and equals the
+    sequential oracle wherever that is finite.  Differentiable; shapes as
     :func:`linear_scan_batched`; ``T`` must be a multiple of ``chunk``."""
     _check_mode(mode)
     bh, t, dk = q.shape
@@ -281,14 +298,19 @@ def chunked_linear_scan(q, k, v, log_decay, u=None, *, mode: str = "ssd",
     nc, c = t // chunk, chunk
     f32 = torch.float32
     dev = q.device
+    scalar = scalar_decay(log_decay, mode)
     if u is None:
         u = torch.zeros((bh, dk), dtype=f32, device=dev)
 
     def blocks(z, d):
         return z.float().reshape(bh, nc, c, d)
 
-    qb, kb, vb, ldb = (blocks(q, dk), blocks(k, dk), blocks(v, dv),
-                       blocks(log_decay, dk))
+    qb, kb, vb = blocks(q, dk), blocks(k, dk), blocks(v, dv)
+    # The scalar decay as [BH, nc, C, 1]: its cumsum runs over a dim that
+    # is not the last, as the per-channel one does, so the sums are taken
+    # in token order on either device (the kernel's order).
+    ldb = blocks(log_decay[..., :1] if scalar else log_decay,
+                 1 if scalar else dk)
     row = torch.arange(c, device=dev)[:, None]
     col = torch.arange(c, device=dev)[None, :]
     tri = (row >= col) if mode == "ssd" else (row > col)
@@ -297,14 +319,19 @@ def chunked_linear_scan(q, k, v, log_decay, u=None, *, mode: str = "ssd",
     for n in range(nc):
         qc, kc, vc, ldc = qb[:, n], kb[:, n], vb[:, n], ldb[:, n]
         lc = torch.cumsum(ldc, dim=1)
-        ex = lc if mode == "ssd" else lc - ldc
-        qt = qc * torch.exp(ex)
-        kt = kc * torch.exp(-lc)
-        att = torch.where(tri, qt @ kt.transpose(1, 2), 0.0)
-        if mode == "rwkv6":
-            diag = torch.sum(qc * u[:, None, :].float() * kc, dim=-1)
-            att = att + torch.diag_embed(diag)
-        outs.append(att @ vc + qt @ state)
+        if scalar:
+            seg = torch.where(tri, lc - lc.transpose(1, 2), -math.inf)
+            att = (qc @ kc.transpose(1, 2)) * torch.exp(seg)
+            outs.append(att @ vc + (qc @ state) * torch.exp(lc))
+        else:
+            ex = lc if mode == "ssd" else lc - ldc
+            qt = qc * torch.exp(ex)
+            kt = kc * torch.exp(-lc)
+            att = torch.where(tri, qt @ kt.transpose(1, 2), 0.0)
+            if mode == "rwkv6":
+                diag = torch.sum(qc * u[:, None, :].float() * kc, dim=-1)
+                att = att + torch.diag_embed(diag)
+            outs.append(att @ vc + qt @ state)
         k_s = kc * torch.exp(lc[:, -1:, :] - lc)
         state = (state * torch.exp(lc[:, -1])[..., None]
                  + k_s.transpose(1, 2) @ vc)

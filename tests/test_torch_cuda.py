@@ -18,7 +18,8 @@ lands one ulp apart: at most 0.5% of the elements beyond 1e-5 of the
 scale and none beyond two bf16 ulps (``ref.chain_scaled_agreement``).
 The scan kernel: output as the GEMM's f32 rule and one bf16 ulp of the
 scale in bf16 (one rounding of the f32 result); its f32 final state
-within 1e-5 of the state's scale.
+within 1e-5 of the state's scale, against the twin and, for the
+broadcast ``ssd`` form, against the sequential oracle too.
 """
 
 import math
@@ -385,13 +386,121 @@ def test_cuda_scan_refuses_what_it_cannot_take(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_scan_footprint_rule_matches_the_kernel(cuda_device):
-    """The wrapper's footprint rule is the kernel's, shape for shape."""
+    """The wrapper's footprint rule is the kernel's, shape for shape, and
+    rwkv6's training shape in bf16 runs two blocks an SM."""
     lib = sk._lib()
     for chunk, dk, dv in ((128, 64, 64), (128, 64, 112), (96, 32, 64),
                           (1, 64, 64), (64, 128, 128)):
-        rows = sk.scan_tile_rows(chunk, dk, dv)
-        assert lib.ss_smem_bytes(chunk, dk, dv, rows) == \
-            sk.scan_smem_bytes(chunk, dk, dv, rows) <= 232_448
+        for size in (2, 4):
+            assert lib.ss_smem_bytes(chunk, dk, dv, size) == \
+                sk.scan_smem_bytes(chunk, dk, dv, size) <= 232_448
+    assert sk.blocks_per_sm(128, 64, 64, torch.bfloat16) >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["rwkv6", "ssd"])
+def test_cuda_scan_split_tf32_over_wide_exp_factors(cuda_device, mode,
+                                                    dtype):
+    """Split TF32 keeps f32 accuracy where the factored form's exp factors
+    span 1e-30 to 1e30 (a chunk's lc reaching about -69 per channel): the
+    gates of test_cuda_scan_matches_plain_twin, over two chunks."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    bh, t, dk, dv, chunk = 32, 256, 64, 64, 128
+    q, k = (torch.randn(bh, t, dk, generator=gen, device=cuda_device)
+            .to(dtype) for _ in range(2))
+    v = torch.randn(bh, t, dv, generator=gen, device=cuda_device).to(dtype)
+    ld = -1.08 * torch.rand(bh, t, dk, generator=gen, device=cuda_device)
+    u = torch.randn(bh, dk, generator=gen, device=cuda_device) * 0.5
+    o, st = sk.linear_scan_cuda(q, k, v, ld, u, mode=mode, chunk=chunk)
+    wo, wst = ref.chunked_linear_scan(q, k, v, ld, u, mode=mode, chunk=chunk)
+    torch.cuda.synchronize()
+    lc = torch.cumsum(ld.reshape(bh, 2, chunk, dk), 2)
+    assert float(lc.min()) < -69.0 and torch.isfinite(wo).all()
+    scale = float(wo.float().abs().max())
+    tol = 1e-5 * scale if dtype == torch.float32 else _bf16_ulp(scale)
+    assert _max_err(o, wo) <= tol
+    assert _max_err(st, wst) <= 1e-5 * float(wst.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("decay", [-0.7, "random"])
+def test_cuda_scan_broadcast_ssd_form(cuda_device, decay, dtype):
+    """zamba2's ssd shape (BH 512, T 128, dk 64, dv 112) with the decay
+    one scalar per token, broadcast over dk (Mamba-2's form): at -0.7 a
+    token, where the factored form overflows, the kernel is finite and
+    holds its gates against the twin and the sequential oracle; at the
+    reference test's decay too."""
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    bh, t, dk, dv = 512, 128, 64, 112
+    q, k = (torch.randn(bh, t, dk, generator=gen, device=cuda_device)
+            .to(dtype) for _ in range(2))
+    v = torch.randn(bh, t, dv, generator=gen, device=cuda_device).to(dtype)
+    if decay == "random":
+        ld1 = -torch.exp(torch.randn(bh, t, 1, generator=gen,
+                                     device=cuda_device)) * 0.1
+    else:
+        ld1 = torch.full((bh, t, 1), decay, device=cuda_device)
+    ld = ld1.expand(bh, t, dk)
+    before = fc.LAUNCHES["linear_scan"]
+    o, st = sk.linear_scan_cuda(q, k, v, ld, mode="ssd", chunk=128)
+    wo, wst = ref.chunked_linear_scan(q, k, v, ld, mode="ssd", chunk=128)
+    oo, ost = ref.linear_scan_batched(q, k, v, ld, mode="ssd",
+                                      out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert fc.LAUNCHES["linear_scan"] == before + 1
+    assert torch.isfinite(o).all() and torch.isfinite(st).all()
+    for want, want_st in ((wo, wst), (oo, ost)):
+        scale = float(want.float().abs().max())
+        tol = 1e-5 * scale if dtype == torch.float32 else _bf16_ulp(scale)
+        assert _max_err(o, want) <= tol
+        assert _max_err(st, want_st) <= 1e-5 * float(want_st.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kv_chunk", [256, 1024])
+def test_cuda_flash_tensor_cores_two_pass_gqa(cuda_device, kv_chunk, causal):
+    """The tensor-core kernel at D 128 with GQA (G 4) over chunks longer
+    than its 128 register-resident keys (two passes over each chunk):
+    one bf16 ulp of the scale against the plain version, lse within 1e-5
+    of its scale; and on the rounding probe at such a chunk, every element
+    within one ulp."""
+    gen = torch.Generator(device=cuda_device).manual_seed(kv_chunk)
+    B, T, H, KV, D = 2, 1024, 16, 4, 128
+    q, k, v = (torch.randn(s, generator=gen, device=cuda_device)
+               .to(torch.bfloat16)
+               for s in ((B, T, H, D), (B, T, KV, D), (B, T, KV, D)))
+    assert fa.kernel_for(q, k, v) == "tensor_cores"
+    kw = dict(causal=causal, q_chunk=T, kv_chunk=kv_chunk)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    want, want_lse = ref.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _max_err(out, want) <= _bf16_ulp(float(want.float().abs().max()))
+    torch.testing.assert_close(lse, want_lse, rtol=0,
+                               atol=1e-5 * float(want_lse.abs().max()))
+    q, k, v = fa.rounding_probe(1, kv_chunk, 12, 64, device=cuda_device)
+    kw = dict(causal=False, q_chunk=kv_chunk, kv_chunk=kv_chunk)
+    out, _ = fa.flash_attention_fwd(q, k, v, **kw)
+    w = ref.flash_attention_fwd(q, k, v, **kw)[0].float()
+    ulp = 2.0 ** (torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+    assert float(((out.float() - w).abs() / ulp).max()) <= 1.0
+
+
+@pytest.mark.cuda
+def test_cuda_flash_picks_simt_for_f32(cuda_device):
+    """f32 runs the SIMT kernel (within 1e-5 of the scale), bf16 the
+    tensor-core one, on the same inputs."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    q, k, v = (torch.randn(2, 128, 4, 64, generator=gen, device=cuda_device)
+               for _ in range(3))
+    assert fa.kernel_for(q, k, v) == "simt"
+    out, _ = fa.flash_attention_fwd(q, k, v, q_chunk=128, kv_chunk=128)
+    want, _ = ref.flash_attention_fwd(q, k, v, q_chunk=128, kv_chunk=128)
+    assert _max_err(out, want) <= 1e-5 * float(want.abs().max())
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    assert fa.kernel_for(qb, kb, vb) == "tensor_cores"
 
 
 GEMM_DTYPES = [torch.float32, torch.bfloat16] + QUANT

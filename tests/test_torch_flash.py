@@ -186,3 +186,18 @@ def test_cpu_forward_launches_nothing():
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 2, 2, 8, seed=1))
     fa.flash_attention_fwd(q, k, v)
     assert fc.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.bfloat16, 64, "tensor_cores"), (torch.bfloat16, 128, "tensor_cores"),
+    (torch.bfloat16, 24, "tensor_cores"), (torch.bfloat16, 20, "simt"),
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt")])
+def test_kernel_for_picks_tensor_cores_for_bf16_only(dtype, D, want):
+    """bf16 with a head dim that is a multiple of 8 runs the tensor-core
+    kernel; f32 stays on the SIMT kernel (TF32 would miss the f32 gate),
+    as does a head dim the 16-byte copies cannot take."""
+    q = torch.zeros(1, 4, 2, D, dtype=dtype)
+    assert fa.kernel_for(q, q, q) == want
+    if want == "tensor_cores":   # a view 2 bytes into its storage
+        off = torch.zeros(1 * 4 * 2 * D + 1, dtype=dtype)[1:].reshape(q.shape)
+        assert fa.kernel_for(off, q, q) == "simt"

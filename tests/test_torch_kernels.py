@@ -139,3 +139,32 @@ def test_wrappers_refuse_devices_without_a_kernel():
         fc.matmul_cuda(x, w)
     with pytest.raises(ValueError, match="no kernel"):
         fc.chain_n_cuda(torch.zeros(8, 8, device="meta"), [w, w])
+
+
+def test_library_name_hashes_source_headers_and_flags(tmp_path, monkeypatch):
+    """A library's name hashes its source, every shared header under
+    ``csrc/`` and the flags: an edit to the shared header renames every
+    library (no stale build is loaded), an edit to one source renames
+    that library alone.  Every quoted include of a source is such a
+    header."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import build
+    for src in build.CSRC.iterdir():
+        shutil.copy(src, tmp_path / src.name)
+    for name in build.SOURCES:
+        for inc in re.findall(r'#include "([^"]+)"',
+                              (tmp_path / f"{name}.cu").read_text()):
+            assert inc.endswith(".cuh") and (tmp_path / inc).is_file()
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = {n: build.library_path(n) for n in build.SOURCES}
+    assert len(set(before.values())) == len(build.SOURCES)
+    header = tmp_path / "mma_sm90.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: build.library_path(n) for n in build.SOURCES}
+    assert all(after[n] != before[n] for n in build.SOURCES)
+    src = tmp_path / "quantized.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    again = {n: build.library_path(n) for n in build.SOURCES}
+    assert [n for n in build.SOURCES if again[n] != after[n]] == ["quantized"]

@@ -11,12 +11,18 @@ RWKV-6 block and LM) against the JAX reference on the same numpy inputs.
   against ``jax.vjp`` of the reference within 1e-5 of each leaf's scale
   (f32; the two twins sum in other orders).
 * The overflow of the chunked factorization: at a constant log-decay of
-  -0.7 (a chunk's ``lc`` reaches -89.6) the port's chunked twin is
-  non-finite exactly where the reference's is, while the sequential
-  oracle stays finite; at -0.6 all three are finite and agree.  (Near
-  the overflow ``exp(lc)`` is subnormal, which the reference's CPU
-  backend flushes to zero and torch does not, so finite values there are
-  not compared.)
+  -0.7 (a chunk's ``lc`` reaches -89.6) the reference's chunked twin is
+  non-finite.  The port's ``ssd`` form for a decay broadcast over ``dk``
+  (an expanded view, as Mamba-2 passes it) is finite there and at -2.0,
+  and equals the sequential oracle within 1e-4 of its scale; where the
+  reference is finite it equals the reference's twin and its Pallas
+  kernel (interpret mode), outputs within 1e-4 (f32) / 5e-2 (bf16) and
+  gradients within 1e-5 of each leaf's scale.  ``rwkv6`` and a
+  per-channel ``ssd`` decay keep the reference's factorization: non-finite
+  exactly where the reference is, equal to it elsewhere.  (Near the
+  overflow ``exp(lc)`` is subnormal, which the reference's CPU backend
+  flushes to zero and torch does not, so finite values there are not
+  compared.)
 * ``rwkv6_7b``'s smoke config in f32 with the TNN default (TT on
   ``cm_k``/``cm_v``): the block's time and channel mix; ``LM.forward``
   logits and loss within 1e-5 of their scale; every gradient within 4e-5
@@ -171,35 +177,155 @@ def test_linear_scan_grads_match_reference(mode):
         _close(x.grad, w, 1e-5, f"{mode} {name}")
 
 
+def _broadcast_decay(decay, bh, t, dk):
+    """A log-decay of one scalar per (stream, token), broadcast over dk
+    as an expanded view: numpy ``[bh, t, 1]`` and its torch view."""
+    ld = np.broadcast_to(np.asarray(decay, np.float32), (bh, t, 1)).copy()
+    return ld, torch.from_numpy(ld).expand(bh, t, dk)
+
+
 @pytest.mark.parametrize("decay", [-0.7, -0.6])
 @pytest.mark.parametrize("mode", MODES)
 def test_chunked_factorization_overflow(mode, decay):
-    """A chunk's cumulative log-decay below about -88.7 overflows the
-    ``k * exp(-lc)`` factor in both packages at the same elements; the
-    sequential oracle does not overflow."""
+    """rwkv6: a chunk's cumulative log-decay below about -88.7 overflows
+    the ``k * exp(-lc)`` factor in both packages at the same elements.
+    ssd with the decay broadcast over dk (how Mamba-2 passes it): the
+    port's twin takes the ``exp(lc_i - lc_j)`` form and stays finite,
+    equal to the sequential oracle, where the reference overflows.  The
+    sequential oracle never overflows."""
     q, k, v, _, u = _scan_inputs(128, seed=5, bh=2, dk=8, dv=8)
-    ld = np.full(q.shape, decay, np.float32)
+    if mode == "ssd":
+        ld, tld = _broadcast_decay(decay, 2, 128, 8)
+        jld = np.broadcast_to(ld, q.shape)
+    else:
+        jld = ld = np.full(q.shape, decay, np.float32)
+        tld = torch.from_numpy(ld)
     want, want_state = jref.chunked_linear_scan(
-        *map(jnp.asarray, (q, k, v, ld, u)), mode=mode, chunk=128)
-    got, got_state = ref.chunked_linear_scan(
-        *map(torch.from_numpy, (q, k, v, ld, u)), mode=mode, chunk=128)
-    oracle, oracle_state = ref.linear_scan_batched(
-        *map(torch.from_numpy, (q, k, v, ld, u)), mode=mode)
+        *map(jnp.asarray, (q, k, v, jld, u)), mode=mode, chunk=128)
+    tq, tk, tv, tu = map(torch.from_numpy, (q, k, v, u))
+    got, got_state = ref.chunked_linear_scan(tq, tk, tv, tld, tu, mode=mode,
+                                             chunk=128)
+    oracle, oracle_state = ref.linear_scan_batched(tq, tk, tv, tld, tu,
+                                                   mode=mode)
     want = np.asarray(want)
     assert torch.isfinite(oracle).all() and torch.isfinite(
         oracle_state).all()
+    if decay == -0.7:
+        assert not np.isfinite(want).all()
+    else:
+        assert np.isfinite(want).all()
+        _close(got, want, 1e-4, "vs reference")
+    if mode == "ssd":
+        assert torch.isfinite(got).all() and torch.isfinite(got_state).all()
+        _close(got, oracle, 1e-4, "vs oracle")
+        _close(got_state, oracle_state, 1e-4, "state vs oracle")
+        return
+    np.testing.assert_array_equal(torch.isfinite(got).numpy(),
+                                  np.isfinite(want))
+    np.testing.assert_array_equal(torch.isfinite(got_state).numpy(),
+                                  np.isfinite(np.asarray(want_state)))
+    if decay == -0.6:
+        _close(got, oracle, 1e-4, "vs oracle")
+
+
+@pytest.mark.parametrize("decay", [-0.7, -0.6])
+def test_per_channel_ssd_decay_keeps_the_reference_factorization(decay):
+    """A per-channel ssd decay (a full array, not a broadcast view) keeps
+    the reference's ``k * exp(-lc)`` factorization: non-finite exactly
+    where the reference is at -0.7, equal to it at -0.6."""
+    q, k, v, _, u = _scan_inputs(128, seed=5, bh=2, dk=8, dv=8)
+    ld = np.full(q.shape, decay, np.float32)
+    want, want_state = jref.chunked_linear_scan(
+        *map(jnp.asarray, (q, k, v, ld, u)), mode="ssd", chunk=128)
+    got, got_state = ops.linear_scan(
+        *map(torch.from_numpy, (q, k, v, ld, u)), mode="ssd", chunk=128)
+    want = np.asarray(want)
     np.testing.assert_array_equal(torch.isfinite(got).numpy(),
                                   np.isfinite(want))
     np.testing.assert_array_equal(torch.isfinite(got_state).numpy(),
                                   np.isfinite(np.asarray(want_state)))
     if decay == -0.7:
-        # Finite values may differ there too: exp(lc) is subnormal near
-        # the overflow, and the reference's CPU backend flushes it to 0.
         assert not np.isfinite(want).all()
     else:
-        assert np.isfinite(want).all()
         _close(got, want, 1e-4, "vs reference")
-        _close(got, oracle, 1e-4, "vs oracle")
+        _close(got_state, want_state, 1e-4, "state vs reference")
+
+
+@pytest.mark.parametrize("decay", [-0.7, -2.0])
+def test_scalar_ssd_form_is_finite_and_matches_the_oracle(decay):
+    """At -0.7 and -2.0 a token (a chunk's lc reaches -89.6 and -256) the
+    broadcast ssd form is finite through every entry point that reaches
+    it on the CPU (the plain twin, the kernel wrapper and the autograd
+    Function) and equals the sequential oracles of both packages, over
+    two chunks (the state crosses a boundary)."""
+    bh, t, dk, dv = 2, 256, 16, 24
+    q, k, v, _, _ = _scan_inputs(t, seed=7, bh=bh, dk=dk, dv=dv)
+    ld, tld = _broadcast_decay(decay, bh, t, dk)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    oracle, oracle_state = ref.linear_scan_batched(tq, tk, tv, tld)
+    joracle, joracle_state = jref.linear_scan_batched(
+        *map(jnp.asarray, (q, k, v, np.broadcast_to(ld, q.shape))))
+    _close(oracle, joracle, 1e-5, "oracles")
+    _close(oracle_state, joracle_state, 1e-5, "oracle states")
+    for name, fn in (("twin", ref.chunked_linear_scan),
+                     ("wrapper", ssm_scan.linear_scan_cuda),
+                     ("ops", ops.linear_scan)):
+        got, got_state = fn(tq, tk, tv, tld, mode="ssd", chunk=128)
+        assert torch.isfinite(got).all() and torch.isfinite(got_state).all()
+        _close(got, oracle, 1e-4, name)
+        _close(got_state, oracle_state, 1e-4, f"{name} state")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t,chunk", [(256, 64), (128, 128), (384, 96)])
+def test_scalar_ssd_form_matches_the_reference_where_finite(t, chunk, dtype):
+    """Where the reference is finite (the reference test's decay, one
+    scalar per token), the broadcast form equals the reference's chunked
+    twin and its Pallas kernel in interpret mode."""
+    q, k, v, ld_full, _ = _scan_inputs(t, seed=8)
+    ld = ld_full[..., :1]
+    jld = jnp.asarray(np.broadcast_to(ld, q.shape))
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    jq, jk, jv = (jnp.asarray(a).astype(jdt) for a in (q, k, v))
+    conv = torch.from_numpy if dtype == "float32" else _torch_bf16
+    tld = torch.from_numpy(ld).expand(q.shape)
+    got, got_state = ops.linear_scan(conv(q), conv(k), conv(v), tld,
+                                     mode="ssd", chunk=chunk)
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    for use_pallas in (False, True):
+        want, want_state = jops.linear_scan(jq, jk, jv, jld, mode="ssd",
+                                            chunk=chunk,
+                                            use_pallas=use_pallas)
+        _close(got.float(), np.asarray(want, np.float32), tol,
+               f"pallas={use_pallas}")
+        _close(got_state, want_state, tol, f"state pallas={use_pallas}")
+
+
+def test_linear_scan_grads_of_a_broadcast_decay_match_reference():
+    """Gradients through ``ops.linear_scan`` of an expanded ssd decay (the
+    backward runs the twin's overflow-free form) against ``jax.vjp`` of
+    the reference with the decay broadcast the same way, within 1e-5 of
+    each leaf's scale; the decay's gradient arrives summed over dk."""
+    bh, t, dk, dv = 2, 128, 16, 24
+    q, k, v, ld_full, _ = _scan_inputs(t, seed=9, bh=bh, dk=dk, dv=dv)
+    ld = ld_full[..., :1]
+    rng = np.random.default_rng(10)
+    do = rng.standard_normal((bh, t, dv)).astype(np.float32)
+    dst = rng.standard_normal((bh, dk, dv)).astype(np.float32)
+
+    def jfn(q, k, v, ld):
+        return jops.linear_scan(q, k, v, jnp.broadcast_to(ld, q.shape),
+                                mode="ssd", chunk=64, use_pallas=True)
+
+    _, vjp = jax.vjp(jfn, *map(jnp.asarray, (q, k, v, ld)))
+    want = vjp((jnp.asarray(do), jnp.asarray(dst)))
+    ins = [torch.from_numpy(a).requires_grad_() for a in (q, k, v, ld)]
+    o, st = ops.linear_scan(ins[0], ins[1], ins[2],
+                            ins[3].expand(bh, t, dk), mode="ssd", chunk=64)
+    torch.autograd.backward((o, st), (torch.from_numpy(do),
+                                      torch.from_numpy(dst)))
+    for name, x, w in zip(("dq", "dk", "dv", "dlog_decay"), ins, want):
+        _close(x.grad, w, 1e-5, name)
 
 
 def test_scan_refuses_what_the_kernel_cannot_take():
@@ -213,11 +339,18 @@ def test_scan_refuses_what_the_kernel_cannot_take():
                                   mode="rwkv6", chunk=64)
     with pytest.raises(ValueError, match="requires the u"):
         ssm_scan.linear_scan_cuda(q, q, q, q, mode="rwkv6", chunk=50)
-    # the footprint rule: the whole chunk where it fits, else halved
-    assert ssm_scan.scan_tile_rows(128, 64, 64) == 128
-    assert ssm_scan.scan_tile_rows(128, 64, 112) == 64
-    assert ssm_scan.scan_smem_bytes(128, 64, 112, 64) <= 232_448
-    assert ssm_scan.scan_smem_bytes(128, 64, 112, 128) > 232_448
+    with pytest.raises(ssm_scan.ScanLoweringError, match="exceeds"):
+        q = torch.zeros(2, 16, 136)
+        ssm_scan.linear_scan_cuda(q, q, torch.zeros(2, 16, 8), q,
+                                  torch.zeros(2, 136), mode="rwkv6", chunk=16)
+    # the footprint rule: rwkv6's shape in bf16 leaves room for two blocks
+    # an SM (228 KB, 1 KB reserved a block); zamba2's and f32 fit one
+    assert ssm_scan.scan_smem_bytes(128, 64, 64, 2) == 111_616
+    assert 2 * (111_616 + 1024) <= 233_472
+    assert ssm_scan.scan_smem_bytes(128, 64, 112, 2) <= 232_448
+    assert ssm_scan.scan_smem_bytes(128, 64, 112, 4) <= 232_448
+    assert ssm_scan.scan_smem_bytes(256, 64, 64, 2) <= 232_448
+    assert ssm_scan.scan_smem_bytes(512, 64, 64, 2) > 232_448
 
 
 # ---------------------------------------------------------------------------
