@@ -22,7 +22,11 @@ and failing the script when it fails:
    of kernel, plain version and (for the GEMM) ``torch.matmul`` as a
    yardstick, beside the least time the card could take.  Each GEMM line
    carries the configuration ``gemm_config`` chose (tile, K splits, copy
-   width, tensor cores or not).
+   width, tensor cores or not); each chain line the kernel that ran
+   (``chain_tc_kernel`` in bf16, ``chain_kernel`` in f32), the
+   ``chain_config`` it ran with, and ``unfused_ms``: the same chain as one
+   GEMM call per link, the route the plan compiler takes for a chain it
+   does not fuse.
 3. ``kernel:flash_attention_fwd`` — the attention kernels against their
    plain version (out and lse) in bf16 (the tensor-core kernel) and f32
    (the SIMT one; each record names its kernel), both stepping over the
@@ -59,7 +63,10 @@ and failing the script when it fails:
    timed in fp8_e4m3 beside the plain version, the bound at the fp8
    peak, and for the GEMM ``torch._scaled_mm`` where its shape rules
    admit the geometry (the reason where they do not) and its
-   configuration, as in phase 2.
+   configuration, as in phase 2; for the chain its kernel, configuration
+   and ``unfused_ms`` (one scaled GEMM per link, each intermediate
+   requantized per tensor between them, as the plan compiler's quantized
+   ops run an unfused chain).
 9. ``train_fp8`` — the ``train`` phase with ``--tnn-precision fp8`` and
    loss scale 128: every loss finite, the mean of the last 5 below the
    first and within 0.05 of the bf16 phase's, the four kernels of the
@@ -273,6 +280,47 @@ def gemm_config_rec(fc, x, w, trans: bool) -> dict:
     c = fc.gemm_config_for(x, w, trans)
     return {"tile": [c.bm, c.bn], "splits": c.splits,
             "copy_bytes": c.copy_bytes, "tensor_cores": c.tensor_cores}
+
+
+def chain_config_rec(fc, x, ws) -> dict:
+    """The kernel ``chain_n_cuda`` launches on these operands and its
+    configuration."""
+    c = fc.chain_config_for(x, ws)
+    return {"kernel": ("chain_tc_kernel" if c.kernel == "tensor_cores"
+                       else "chain_kernel"),
+            "config": {"band": c.band, "warps": c.warps, "warp_k": c.warp_k,
+                       "stage_k": c.stage_k, "stages": c.stages,
+                       "copy_bytes": c.copy_bytes,
+                       "smem_bytes": c.smem_bytes}}
+
+
+def unfused_chain(fc, x, ws):
+    """The chain as one GEMM kernel per link (``plan_compiler.run``'s
+    route for a chain it does not fuse): the intermediate rounded to X's
+    type in device memory, the regroup a reshape."""
+    h = x
+    for w in ws:
+        h = fc.matmul_cuda(h.reshape(-1, w.shape[0]), w)
+    return h
+
+
+def unfused_scaled_chain(fc, quant, pol, qx, qws):
+    """The scaled chain as plan_compiler's quantized ops run it unfused:
+    one scaled GEMM per link, each f32 result requantized per tensor to
+    the policy's type (plain torch ops) before the next link."""
+    import dataclasses
+    inter = dataclasses.replace(pol, granularity="tensor")
+    t = qx
+    for i, qw in enumerate(qws):
+        k, n = qw.q.shape
+        x2 = t.q.reshape(-1, k)
+        res = fc.matmul_cuda(
+            x2, qw.q, scales=(quant.expand_row_scales(t.scale, x2.shape[0]),
+                              quant.expand_row_scales(qw.scale, n)
+                              .reshape(1, n)))
+        if i < len(qws) - 1:
+            t = quant.quantize(res, inter)
+    return res
 
 
 def bf16_ulp(scale: float) -> float:
@@ -538,7 +586,7 @@ def quant_kernel_phase(torch, fc, qk, ref, quant, QuantPolicy, geo, totals
             rec = {"path": "train_fp8", "m0": m0,
                    "links": [list(s_) for s_ in shapes],
                    "phases": sorted(phases), "dtype": dname,
-                   "band_rows": fc.chain_band_rows(m0, shapes),
+                   **chain_config_rec(fc, qx.q, ws),
                    "max_rel_err": err / max(nums["scale"], 1e-30), **nums}
             if not good:
                 fail("chain_n_scaled", rec)
@@ -548,12 +596,14 @@ def quant_kernel_phase(torch, fc, qk, ref, quant, QuantPolicy, geo, totals
                     qx.q, ws, scales=scales))
                 plain = device_ms(torch, lambda: ref.chain_n_scaled(
                     qx.q, ws, scales))
+                rec["unfused_ms"] = device_ms(torch, lambda: (
+                    unfused_scaled_chain(fc, quant, pol, qx, qws)))
                 nbytes = (m0 * shapes[0][0] + sum(a * c for a, c in shapes)
                           + 4 * (m0 + len(shapes) + shapes[-1][1])
                           + 4 * rows[-1] * shapes[-1][1])
                 flops = sum(2 * r * a * c for r, (a, c) in zip(rows, shapes))
                 b, by = bound_ms(nbytes, flops, "fp8")
-                timed = (ms, plain, None, b, by)
+                timed = (ms, plain, None, b, by, rec["unfused_ms"])
                 rec.update(ms=ms, plain_ms=plain, library_ms=None,
                            bound_ms=b, bound_by=by)
             emit("kernel:chain_n_scaled", ok=True, **rec)
@@ -563,13 +613,17 @@ def quant_kernel_phase(torch, fc, qk, ref, quant, QuantPolicy, geo, totals
 def new_totals() -> dict:
     return {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None,
             "library_shapes": 0, "ms_on_library_shapes": 0.0,
-            "max_abs_err": 0.0, "bound_by": set(), "shapes": 0}
+            "unfused_ms": None, "max_abs_err": 0.0, "bound_by": set(),
+            "shapes": 0}
 
 
-def add_total(t: dict, ms, plain, lib, b, by) -> None:
+def add_total(t: dict, ms, plain, lib, b, by, unfused=None) -> None:
     """Add one timed shape; the library sum covers the shapes where a
-    library call computes the same function (``lib`` not None)."""
+    library call computes the same function (``lib`` not None), the
+    unfused sum the chains' per-link route."""
     t["ms"] += ms
+    if unfused is not None:
+        t["unfused_ms"] = (t["unfused_ms"] or 0.0) + unfused
     t["plain_ms"] += plain
     if lib is not None:
         t["library_ms"] = (t["library_ms"] or 0.0) + lib
@@ -656,7 +710,7 @@ def kernel_phase(torch, fc, ref, gemms, chains, totals, *, path: str,
             geo = (m0, shapes)
             rec = {"path": path, "m0": m0, "links": [list(s) for s in shapes],
                    "phases": sorted(phases.get(geo, ())), "dtype": dname,
-                   "band_rows": fc.chain_band_rows(m0, shapes),
+                   **chain_config_rec(fc, x, ws),
                    "max_abs_err": err, "max_rel_err": err / max(scale, 1e-30),
                    "scale": scale, "tol": tol}
             if not err <= tol:
@@ -666,11 +720,13 @@ def kernel_phase(torch, fc, ref, gemms, chains, totals, *, path: str,
             if timing:
                 ms = device_ms(torch, lambda: fc.chain_n_cuda(x, ws))
                 plain = device_ms(torch, lambda: ref.chain_n(x, ws))
+                rec["unfused_ms"] = device_ms(torch, lambda: unfused_chain(
+                    fc, x, ws))
                 nbytes = (m0 * shapes[0][0] + sum(a * c for a, c in shapes)
                           + rows[-1] * shapes[-1][1]) * size
                 flops = sum(2 * r * a * c for r, (a, c) in zip(rows, shapes))
                 b, by = bound_ms(nbytes, flops, dname)
-                timed = (ms, plain, None, b, by)
+                timed = (ms, plain, None, b, by, rec["unfused_ms"])
                 rec.update(ms=ms, plain_ms=plain, library_ms=None,
                            bound_ms=b, bound_by=by)
             emit("kernel:chain_n", ok=True, **rec)
@@ -1611,6 +1667,8 @@ def main() -> int:
         by = set().union(*(s_["bound_by"] for s_ in sums))
         lib = [s_["library_ms"] for s_ in sums
                if s_["library_ms"] is not None]
+        unfused = [s_["unfused_ms"] for s_ in sums
+                   if s_["unfused_ms"] is not None]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
@@ -1630,6 +1688,7 @@ def main() -> int:
             "bound_ms": sum(s_["bound_ms"] for s_ in sums),
             "bound_by": "bytes" if by == {"bytes"} else "operations",
             "library_ms": sum(lib) if lib else None,
+            "unfused_ms": sum(unfused) if unfused else None,
             "library_shapes": sum(s_["library_shapes"] for s_ in sums),
             "ms_on_library_shapes": sum(s_["ms_on_library_shapes"]
                                         for s_ in sums),

@@ -55,8 +55,9 @@ GROUPS = (("dequantize_kernel", "dequantize"),
           ("gemm_tc_kernel", "matmul"),
           ("gemm_simt_kernel", "matmul"),
           ("gemm_splitk_reduce", "matmul"),
-          ("chain_kernel<__nv_fp8", "chain_n_scaled"),
-          ("chain_kernel<signed char", "chain_n_scaled"),
+          ("chain_tc_kernel<__nv_fp8", "chain_n_scaled"),
+          ("chain_tc_kernel<signed char", "chain_n_scaled"),
+          ("chain_tc_kernel", "chain_n"),
           ("chain_kernel", "chain_n"),
           ("flash_fwd", "flash_attention_fwd"),
           ("scan_tc_kernel", "linear_scan"),

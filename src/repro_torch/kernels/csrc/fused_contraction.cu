@@ -46,28 +46,34 @@
 //   datapath's undocumented width; measured on the H100, the native form
 //   had no lower error and was no faster (PERF.md).
 //
-// * chain_kernel replaces _chain_n_kernel / chain_n_pallas:
-//   Y = (((X @ W1) -> regroup -> @ W2) ... @ Wn).  One block owns a band of
-//   final output rows and runs every link with the intermediate in shared
-//   memory; the regroup [r, n_i] -> [r/g, g*n_i] is pure index arithmetic on
-//   that contiguous buffer ("tensor shaping during computation"), so no
-//   padding of n_i is needed.  Intermediates are accumulated in f32 and
-//   rounded to the operand type before the next link, like the reference.
-//   All weights stay resident in shared memory as f32; X streams from
-//   device memory into link 0 (its [band * mult0, k] block can exceed shared
-//   memory, e.g. 2048 x 192 bf16 = 786 KB).  Bound: device-memory bytes of
-//   X and Y; the intermediates never leave the chip.  The wrapper picks the
-//   band height so weights + intermediates fit the 227 KB per-block budget
-//   and refuses (ChainLoweringError) what does not fit.
+// * chain_tc_kernel replaces _chain_n_kernel / chain_n_pallas:
+//   Y = (((X @ W1) -> regroup -> @ W2) ... @ Wn), every intermediate in
+//   shared memory, rounded to bf16 after its link's f32 sum.  One block
+//   owns a band of final output rows.  What bounds it on the H100: the
+//   bytes of X, at every main-path chain (link 0 is a long skinny
+//   product, X[rows, 8..3,072] @ W1[K, 8]; the later links read only
+//   shared memory).  Design: X streams through the GEMM's cp.async ring
+//   (copies narrowed for an unaligned row pitch, zero-filled past K),
+//   the block's 8 warps split link 0's K and run mma.sync on it (bf16
+//   m16n8k16; fp8 widened exactly to f16; int8 m16n8k32, exact s32), and
+//   sum their partial tiles in warp order through shared memory, so a
+//   call's bits never vary.  Link 0's epilogue writes element (r, c)
+//   straight to row r / g, column (r mod g) n0 + c of link 1's A operand
+//   in shared memory: FETTA's "tensor shaping during computation" as an
+//   address map, with no pass of its own.  Later links run one m16n8
+//   tile a warp from shared memory, W read as bf16; the last stages Y
+//   for 16-byte stores.  fused_contraction.chain_config picks
+//   band, warp slice and copy width; chain_tc_layout is the kernel's own
+//   check of them.
 //   Its scaled form replaces the quantized branch of _chain_n_kernel: X
-//   and W in fp8/int8 (staged to f32 exactly, which equals the reference's
-//   bf16 cast of the interior weights), link 0 scaled per link-0 row by
-//   s_first, interior links by one scalar each, the last link per output
-//   column by s_last; every intermediate is rounded to bf16 (the
-//   reference's VMEM intermediate type) after its scale, and Y is f32.
-//   The weights stay f32 in shared memory, so the budget is the same as
-//   the unscaled chain's: a chain fused at compile time is never refused
-//   at run time for being quantized.
+//   and W in fp8/int8 (the interior weights read as bf16, exactly the
+//   reference's cast), link 0 scaled per link-0 row by s_first, interior
+//   links by one scalar each, the last link per output column by s_last;
+//   every intermediate is rounded to bf16 after its scale, Y is f32.
+//   chain_kernel keeps f32 chains on the FMA units (TF32 would miss the
+//   1e-5 gate): one thread per output element, weights resident as f32.
+//   Which chains fuse is fused_contraction.chain_band_rows' rule (the f32
+//   kernel's footprint), so both kernels fuse the same chains.
 //
 // Plain C interface (loaded with ctypes): every launch goes to the caller's
 // stream, allocates nothing, and returns cudaGetLastError().
@@ -89,10 +95,6 @@ namespace {
 constexpr int kMaxLinks = 8;
 constexpr int kSmemLimit = 232448;  // dynamic shared memory one block may use
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ float to_f(__nv_fp8_e4m3 v) {
   return static_cast<float>(v);
 }
@@ -243,7 +245,8 @@ __device__ __forceinline__ void copy_tile(int cw, unsigned char* dst,
 }
 
 // The ring: stage kt of this block's K slice is loaded kGemmStages - 1
-// stages ahead of its product; one barrier per stage.
+// stages ahead of its product; one barrier per stage.  load(slot, kt)
+// and compute(slot, kt) get the ring slot and the stage's index.
 template <typename Load, typename Compute>
 __device__ __forceinline__ void gemm_pipeline(int nk, Load&& load,
                                               Compute&& compute) {
@@ -258,7 +261,7 @@ __device__ __forceinline__ void gemm_pipeline(int nk, Load&& load,
     const int next = kt + kGemmStages - 1;
     if (next < nk) load(next % kGemmStages, next);
     cp_async_commit();
-    compute(kt % kGemmStages);
+    compute(kt % kGemmStages, kt);
   }
 }
 
@@ -423,7 +426,7 @@ __global__ void __launch_bounds__(kGemmThreads, kGemmMinBlocks)
     Tiles::load(gemm_smem, slot, k_begin + kt * Tiles::BK, k_end, x, w, M, N, K,
                 m0, n0, cw);
   };
-  auto compute = [&](int slot) {
+  auto compute = [&](int slot, int) {
     const uint32_t xs = x_frag + slot * Tiles::kStage;
     const uint32_t wsa = w_frag + slot * Tiles::kStage;
     const unsigned char* ws = gemm_smem + slot * Tiles::kStage + Tiles::kXStage;
@@ -600,7 +603,7 @@ __global__ void __launch_bounds__(kGemmThreads, kGemmMinBlocks)
     Tiles::load(gemm_smem, slot, k_begin + kt * Tiles::BK, k_end, x, w, M, N, K,
                 m0, n0, cw);
   };
-  auto compute = [&](int slot) {
+  auto compute = [&](int slot, int) {
     const float* xs =
         reinterpret_cast<const float*>(gemm_smem + slot * Tiles::kStage);
     const float* ws = xs + Tiles::kXStage / 4;
@@ -773,14 +776,11 @@ int launch_gemm(int trans, int tile, int splits, int cw, const void* x,
 }
 
 // ---------------------------------------------------------------------------
-// N-link chain with on-chip intermediates and in-place regrouping
+// N-link chain: f32 on the FMA units
 // ---------------------------------------------------------------------------
 
 struct ChainArgs {
-  const void* w[kMaxLinks];  // W_i, row-major [k_i, n_i]
-  // Scaled chain only: link 0's scale per link-0 row, one scalar per
-  // interior link, the last link's scale per output column.
-  const float* s[kMaxLinks];
+  const float* w[kMaxLinks];  // W_i, row-major [k_i, n_i]
   int k[kMaxLinks];
   int n[kMaxLinks];
   int mult[kMaxLinks];   // link i's rows per final output row
@@ -791,24 +791,23 @@ struct ChainArgs {
   int band;     // final output rows per block
 };
 
-// T: the type of X and every W.  TH: the type each intermediate is rounded
-// to before the next link reads it.  TOut: the type of Y.  The plain chain
-// is <T, T, T, false>; the scaled one <fp8|int8, bf16, float, true>.
-template <typename T, typename TH, typename TOut, bool kScaled>
-__global__ void chain_kernel(const T* __restrict__ x, TOut* __restrict__ out,
-                             ChainArgs a) {
+// One thread per output element of a link, K walked serially with fmaf;
+// every weight resident in shared memory, the intermediates ping-pong
+// between two buffers and are read regrouped as [rows, k] views.
+__global__ void chain_kernel(const float* __restrict__ x,
+                             float* __restrict__ out, ChainArgs a) {
   extern __shared__ float smem[];
   for (int i = 0; i < a.links; ++i) {
-    const T* w = static_cast<const T*>(a.w[i]);
+    const float* w = a.w[i];
     float* dst = smem + a.w_off[i];
     const int cnt = a.k[i] * a.n[i];
-    for (int e = threadIdx.x; e < cnt; e += blockDim.x) dst[e] = to_f(w[e]);
+    for (int e = threadIdx.x; e < cnt; e += blockDim.x) dst[e] = w[e];
   }
   __syncthreads();
 
   const int f0 = blockIdx.x * a.band;  // first final row of this band
   const int rows_final = min(a.band, a.m_final - f0);
-  const T* xband = x + (size_t)f0 * a.mult[0] * a.k[0];
+  const float* xband = x + (size_t)f0 * a.mult[0] * a.k[0];
   for (int i = 0; i < a.links; ++i) {
     const int k = a.k[i], n = a.n[i];
     const int rows = rows_final * a.mult[i];
@@ -820,48 +819,39 @@ __global__ void chain_kernel(const T* __restrict__ x, TOut* __restrict__ out,
     for (int o = threadIdx.x; o < rows * n; o += blockDim.x) {
       const int r = o / n, c = o - r * n;
       float acc = 0.f;
-      if (i == 0) {
-        const T* xr = xband + (size_t)r * k;
-        for (int kk = 0; kk < k; ++kk)
-          acc = fmaf(to_f(xr[kk]), wsm[kk * n + c], acc);
+      if (i == 0) {  // X from device memory
+        const float* xr = xband + (size_t)r * k;
+        for (int kk = 0; kk < k; ++kk) acc = fmaf(xr[kk], wsm[kk * n + c], acc);
       } else {
         // The regroup: row r of the [rows, k] view of the contiguous
         // [rows_prev, n_prev] intermediate of this band.
         const float* hr = src + (size_t)r * k;
         for (int kk = 0; kk < k; ++kk) acc = fmaf(hr[kk], wsm[kk * n + c], acc);
       }
-      if (kScaled) {
-        const float sc = i == 0 ? a.s[0][((size_t)f0 * a.mult[0]) + r]
-                                : (last ? a.s[i][c] : a.s[i][0]);
-        acc = __fmul_rn(acc, sc);
-      }
       if (last)
-        out[((size_t)f0 + r) * n + c] = from_f<TOut>(acc);
+        out[((size_t)f0 + r) * n + c] = acc;
       else
-        dst[o] = to_f(from_f<TH>(acc));  // round to the intermediate type
+        dst[o] = acc;
     }
     __syncthreads();
   }
 }
 
-template <typename T, typename TH, typename TOut, bool kScaled>
-int launch_chain(const void* x, const void* const* ws,
-                 const float* const* scales, const int* ks, const int* ns,
-                 const int* mults, int links, int m_final, int band,
-                 int threads, void* out, cudaStream_t stream) {
+int launch_chain(const void* x, const void* const* ws, const int* ks,
+                 const int* ns, const int* mults, int links, int m_final,
+                 int band, int threads, void* out, cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        chain_kernel<T, TH, TOut, kScaled>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+        chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemLimit);
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
   ChainArgs a{};
   int off = 0, max_mid = 0;
   for (int i = 0; i < links; ++i) {
-    a.w[i] = ws[i];
-    a.s[i] = kScaled ? scales[i] : nullptr;
+    a.w[i] = static_cast<const float*>(ws[i]);
     a.k[i] = ks[i];
     a.n[i] = ns[i];
     a.mult[i] = mults[i];
@@ -882,7 +872,501 @@ int launch_chain(const void* x, const void* const* ws,
   const size_t smem = (size_t)off * sizeof(float);
   if (smem > (size_t)kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   const int grid = (m_final + band - 1) / band;
-  chain_kernel<T, TH, TOut, kScaled><<<grid, threads, smem, stream>>>(
+  chain_kernel<<<grid, threads, smem, stream>>>(static_cast<const float*>(x),
+                                                static_cast<float*>(out), a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// N-link chain on the tensor cores: bf16, fp8 e4m3/e5m2, int8
+// ---------------------------------------------------------------------------
+
+constexpr int kChainWarps = 8;
+constexpr int kChainThreads = kChainWarps * 32;
+constexpr int kChainRowTile = 64;      // link-0 rows of one pass: 4 m16 tiles
+constexpr int kChainMaxWarpSteps = 8;  // 32-byte k-steps a warp takes a stage
+
+constexpr long long align16(long long b) { return (b + 15) / 16 * 16; }
+
+// Row pitch of an interior link's A operand (bf16, K padded with zeros to
+// whole k16 steps; an odd number of 16-byte units, as the GEMM's tiles).
+__host__ __device__ constexpr int chain_a_pitch(int k) {
+  return gemm_pitch((k + 15) / 16 * 32);
+}
+
+struct ChainTcArgs {
+  const void* w[kMaxLinks];  // W_i, row-major [k_i, n_i]
+  // The scaled chain's factors: link 0's per link-0 row, one scalar per
+  // interior link, the last link's per output column.
+  const float* s[kMaxLinks];
+  int k[kMaxLinks], n[kMaxLinks];
+  int mult[kMaxLinks];     // link i's rows per final output row
+  int w_off[kMaxLinks];    // byte offset of W_i, in X's type
+  int s_off[kMaxLinks];    // byte offset of link i's scales (scaled chain)
+  int a_off[kMaxLinks];    // byte offset of link i's A operand (i >= 1)
+  int a_pitch[kMaxLinks];  // and its row pitch in bytes
+  int y_off;               // the block's Y rows, flat
+  int ring_off;            // link 0's X ring; its partial sums alias it
+  int ring_pitch;          // bytes of one X row in a ring slot
+  int ring_slot;           // bytes of one ring slot
+  int stage_bytes;         // bytes of K0 a stage holds (whole 32-byte k-steps)
+  int warp_steps;          // k-steps each warp takes of a stage
+  int stages;              // stages of K0 a pass walks
+  int links, m_final, band, cw;
+};
+
+// The shared-memory layout of one chain block (mirrored by
+// fused_contraction.chain_tc_smem_bytes); returns its bytes, or -1 for
+// geometry or a warp slice the kernel does not take.  warp_k: elements
+// of K0 each warp takes of a stage.
+long long chain_tc_layout(int size, int out_size, const int* ks,
+                          const int* ns, const int* mults, int links,
+                          int band, int warp_k, ChainTcArgs* a) {
+  if (links < 2 || links > kMaxLinks || band < 1 || warp_k < 1) return -1;
+  if ((warp_k * size) % 32 || warp_k * size / 32 > kChainMaxWarpSteps)
+    return -1;
+  for (int i = 0; i < links; ++i) {
+    if (ks[i] < 1 || ns[i] < 1 || mults[i] < 1) return -1;
+    if (i > 0 && (ks[i] % ns[i - 1] ||
+                  mults[i - 1] != mults[i] * (ks[i] / ns[i - 1])))
+      return -1;
+  }
+  if (mults[links - 1] != 1) return -1;
+  long long off = 0;
+  for (int i = 0; i < links; ++i) {
+    a->w_off[i] = static_cast<int>(off);
+    off += align16((long long)ks[i] * ns[i] * size);
+  }
+  for (int i = 0; size == 1 && i < links; ++i) {  // the block's scales
+    a->s_off[i] = static_cast<int>(off);
+    const long long cnt =
+        i == 0 ? (long long)band * mults[0] : i == links - 1 ? ns[i] : 1;
+    off += align16(cnt * 4);
+  }
+  for (int i = 1; i < links; ++i) {
+    a->a_pitch[i] = chain_a_pitch(ks[i]);
+    a->a_off[i] = static_cast<int>(off);
+    off += (long long)band * mults[i] * a->a_pitch[i];
+  }
+  a->y_off = static_cast<int>(off);
+  off += align16((long long)band * ns[links - 1] * out_size);
+  const int ksteps = (ks[0] * size + 31) / 32;
+  a->warp_steps = warp_k * size / 32;
+  const int stage_steps = std::min(kChainWarps * a->warp_steps, ksteps);
+  a->stage_bytes = 32 * stage_steps;
+  a->stages = (ksteps + stage_steps - 1) / stage_steps;
+  const int rv = static_cast<int>(
+      std::min<long long>(kChainRowTile, (long long)band * mults[0]));
+  a->ring_pitch = gemm_pitch(a->stage_bytes);
+  a->ring_slot = rv * a->ring_pitch;
+  const long long ring =
+      (long long)std::min(kGemmStages, a->stages) * a->ring_slot;
+  const long long part = (long long)kChainWarps * ((rv + 15) / 16 * 16) * 8 * 4;
+  a->ring_off = static_cast<int>(off);
+  off += std::max(ring, part);
+  return off;
+}
+
+// Copy `bytes` contiguous bytes to shared memory: cp.async in the widest of
+// 16, 8, 4 bytes that the source address allows, byte by byte below that
+// and for a tail.
+__device__ __forceinline__ void copy_flat(unsigned char* dst,
+                                          const void* src_, int bytes) {
+  const unsigned char* src = static_cast<const unsigned char*>(src_);
+  const uintptr_t sa = reinterpret_cast<uintptr_t>(src);
+  const int w = sa % 16 == 0 ? 16 : sa % 8 == 0 ? 8 : sa % 4 == 0 ? 4 : 1;
+  const int chunks = bytes / w;
+#pragma unroll 1
+  for (int e = threadIdx.x; e < chunks; e += kChainThreads) {
+    const uint32_t d = smem_u32(dst + e * w);
+    if (w == 16)
+      cp_async<16>(d, src + e * 16, 16);
+    else if (w == 8)
+      cp_async<8>(d, src + e * 8, 8);
+    else if (w == 4)
+      cp_async<4>(d, src + e * 4, 4);
+    else
+      dst[e] = src[e];
+  }
+  for (int e = chunks * w + threadIdx.x; e < bytes; e += kChainThreads)
+    dst[e] = src[e];
+}
+
+// Rows [0, rows) x bytes [c0, c0 + cbytes) of a row-major global array
+// (pitch gpitch) into shared memory (pitch spitch), kW bytes a copy,
+// zero-filled past byte clim of a row.
+template <int kW>
+__device__ __forceinline__ void copy_rows_w(unsigned char* dst, int spitch,
+                                            const unsigned char* src,
+                                            int gpitch, int rows, int c0,
+                                            int cbytes, int clim) {
+  const int per = cbytes / kW;
+#pragma unroll 1
+  for (int e = threadIdx.x; e < rows * per; e += kChainThreads) {
+    const int r = e / per, c = (e - r * per) * kW;
+    const int gc = c0 + c;
+    const int valid = min(max(clim - gc, 0), kW);
+    const unsigned char* s = src + (valid > 0 ? (size_t)r * gpitch + gc : 0);
+    unsigned char* d = dst + r * spitch + c;
+    if constexpr (kW >= 4) {
+      cp_async<kW>(smem_u32(d), s, valid);
+    } else {
+#pragma unroll
+      for (int b = 0; b < kW; ++b) d[b] = b < valid ? s[b] : 0;
+    }
+  }
+}
+
+__device__ __forceinline__ void copy_rows(int cw, unsigned char* dst,
+                                          int spitch, const unsigned char* src,
+                                          int gpitch, int rows, int c0,
+                                          int cbytes, int clim) {
+  switch (cw) {  // uniform across the grid
+    case 16:
+      copy_rows_w<16>(dst, spitch, src, gpitch, rows, c0, cbytes, clim);
+      break;
+    case 8:
+      copy_rows_w<8>(dst, spitch, src, gpitch, rows, c0, cbytes, clim);
+      break;
+    case 4:
+      copy_rows_w<4>(dst, spitch, src, gpitch, rows, c0, cbytes, clim);
+      break;
+    case 2:
+      copy_rows_w<2>(dst, spitch, src, gpitch, rows, c0, cbytes, clim);
+      break;
+    default:
+      copy_rows_w<1>(dst, spitch, src, gpitch, rows, c0, cbytes, clim);
+  }
+}
+
+// Element (k, n) of a row-major [K, N] matrix of 16-bit or 8-bit values
+// in shared memory, zero past its edges (a k-step or n8 tile ragged).
+__device__ __forceinline__ uint32_t w16(const uint16_t* w, int k, int n,
+                                        int K, int N) {
+  return k < K && n < N ? w[k * N + n] : 0u;
+}
+__device__ __forceinline__ uint32_t w8(const uint8_t* w, int k, int n, int K,
+                                       int N) {
+  return k < K && n < N ? w[k * N + n] : 0u;
+}
+// The same element of a W in T as bf16 bits (exact from fp8/int8).
+template <typename T>
+__device__ __forceinline__ uint32_t wbf16(const unsigned char* w, int k,
+                                          int n, int K, int N) {
+  if constexpr (sizeof(T) == 2) {
+    return w16(reinterpret_cast<const uint16_t*>(w), k, n, K, N);
+  } else {
+    if (k >= K || n >= N) return 0u;
+    return __bfloat16_as_ushort(
+        __float2bfloat16(to_f(reinterpret_cast<const T*>(w)[k * N + n])));
+  }
+}
+
+// Tensor-core chain: one block owns a band of final rows and runs every
+// link with the intermediates in shared memory.
+// * Link 0 (long K: up to 3,072 on the main paths): passes of up to 64
+//   link-0 rows x one n8 tile; X streams through the GEMM's 4-deep
+//   cp.async ring, the 8 warps split each stage's k-steps, and the warps'
+//   partial tiles are summed in warp order through shared memory (the
+//   same bits on every call).  A warp issues its k-steps of a stage
+//   together (their loads in flight at once) into two accumulator sets:
+//   one serial chain of dependent loads and mma.sync per k-step cost more
+//   than the bytes.  The epilogue applies s_first, rounds to bf16 and
+//   stores element (r, c) at row r / g, column (r mod g) n0 + c of link
+//   1's A operand: the regroup is the store's address map.
+// * Links 1.. (K and N of 8..128, a few hundred rows at most): one m16n8
+//   tile per warp at a time over the whole K, two k-steps at a time, A by
+//   ldmatrix, W read as bf16 (an 8-bit W widened exactly as it is read);
+//   the last link stages Y in shared memory for 16-byte stores.
+// bf16 runs m16n8k16; fp8 widens each k32 step exactly to two f16 k16
+// steps and int8 runs m16n8k32 into s32, each k32 step's sums promoted
+// into f32 registers.  Rows past a pass's or link's end read a clamped
+// row (their outputs are dropped); K past the edge reads zeros, and a
+// k-step past a warp's share reads a valid address and a zero W.
+template <typename T, typename TOut, bool kScaled>
+__global__ void __launch_bounds__(kChainThreads)
+    chain_tc_kernel(const T* __restrict__ x, TOut* __restrict__ out,
+                    ChainTcArgs a) {
+  constexpr int kSize = sizeof(T);
+  constexpr bool kInt8 = std::is_same<T, int8_t>::value;
+  constexpr bool kFp8 = kSize == 1 && !kInt8;
+  extern __shared__ __align__(16) unsigned char chain_smem[];
+  unsigned char* smem = chain_smem;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int f0 = blockIdx.x * a.band;
+  const int rows_final = min(a.band, a.m_final - f0);
+  const int k0 = a.k[0], n0 = a.n[0];
+  const int row_bytes = k0 * kSize;
+  const int rows0 = rows_final * a.mult[0];  // this block's link-0 rows
+  const unsigned char* xb = reinterpret_cast<const unsigned char*>(x) +
+                            (size_t)f0 * a.mult[0] * row_bytes;
+
+  // Every weight in X's type, and the scaled chain's scales of this block,
+  // by cp.async: one group ahead of the ring's, so no plain load stalls
+  // the block before its X is in flight.  The A operands are zeroed: their
+  // pad columns meet the zero rows of W past K.
+  for (int i = 0; i < a.links; ++i)
+    copy_flat(smem + a.w_off[i], a.w[i], a.k[i] * a.n[i] * kSize);
+  if constexpr (kScaled) {
+    copy_flat(smem + a.s_off[0], a.s[0] + (size_t)f0 * a.mult[0], rows0 * 4);
+    for (int i = 1; i < a.links; ++i)
+      copy_flat(smem + a.s_off[i], a.s[i],
+                (i == a.links - 1 ? a.n[i] : 1) * 4);
+  }
+  cp_async_commit();
+  for (int i = 1; i < a.links; ++i) {
+    uint4* z = reinterpret_cast<uint4*>(smem + a.a_off[i]);
+    const int cnt = a.band * a.mult[i] * a.a_pitch[i] / 16;
+    for (int e = threadIdx.x; e < cnt; e += kChainThreads)
+      z[e] = make_uint4(0, 0, 0, 0);
+  }
+
+  // -- link 0 ---------------------------------------------------------------
+  const int ksteps = (row_bytes + 31) / 32;
+  const int stage_steps = a.stage_bytes / 32;
+  const int g1 = a.k[1] / n0;  // link 1's regroup factor
+  unsigned char* a1 = smem + a.a_off[1];
+  float* part = reinterpret_cast<float*>(smem + a.ring_off);
+  const uint8_t* w0b = smem + a.w_off[0];
+  const float* s0 = reinterpret_cast<const float*>(smem + a.s_off[0]);
+  for (int p0 = 0; p0 < rows0; p0 += kChainRowTile) {
+    const int rv = min(kChainRowTile, rows0 - p0);
+    const int mts = (rv + 15) / 16;
+    const unsigned char* xp = xb + (size_t)p0 * row_bytes;
+    for (int c0 = 0; c0 < n0; c0 += 8) {
+      float acc[2][4][4];  // two sets: even and odd k-steps of a stage
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[p][i][e] = 0.f;
+      const int n = c0 + g;  // this lane's W_0 column
+      auto load = [&](int slot, int st) {
+        const int cb = st * a.stage_bytes;
+        copy_rows(a.cw, smem + a.ring_off + slot * a.ring_slot, a.ring_pitch,
+                  xp, row_bytes, rv, cb,
+                  min(a.stage_bytes, (ksteps * 32) - cb), row_bytes);
+      };
+      auto compute = [&](int slot, int st) {
+        const unsigned char* xs = smem + a.ring_off + slot * a.ring_slot;
+        // this warp's k-steps of the stage: [ls0, ls0 + steps)
+        const int ls0 = warp * a.warp_steps;
+        const int steps = min(min(a.warp_steps, stage_steps - ls0),
+                              ksteps - st * stage_steps - ls0);
+        if (steps <= 0) return;
+        // W_0's fragments of every k-step first, then per m16 tile the A
+        // fragments of every k-step, then the products: the loads of a
+        // stage are in flight together.
+        uint32_t b[kChainMaxWarpSteps][2];
+#pragma unroll
+        for (int t = 0; t < kChainMaxWarpSteps; ++t) {
+          if (t >= steps) break;
+          const int kk = (st * stage_steps + ls0 + t) * (32 / kSize);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if constexpr (kSize == 2) {
+              const uint16_t* w = reinterpret_cast<const uint16_t*>(w0b);
+              const int k = kk + 2 * q + 8 * h;
+              b[t][h] = w16(w, k, n, k0, n0) | (w16(w, k + 1, n, k0, n0) << 16);
+            } else {
+              const int k = kk + 16 * h + 4 * q;
+              b[t][h] = w8(w0b, k, n, k0, n0) |
+                        (w8(w0b, k + 1, n, k0, n0) << 8) |
+                        (w8(w0b, k + 2, n, k0, n0) << 16) |
+                        (w8(w0b, k + 3, n, k0, n0) << 24);
+            }
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          if (mt >= mts) break;
+          const int row = min(mt * 16 + (lane & 15), rv - 1);
+          const uint32_t arow = smem_u32(xs + row * a.ring_pitch +
+                                         ls0 * 32 + (lane >> 4) * 16);
+          uint32_t af[kChainMaxWarpSteps][4];
+#pragma unroll
+          for (int t = 0; t < kChainMaxWarpSteps; ++t)
+            if (t < steps) ldsm_x4(arow + t * 32, af[t]);
+#pragma unroll
+          for (int t = 0; t < kChainMaxWarpSteps; ++t) {
+            if (t >= steps) break;
+            float* c = acc[t & 1][mt];
+            if constexpr (kSize == 2) {
+              mma_bf16(c, af[t], b[t][0], b[t][1]);
+            } else if constexpr (kInt8) {
+              int sum[4] = {0, 0, 0, 0};
+              mma_s8(sum, af[t], b[t][0], b[t][1]);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) c[e] += static_cast<float>(sum[e]);
+            } else {
+              // As gemm_tc_kernel: a k32 register's lower pair fills f16
+              // slots 2q, 2q+1 and its upper pair 2q+8, 2q+9 of a k16 step.
+              float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const uint32_t aw[4] = {
+                    fp8x2_to_f16x2<T>(af[t][2 * h]),
+                    fp8x2_to_f16x2<T>(af[t][2 * h + 1]),
+                    fp8x2_to_f16x2<T>(af[t][2 * h] >> 16),
+                    fp8x2_to_f16x2<T>(af[t][2 * h + 1] >> 16)};
+                mma_f16(sum, aw, fp8x2_to_f16x2<T>(b[t][h]),
+                        fp8x2_to_f16x2<T>(b[t][h] >> 16));
+              }
+#pragma unroll
+              for (int e = 0; e < 4; ++e) c[e] += sum[e];
+            }
+          }
+        }
+      };
+      gemm_pipeline(a.stages, load, compute);
+      cp_async_wait<0>();
+      __syncthreads();  // the ring is drained: its space takes the partials
+      const int rp = mts * 16;
+      float* mine = part + warp * rp * 8;
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        if (mt >= mts) break;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(mine + (mt * 16 + g + 8 * h) * 8 + 2 * q) =
+              make_float2(acc[0][mt][2 * h] + acc[1][mt][2 * h],
+                          acc[0][mt][2 * h + 1] + acc[1][mt][2 * h + 1]);
+      }
+      __syncthreads();
+      for (int e = threadIdx.x; e < rv * 8; e += kChainThreads) {
+        const int r = e >> 3, c = c0 + (e & 7);
+        if (c >= n0) continue;
+        float v = part[e];
+#pragma unroll
+        for (int w = 1; w < kChainWarps; ++w) v += part[w * rp * 8 + e];
+        const int rr = p0 + r;  // the block's link-0 row
+        if constexpr (kScaled)
+          v = __fmul_rn(v, s0[rr]);
+        *reinterpret_cast<__nv_bfloat16*>(
+            a1 + (rr / g1) * a.a_pitch[1] + ((rr % g1) * n0 + c) * 2) =
+            __float2bfloat16(v);
+      }
+      __syncthreads();  // A_1 written; the ring is free again
+    }
+  }
+
+  // -- links 1.. --------------------------------------------------------------
+  TOut* ys = reinterpret_cast<TOut*>(smem + a.y_off);
+  for (int i = 1; i < a.links; ++i) {
+    const int k = a.k[i], n = a.n[i];
+    const int rows = rows_final * a.mult[i];
+    const int mts = (rows + 15) / 16, nts = (n + 7) / 8;
+    const int ks = (k + 15) / 16;
+    const bool last = i == a.links - 1;
+    const unsigned char* w = smem + a.w_off[i];
+    const float* sc = reinterpret_cast<const float*>(smem + a.s_off[i]);
+    const unsigned char* ai = smem + a.a_off[i];
+    const int gi = last ? 1 : a.k[i + 1] / n;
+    for (int t = warp; t < mts * nts; t += kChainWarps) {
+      const int mt = t / nts, nt = t - mt * nts;
+      const int row = min(mt * 16 + (lane & 15), rows - 1);
+      const uint32_t abase =
+          smem_u32(ai + row * a.a_pitch[i] + (lane >> 4) * 16);
+      const int col = nt * 8 + g;
+      float acc[2][4] = {};  // even and odd k-steps
+#pragma unroll 1
+      for (int s0 = 0; s0 < ks; s0 += 2) {
+        const int np = min(2, ks - s0);
+        uint32_t af[2][4], b[2][2];
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          if (p >= np) break;
+          ldsm_x4(abase + (s0 + p) * 32, af[p]);
+          const int kk = (s0 + p) * 16 + 2 * q;
+          b[p][0] = wbf16<T>(w, kk, col, k, n) |
+                    (wbf16<T>(w, kk + 1, col, k, n) << 16);
+          b[p][1] = wbf16<T>(w, kk + 8, col, k, n) |
+                    (wbf16<T>(w, kk + 9, col, k, n) << 16);
+        }
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+          if (p < np) mma_bf16(acc[p], af[p], b[p][0], b[p][1]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = mt * 16 + g + 8 * (e >> 1), c = nt * 8 + 2 * q + (e & 1);
+        if (r >= rows || c >= n) continue;
+        float v = acc[0][e] + acc[1][e];
+        if constexpr (kScaled) v = __fmul_rn(v, sc[last ? c : 0]);
+        if (last) {
+          ys[r * n + c] = from_f<TOut>(v);
+        } else {
+          *reinterpret_cast<__nv_bfloat16*>(
+              smem + a.a_off[i + 1] + (r / gi) * a.a_pitch[i + 1] +
+              ((r % gi) * n + c) * 2) = __float2bfloat16(v);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // -- Y: the block's rows are one contiguous run of the output -------------
+  const int ybytes =
+      rows_final * a.n[a.links - 1] * static_cast<int>(sizeof(TOut));
+  unsigned char* yd = reinterpret_cast<unsigned char*>(
+      out + (size_t)f0 * a.n[a.links - 1]);
+  const unsigned char* yb = smem + a.y_off;
+  const uintptr_t ya = reinterpret_cast<uintptr_t>(yd);
+  if (ya % 16 == 0 && ybytes % 16 == 0) {
+    for (int e = threadIdx.x; e < ybytes / 16; e += kChainThreads)
+      reinterpret_cast<uint4*>(yd)[e] = reinterpret_cast<const uint4*>(yb)[e];
+  } else if (ya % 4 == 0 && ybytes % 4 == 0) {
+    for (int e = threadIdx.x; e < ybytes / 4; e += kChainThreads)
+      reinterpret_cast<uint32_t*>(yd)[e] =
+          reinterpret_cast<const uint32_t*>(yb)[e];
+  } else {
+    for (int e = threadIdx.x; e < ybytes / 2; e += kChainThreads)
+      reinterpret_cast<uint16_t*>(yd)[e] =
+          reinterpret_cast<const uint16_t*>(yb)[e];
+  }
+}
+
+// Whether the kernel takes cw for this X (alignment of its base and row
+// pitch).
+bool chain_cw_ok(int cw, const void* x, int row_bytes) {
+  return (cw == 1 || cw == 2 || cw == 4 || cw == 8 || cw == 16) &&
+         reinterpret_cast<uintptr_t>(x) % cw == 0 && row_bytes % cw == 0;
+}
+
+template <typename T, typename TOut, bool kScaled>
+int launch_chain_tc(const void* x, const void* const* ws,
+                    const float* const* scales, const int* ks, const int* ns,
+                    const int* mults, int links, int m_final, int band,
+                    int warp_k, int cw, void* out, cudaStream_t stream) {
+  ChainTcArgs a{};
+  const long long smem = chain_tc_layout(sizeof(T), sizeof(TOut), ks, ns,
+                                         mults, links, band, warp_k, &a);
+  if (smem < 0 || smem > kSmemLimit || m_final < 1 ||
+      !chain_cw_ok(cw, x, ks[0] * static_cast<int>(sizeof(T))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = chain_tc_kernel<T, TOut, kScaled>;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set = true;
+  }
+  for (int i = 0; i < links; ++i) {
+    a.w[i] = ws[i];
+    a.s[i] = kScaled ? scales[i] : nullptr;
+    a.k[i] = ks[i];
+    a.n[i] = ns[i];
+    a.mult[i] = mults[i];
+  }
+  a.links = links;
+  a.m_final = m_final;
+  a.band = band;
+  a.cw = cw;
+  const int grid = (m_final + band - 1) / band;
+  kern<<<grid, kChainThreads, static_cast<size_t>(smem), stream>>>(
       static_cast<const T*>(x), static_cast<TOut*>(out), a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -959,46 +1443,53 @@ int fc_gemm_k_slice(int dtype, int trans, int tile, int splits, int cw,
   return ok ? k_slice : -1;
 }
 
-static bool chain_args_ok(int links, int band, int threads) {
-  return links >= 2 && links <= kMaxLinks && band >= 1 && threads >= 32 &&
-         threads <= 1024;
-}
-
+// The f32 chain (dtype 0) on the FMA units.
 int fc_chain(int dtype, const void* x, const void* const* ws, const int* ks,
              const int* ns, const int* mults, int links, int m_final, int band,
              int threads, void* out, void* stream) {
-  if (!chain_args_ok(links, band, threads))
+  if (dtype != 0 || links < 2 || links > kMaxLinks || band < 1 ||
+      threads < 32 || threads > 1024)
     return static_cast<int>(cudaErrorInvalidValue);
+  return launch_chain(x, ws, ks, ns, mults, links, m_final, band, threads,
+                      out, static_cast<cudaStream_t>(stream));
+}
+
+// The tensor-core chain: dtype 1 (bf16 X, W and Y) or, with scales (as
+// ChainTcArgs::s), 2, 3 or 4 (fp8/int8 X and W, bf16 intermediates, f32
+// Y).  band, warp_k and cw as fused_contraction.chain_config chose them;
+// a configuration the kernel does not take returns cudaErrorInvalidValue.
+int fc_chain_tc(int dtype, const void* x, const void* const* ws,
+                const void* const* scales, const int* ks, const int* ns,
+                const int* mults, int links, int m_final, int band,
+                int warp_k, int cw, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_chain<float, float, float, false>(
-        x, ws, nullptr, ks, ns, mults, links, m_final, band, threads, out, s);
+  const float* const* sc = reinterpret_cast<const float* const*>(scales);
   if (dtype == 1)
-    return launch_chain<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16, false>(
-        x, ws, nullptr, ks, ns, mults, links, m_final, band, threads, out, s);
+    return launch_chain_tc<__nv_bfloat16, __nv_bfloat16, false>(
+        x, ws, nullptr, ks, ns, mults, links, m_final, band, warp_k, cw, out,
+        s);
+  if (sc == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 2)
+    return launch_chain_tc<__nv_fp8_e4m3, float, true>(
+        x, ws, sc, ks, ns, mults, links, m_final, band, warp_k, cw, out, s);
+  if (dtype == 3)
+    return launch_chain_tc<__nv_fp8_e5m2, float, true>(
+        x, ws, sc, ks, ns, mults, links, m_final, band, warp_k, cw, out, s);
+  if (dtype == 4)
+    return launch_chain_tc<int8_t, float, true>(
+        x, ws, sc, ks, ns, mults, links, m_final, band, warp_k, cw, out, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The scaled chain: X and W in dtype 2, 3 or 4, bf16 intermediates, f32 Y;
-// scales[i] as ChainArgs::s.
-int fc_chain_scaled(int dtype, const void* x, const void* const* ws,
-                    const void* const* scales, const int* ks, const int* ns,
-                    const int* mults, int links, int m_final, int band,
-                    int threads, void* out, void* stream) {
-  if (!chain_args_ok(links, band, threads))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* const* sc = reinterpret_cast<const float* const*>(scales);
-  if (dtype == 2)
-    return launch_chain<__nv_fp8_e4m3, __nv_bfloat16, float, true>(
-        x, ws, sc, ks, ns, mults, links, m_final, band, threads, out, s);
-  if (dtype == 3)
-    return launch_chain<__nv_fp8_e5m2, __nv_bfloat16, float, true>(
-        x, ws, sc, ks, ns, mults, links, m_final, band, threads, out, s);
-  if (dtype == 4)
-    return launch_chain<int8_t, __nv_bfloat16, float, true>(
-        x, ws, sc, ks, ns, mults, links, m_final, band, threads, out, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+// The tensor-core chain's shared memory per block for dtype 1-4, or -1
+// where its layout refuses the geometry or warp_k.
+long long fc_chain_tc_smem_bytes(int dtype, const int* ks, const int* ns,
+                                 const int* mults, int links, int band,
+                                 int warp_k) {
+  if (dtype < 1 || dtype > 4) return -1;
+  ChainTcArgs a{};
+  return chain_tc_layout(dtype == 1 ? 2 : 1, dtype == 1 ? 2 : 4, ks, ns,
+                         mults, links, band, warp_k, &a);
 }
 
 int fc_max_links(void) { return kMaxLinks; }

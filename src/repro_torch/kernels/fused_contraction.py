@@ -23,9 +23,16 @@ the H100 and how the design answers it):
 * :func:`chain_n_cuda` replaces ``chain_n_pallas`` (``_chain_n_kernel``):
   an N-link contraction chain whose intermediates stay in shared memory,
   with the row-major regroup ``[r, n_i] -> [r/g, g*n_i]`` between links
-  done as index arithmetic on chip.  With ``scales=(s_first, *mids,
-  s_last)`` it runs the quantized branch: fp8/int8 operands, one folded
-  dequantization factor per link, bf16 intermediates, f32 output.
+  done as the store address of each link's epilogue.  With
+  ``scales=(s_first, *mids, s_last)`` it runs the quantized branch:
+  fp8/int8 operands, one folded dequantization factor per link, bf16
+  intermediates, f32 output.  bf16, fp8 and int8 chains run
+  ``chain_tc_kernel`` on the tensor cores (link 0's long K split across
+  the block's warps, summed in a fixed order); f32 chains keep the
+  FMA-unit ``chain_kernel``.  :func:`chain_kernel_for` names the kernel
+  and :func:`chain_config` is its launch rule, shared like
+  :func:`gemm_config`.  Which chains fuse is :func:`chain_band_rows`,
+  the same for both kernels.
 
 Each wrapper checks device, dtype, shape and contiguity, launches on
 ``torch.cuda.current_stream()`` and raises if the launch reports an
@@ -72,6 +79,15 @@ GEMM_STAGES, GEMM_STAGE_BYTES = 4, 64
 #: stages of K a split walks at least (the ring's depth)
 GEMM_MIN_SPLIT_STEPS = 4
 _THREADS = 256
+#: warps of one tensor-core chain block (``kChainWarps``): they split
+#: link 0's K and take the later links' m16n8 tiles in turn
+CHAIN_WARPS = 8
+#: link-0 rows one pass of the tensor-core chain computes (4 m16 tiles)
+CHAIN_ROW_TILE = 64
+#: 32-byte k-steps of K0 a warp takes of one ring stage, at most
+CHAIN_MAX_WARP_STEPS = 8
+#: bytes the tensor-core chain's X ring may take before warp slices shrink
+CHAIN_RING_BYTES = 64 * 1024
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 #: (``flash_attention_fwd`` is counted by :mod:`.flash_attention`,
@@ -172,6 +188,144 @@ def chain_band_rows(m0: int, shapes) -> int:
            <= CHAIN_SMEM_BUDGET_BYTES):
         band *= 2
     return band
+
+
+class ChainConfig(NamedTuple):
+    """How a chain launch runs (:func:`chain_config`).  For ``"simt"``
+    the warp and stage fields are the whole of K0 (each thread walks it
+    serially) and ``copy_bytes`` the f32 element."""
+    kernel: str        #: ``"tensor_cores"`` or ``"simt"``
+    band: int          #: final rows per block
+    warps: int
+    warp_k: int        #: elements of K0 each warp takes of a ring stage
+    stage_k: int       #: elements of K0 one ring stage holds
+    stages: int        #: ring stages one pass of link 0 walks
+    copy_bytes: int    #: bytes per X copy: 16, 8, 4 (cp.async), 2 or 1
+    smem_bytes: int
+
+
+def chain_kernel_for(x: torch.Tensor) -> str:
+    """Which chain kernel a launch on X runs: ``"tensor_cores"``
+    (``chain_tc_kernel``) for bf16, fp8 and int8, ``"simt"``
+    (``chain_kernel``) for f32."""
+    return "simt" if x.dtype == torch.float32 else "tensor_cores"
+
+
+def _chain_a_pitch(k: int) -> int:
+    """Row pitch in bytes of an interior link's bf16 A operand: K padded
+    to whole k16 steps, an odd number of 16-byte units."""
+    return _gemm_pitch(-(-k // 16) * 32)
+
+
+def _align16(b: int) -> int:
+    return -(-b // 16) * 16
+
+
+def _chain_ring(k0: int, itemsize: int, warp_k: int) -> tuple[int, int]:
+    """(bytes of K0 a stage holds, stages a pass walks)."""
+    ksteps = -(-k0 * itemsize // 32)
+    stage_steps = min(CHAIN_WARPS * warp_k * itemsize // 32, ksteps)
+    return 32 * stage_steps, -(-ksteps // stage_steps)
+
+
+def chain_tc_smem_bytes(m0: int, shapes, itemsize: int, band: int,
+                        warp_k: int) -> int:
+    """Shared memory of one tensor-core chain block: every weight in X's
+    type; when X is 8-bit (the scaled chain) the block's scales; the
+    interior A operands in bf16; the block's Y rows (f32 in the scaled
+    chain); and link 0's X ring or, after it drains, the warps' partial
+    tiles.  Mirrors ``chain_tc_layout`` in the CUDA source."""
+    shapes = tuple(shapes)
+    rows, _ = chain_plan(m0, shapes)
+    mults = [r // rows[-1] for r in rows]
+    k0, scaled = shapes[0][0], itemsize == 1
+    out_size = 4 if scaled else 2
+    stage_bytes, stages = _chain_ring(k0, itemsize, warp_k)
+    off = sum(_align16(k * n * itemsize) for k, n in shapes)
+    if scaled:
+        off += (_align16(band * mults[0] * 4) + 16 * (len(shapes) - 2)
+                + _align16(shapes[-1][1] * 4))
+    off += sum(band * m * _chain_a_pitch(k)
+               for m, (k, _) in zip(mults[1:], shapes[1:]))
+    off += _align16(band * shapes[-1][1] * out_size)
+    rv = min(CHAIN_ROW_TILE, band * mults[0])
+    ring = min(GEMM_STAGES, stages) * rv * _gemm_pitch(stage_bytes)
+    part = CHAIN_WARPS * -(-rv // 16) * 16 * 8 * 4
+    return off + max(ring, part)
+
+
+@functools.lru_cache(maxsize=4096)   # called on every launch
+def chain_config(m0: int, shapes: tuple, dtype: torch.dtype,
+                 alignment: int = 16) -> ChainConfig:
+    """The chain kernel and its launch for ``[m0, k0]`` through ``shapes``.
+
+    f32 runs ``chain_kernel`` at :func:`chain_band_rows`'s band.  The
+    tensor-core kernel:
+
+    * Band: the largest power of two up to :data:`MAX_BAND_ROWS` whose
+      grid still gives each of the 132 SMs a block and whose link-0 rows
+      fit one pass (:data:`CHAIN_ROW_TILE`), else 1: each block's X is
+      small, so the card's bytes in flight come from its many blocks.
+    * Warp slice: each stage gives every warp the same number of 32-byte
+      k-steps of K0 (at most :data:`CHAIN_MAX_WARP_STEPS`, fewer where
+      the ring would pass :data:`CHAIN_RING_BYTES`), spread evenly over
+      the fewest stages.
+    * Copy width: the widest of 16, 8, 4, 2, 1 bytes dividing
+      ``alignment`` (X's base address) and X's row pitch.
+
+    Raises :class:`ChainLoweringError` where the chain does not fuse
+    (:func:`chain_band_rows`) or the tensor-core kernel's shared memory
+    cannot hold it; the CUDA side refuses what breaks these rules."""
+    shapes = tuple(tuple(s) for s in shapes)
+    simt_band = chain_band_rows(m0, shapes)
+    rows, _ = chain_plan(m0, shapes)
+    mults = [r // rows[-1] for r in rows]
+    if dtype == torch.float32:
+        widest = max(simt_band * m * n for m, (_, n) in zip(mults, shapes))
+        threads = min(_THREADS, max(32, -(-widest // 32) * 32))
+        return ChainConfig("simt", simt_band, threads // 32, shapes[0][0],
+                           shapes[0][0], 1, 4,
+                           chain_smem_bytes(m0, shapes, simt_band))
+    size = dtype.itemsize
+    ksteps = -(-shapes[0][0] * size // 32)
+
+    def warp_steps(band):
+        rv = min(CHAIN_ROW_TILE, band * mults[0])
+        cap = CHAIN_MAX_WARP_STEPS
+        while cap > 1 and min(GEMM_STAGES, -(-ksteps // (CHAIN_WARPS * cap))
+                              ) * rv * _gemm_pitch(
+                                  32 * CHAIN_WARPS * cap) > CHAIN_RING_BYTES:
+            cap -= 1
+        stages = -(-ksteps // (CHAIN_WARPS * cap))
+        return -(-ksteps // (CHAIN_WARPS * stages))
+
+    def smem(band):
+        return chain_tc_smem_bytes(m0, shapes, size, band,
+                                   warp_steps(band) * 32 // size)
+
+    band = 1
+    while (band * 2 <= MAX_BAND_ROWS
+           and -(-rows[-1] // (band * 2)) >= _NUM_SMS
+           and band * 2 * mults[0] <= CHAIN_ROW_TILE
+           and smem(band * 2) <= CHAIN_SMEM_BUDGET_BYTES):
+        band *= 2
+    _require(smem(band) <= CHAIN_SMEM_BUDGET_BYTES,
+             f"chain exceeds the tensor-core kernel's shared memory: "
+             f"{smem(band)} > {CHAIN_SMEM_BUDGET_BYTES} bytes")
+    warp_k = warp_steps(band) * 32 // size
+    stage_bytes, stages = _chain_ring(shapes[0][0], size, warp_k)
+    copy = 16
+    while copy > 1 and (alignment % copy or shapes[0][0] * size % copy):
+        copy //= 2
+    return ChainConfig("tensor_cores", band, CHAIN_WARPS, warp_k,
+                       stage_bytes // size, stages, copy, smem(band))
+
+
+def chain_config_for(x: torch.Tensor, weights) -> ChainConfig:
+    """:func:`chain_config` for these operands (their shapes, dtype and
+    X's base address): what :func:`chain_n_cuda` launches with."""
+    shapes = tuple(tuple(w.shape) for w in weights)
+    return chain_config(x.shape[0], shapes, x.dtype, _alignment(x))
 
 
 class GemmConfig(NamedTuple):
@@ -306,12 +460,15 @@ def _lib() -> ctypes.CDLL:
         lib.fc_gemm_k_slice.argtypes = [ci, ci, ci, ci, ci, vp, vp, ci, ci,
                                         ci]
         lib.fc_gemm_k_slice.restype = ci
-        lib.fc_chain_scaled.argtypes = [ci, vp, ctypes.POINTER(vp),
-                                        ctypes.POINTER(vp),
-                                        ctypes.POINTER(ci), ctypes.POINTER(ci),
-                                        ctypes.POINTER(ci), ci, ci, ci, ci,
-                                        vp, vp]
-        lib.fc_chain_scaled.restype = ci
+        lib.fc_chain_tc.argtypes = [ci, vp, ctypes.POINTER(vp),
+                                    ctypes.POINTER(vp), ctypes.POINTER(ci),
+                                    ctypes.POINTER(ci), ctypes.POINTER(ci),
+                                    ci, ci, ci, ci, ci, vp, vp]
+        lib.fc_chain_tc.restype = ci
+        lib.fc_chain_tc_smem_bytes.argtypes = [
+            ci, ctypes.POINTER(ci), ctypes.POINTER(ci), ctypes.POINTER(ci),
+            ci, ci, ci]
+        lib.fc_chain_tc_smem_bytes.restype = ctypes.c_longlong
         lib.fc_max_links.restype = ci
         lib.fc_error_string.argtypes = [ci]
         lib.fc_error_string.restype = ctypes.c_char_p
@@ -471,7 +628,7 @@ def chain_n_cuda(x: torch.Tensor, weights, *, out_dtype=None,
              f"chain link 0: contraction mismatch {shapes[0][0]} vs "
              f"{x.shape[1]}")
     rows, _ = chain_plan(m0, shapes)
-    band = chain_band_rows(m0, shapes)
+    cfg = chain_config_for(x, weights)
     m_final, n_last = rows[-1], shapes[-1][1]
     if scales is not None:
         scales = _check_chain_scales(scales, len(weights), m0, n_last)
@@ -490,25 +647,23 @@ def chain_n_cuda(x: torch.Tensor, weights, *, out_dtype=None,
     if m_final == 0:
         return out
     links = len(weights)
-    mults = [r // m_final for r in rows]
-    ptrs = (ctypes.c_void_p * links)(*(w.data_ptr() for w in weights))
-    ks = (ctypes.c_int * links)(*(k for k, _ in shapes))
-    ns = (ctypes.c_int * links)(*(n for _, n in shapes))
-    ms = (ctypes.c_int * links)(*mults)
-    widest = max(band * mults[i] * shapes[i][1] for i in range(links))
-    threads = min(_THREADS, max(32, -(-widest // 32) * 32))
+    geo = ((ctypes.c_void_p * links)(*(w.data_ptr() for w in weights)),
+           (ctypes.c_int * links)(*(k for k, _ in shapes)),
+           (ctypes.c_int * links)(*(n for _, n in shapes)),
+           (ctypes.c_int * links)(*(r // m_final for r in rows)))
     lib = _lib()
-    if scales is None:
-        rc = lib.fc_chain(_DTYPE_CODES[x.dtype], x.data_ptr(), ptrs, ks, ns,
-                          ms, links, m_final, band, threads, out.data_ptr(),
+    if cfg.kernel == "simt":
+        rc = lib.fc_chain(_DTYPE_CODES[x.dtype], x.data_ptr(), *geo, links,
+                          m_final, cfg.band, cfg.warps * 32, out.data_ptr(),
                           _stream())
-        key = "chain_n"
     else:
-        sptrs = (ctypes.c_void_p * links)(*(s_.data_ptr() for s_ in scales))
-        rc = lib.fc_chain_scaled(_QUANT_CODES[x.dtype], x.data_ptr(), ptrs,
-                                 sptrs, ks, ns, ms, links, m_final, band,
-                                 threads, out.data_ptr(), _stream())
-        key = "chain_n_scaled"
+        code = (_DTYPE_CODES if scales is None else _QUANT_CODES)[x.dtype]
+        sptrs = (None if scales is None else (ctypes.c_void_p * links)(
+            *(s_.data_ptr() for s_ in scales)))
+        rc = lib.fc_chain_tc(code, x.data_ptr(), geo[0], sptrs, *geo[1:],
+                             links, m_final, cfg.band, cfg.warp_k,
+                             cfg.copy_bytes, out.data_ptr(), _stream())
+    key = "chain_n" if scales is None else "chain_n_scaled"
     _check_rc(lib, rc, "chain_n_cuda")
     LAUNCHES[key] += 1
     return out

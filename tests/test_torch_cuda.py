@@ -22,6 +22,7 @@ within 1e-5 of the state's scale, against the twin and, for the
 broadcast ``ssd`` form, against the sequential oracle too.
 """
 
+import ctypes
 import math
 
 import numpy as np
@@ -660,3 +661,144 @@ def test_cuda_gemm_config_rule_matches_the_kernel(cuda_device,
     with pytest.raises(RuntimeError, match="matmul_cuda launch failed"):
         fc.matmul_cuda(x, x)
     assert fc.LAUNCHES["matmul"] == before
+
+
+#: every chain geometry of the ATIS serve, train and fp8-train plans
+#: (``chip_smoke.py``'s enumeration), then ragged K and N and 3 links
+ATIS_CHAINS = [
+    (4, ((96, 8), (8, 64))), (4, ((96, 8), (8, 96))),
+    (4, ((128, 8), (8, 64))), (384, ((8, 8), (64, 8))),
+    (1024, ((12, 8), (128, 8))), (1536, ((64, 8), (96, 8))),
+    (2048, ((192, 8), (128, 8))), (768, ((768, 8), (64, 8))),
+    (768, ((3072, 8), (64, 8))), (3072, ((768, 8), (96, 8))),
+    (96, ((64, 8), (64, 8))), (12288, ((192, 8), (128, 8))),
+    (12288, ((256, 8), (96, 8))),
+]
+FP8_CHAINS = ATIS_CHAINS[7:]
+ODD_CHAINS = [
+    (24, ((16, 8), (8, 12))),              # g = 1, ragged N
+    (130, ((5, 4), (8, 6))),               # K0 = 5: 10-byte rows, g = 2
+    (12, ((4, 2), (4, 6), (12, 3))),       # 3 links, n0 = 2
+    (1536, ((8, 8), (64, 8), (96, 8))),    # 3 links, g = 8 then 12
+    (512, ((40, 20), (40, 12))),           # n0 = 20: three n8 passes
+    (512, ((16, 2), (256, 4))),            # g = 128: two link-0 row passes
+    (3072, ((1100, 8), (96, 8))),          # K0 of 34.4 k-steps (8-bit)
+]
+
+
+def _chain_case(device, dtype, m0, links, seed):
+    """X and W (and, for a quantized dtype, the folded scales) on the card;
+    the kernel's call and its plain twin."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(m0, links[0][0], generator=gen, device=device)
+    ws = [torch.randn(s_, generator=gen, device=device) for s_ in links]
+    if isinstance(dtype, torch.dtype):
+        x, ws = x.to(dtype), [w.to(dtype) for w in ws]
+        return (x, ws, lambda: fc.chain_n_cuda(x, ws),
+                lambda: ref.chain_n(x, ws))
+    pol = QuantPolicy.parse(dtype)
+    qx, qws = quant.quantize(x, pol), [quant.quantize(w, pol) for w in ws]
+    scales = (qx.row_scales() * qws[0].scale,
+              *[w.scale.reshape(1, 1) for w in qws[1:-1]],
+              qws[-1].scale * (torch.rand(1, links[-1][1], generator=gen,
+                                          device=device) + 0.5))
+    wq = [w.q for w in qws]
+    return (qx.q, wq, lambda: fc.chain_n_cuda(qx.q, wq, scales=scales),
+            lambda: ref.chain_n_scaled(qx.q, wq, scales))
+
+
+def _chain_ok(dtype, got, want):
+    """bf16: two ulps of the scale (a rounded intermediate one ulp apart,
+    carried by the next link); scaled: ``ref.chain_scaled_agreement``;
+    f32: 1e-5 of the scale."""
+    if isinstance(dtype, str):
+        return ref.chain_scaled_agreement(got, want)
+    scale = float(want.float().abs().max())
+    tol = 1e-5 * scale if dtype == torch.float32 else 2 * _bf16_ulp(scale)
+    err = _max_err(got, want)
+    return err <= tol, {"max_abs_err": err, "tol": tol}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,m0,links", [
+    *[(torch.bfloat16, m0, links) for m0, links in ATIS_CHAINS + ODD_CHAINS],
+    *[(d, m0, links) for d in QUANT
+      for m0, links in FP8_CHAINS + ODD_CHAINS[3:4] + ODD_CHAINS[-1:]],
+], ids=str)
+def test_cuda_chain_tc_matches_plain_version(cuda_device, dtype, m0, links):
+    """The tensor-core chain at every ATIS chain geometry, ragged K and N,
+    several n8 passes and link-0 row passes, and 3 links: one launch,
+    counted, within the gates of ``chip_smoke.py``."""
+    x, ws, call, plain = _chain_case(cuda_device, dtype, m0, links, m0)
+    assert fc.chain_kernel_for(x) == "tensor_cores"
+    assert fc.chain_config_for(x, ws).kernel == "tensor_cores"
+    key = "chain_n" if isinstance(dtype, torch.dtype) else "chain_n_scaled"
+    before = dict(fc.LAUNCHES)
+    got = call()
+    want = plain()
+    torch.cuda.synchronize()
+    assert fc.LAUNCHES[key] == before[key] + 1
+    assert got.shape == want.shape and got.dtype == want.dtype
+    good, nums = _chain_ok(dtype, got, want)
+    assert good, (nums, fc.chain_config_for(x, ws))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,m0,links", [
+    (torch.bfloat16, 768, ((3072, 8), (64, 8))),
+    ("fp8_e4m3", 12288, ((192, 8), (128, 8))),
+    ("fp8_e5m2", 768, ((768, 8), (64, 8))),
+    ("int8", 3072, ((768, 8), (96, 8))),
+], ids=str)
+def test_cuda_chain_tc_is_deterministic(cuda_device, dtype, m0, links):
+    """Two calls on the same inputs give the same bits (link 0's warp
+    partials are summed in a fixed order)."""
+    _, _, call, _ = _chain_case(cuda_device, dtype, m0, links, 21)
+    assert torch.equal(_bits(call()), _bits(call()))
+
+
+@pytest.mark.cuda
+def test_cuda_chain_picks_its_kernel_by_dtype(cuda_device):
+    """f32 runs the SIMT kernel (1e-5 of the scale), the other dtypes the
+    tensor-core one; both count under the same key."""
+    m0, links = 2048, ((192, 8), (128, 8))
+    x, ws, call, plain = _chain_case(cuda_device, torch.float32, m0, links, 4)
+    assert fc.chain_kernel_for(x) == "simt"
+    assert fc.chain_config_for(x, ws).kernel == "simt"
+    before = fc.LAUNCHES["chain_n"]
+    good, nums = _chain_ok(torch.float32, call(), plain())
+    assert good, nums
+    assert fc.LAUNCHES["chain_n"] == before + 1
+    for dtype in (torch.bfloat16, torch.float8_e4m3fn, torch.float8_e5m2,
+                  torch.int8):
+        assert fc.chain_kernel_for(x.to(dtype)) == "tensor_cores"
+
+
+@pytest.mark.cuda
+def test_cuda_chain_config_rule_matches_the_kernel(cuda_device,
+                                                   monkeypatch):
+    """The kernel's own layout gives the shared memory ``chain_config``
+    computed, at every geometry above in every dtype; a warp slice it does
+    not take is refused, the wrapper raises and counts no launch."""
+    lib = fc._lib()
+    codes = {torch.bfloat16: 1, torch.float8_e4m3fn: 2,
+             torch.float8_e5m2: 3, torch.int8: 4}
+    for m0, links in ATIS_CHAINS + ODD_CHAINS:
+        rows, _ = fc.chain_plan(m0, links)
+        n = len(links)
+        ks = (ctypes.c_int * n)(*(k for k, _ in links))
+        ns = (ctypes.c_int * n)(*(c for _, c in links))
+        ms = (ctypes.c_int * n)(*(r // rows[-1] for r in rows))
+        for dtype, code in codes.items():
+            cfg = fc.chain_config(m0, links, dtype)
+            assert lib.fc_chain_tc_smem_bytes(
+                code, ks, ns, ms, n, cfg.band, cfg.warp_k) == \
+                cfg.smem_bytes, (m0, links, dtype, cfg)
+    x, ws, call, _ = _chain_case(cuda_device, torch.bfloat16, 768,
+                                 ((768, 8), (64, 8)), 3)
+    bad = fc.chain_config_for(x, ws)._replace(warp_k=8)  # half a k-step
+    monkeypatch.setattr(fc, "chain_config_for", lambda *a: bad)
+    before = fc.LAUNCHES["chain_n"]
+    with pytest.raises(RuntimeError, match="chain_n_cuda launch failed"):
+        call()
+    assert fc.LAUNCHES["chain_n"] == before

@@ -177,15 +177,11 @@ KERNEL_GROUPS = {
                            ("__nv_fp8_e4m3, float", "matmul_scaled"),
                            ("__nv_fp8_e5m2, float", "matmul_scaled"),
                            ("signed char, float", "matmul_scaled")],
-    "chain_kernel": [("float, float, float, false", "chain_n"),
-                     ("__nv_bfloat16, __nv_bfloat16, __nv_bfloat16, false",
-                      "chain_n"),
-                     ("__nv_fp8_e4m3, __nv_bfloat16, float, true",
-                      "chain_n_scaled"),
-                     ("__nv_fp8_e5m2, __nv_bfloat16, float, true",
-                      "chain_n_scaled"),
-                     ("signed char, __nv_bfloat16, float, true",
-                      "chain_n_scaled")],
+    "chain_kernel": [(None, "chain_n")],   # f32 only: no template
+    "chain_tc_kernel": [("__nv_bfloat16, __nv_bfloat16, false", "chain_n"),
+                        ("__nv_fp8_e4m3, float, true", "chain_n_scaled"),
+                        ("__nv_fp8_e5m2, float, true", "chain_n_scaled"),
+                        ("signed char, float, true", "chain_n_scaled")],
 }
 
 
@@ -202,7 +198,9 @@ def test_every_contraction_kernel_groups_under_its_port_group():
     assert names == set(KERNEL_GROUPS)
     for name, cases in KERNEL_GROUPS.items():
         for args, group in cases:
-            shown = f"void (anonymous namespace)::{name}<{args}>(int, int)"
+            shown = (f"void (anonymous namespace)::{name}<{args}>(int, int)"
+                     if args else
+                     f"void (anonymous namespace)::{name}(int, int)")
             assert _group(shown) == group, shown
     assert _group("sm90_xmma_gemm_bf16bf16_bf16f32") == "torch_gemm"
 

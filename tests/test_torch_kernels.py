@@ -55,12 +55,15 @@ def test_matmul_matches_pallas(m, n, k, trans, dtype):
 
 
 # (m0, links): regroup factors g = 1, 8 and 12, the serving path's shapes
-# cut down in rows.
+# cut down in rows, then the training path's WG links (K0 of 768 and
+# 3,072, n = 8) cut to 8 final rows.
 CHAINS = [
     (24, ((16, 8), (8, 12))),          # g = 1, the fixed-M chain
     (64, ((8, 8), (64, 8))),           # g = 8
     (96, ((64, 8), (96, 8))),          # g = 12
     (48, ((96, 8), (8, 16))),          # g = 1 after a wide K
+    (64, ((768, 8), (64, 8))),         # WG, g = 8
+    (96, ((3072, 8), (96, 8))),        # WG, g = 12
 ]
 
 

@@ -261,6 +261,32 @@ def test_chain_n_scaled_matches_pallas(dtype):
 
 
 @pytest.mark.parametrize("dtype", QUANT)
+@pytest.mark.parametrize("m0,links", [
+    (64, ((768, 8), (64, 8))),         # the WG links, g = 8
+    (96, ((3072, 8), (96, 8))),        # g = 12, the longest K0
+])
+def test_chain_n_scaled_matches_pallas_at_wg_shapes(dtype, m0, links):
+    """The WG links of the fp8 training path (K0 of 768 and 3,072, cut to
+    8 final rows) against the Pallas kernel, at the 3-link test's
+    tolerance: every element within 1e-2 of the scale, 99.5% within
+    1e-5 (a bf16 intermediate may round one ulp apart)."""
+    jp = jprec.QuantPolicy.parse(dtype)
+    x = jprec.quantize(jnp.asarray(_rand((m0, links[0][0]), 17)), jp)
+    ws = [jprec.quantize(jnp.asarray(_rand(s, 18 + i)), jp)
+          for i, s in enumerate(links)]
+    n = links[-1][1]
+    scales = (x.row_scales() * ws[0].scale,
+              jnp.full((1, n), ws[1].scale) * jnp.linspace(0.5, 2, n)[None])
+    want = np.asarray(jfc.chain_n_pallas(x.q, [w.q for w in ws],
+                                         scales=scales, interpret=True))
+    got = fc.chain_n_cuda(_t(x.q), [_t(w.q) for w in ws],
+                          scales=[_t(s) for s in scales]).numpy()
+    assert got.shape == want.shape == (8, n)
+    err = np.abs(got - want) / np.abs(want).max()
+    assert err.max() <= 1e-2 and np.mean(err <= 1e-5) >= 0.995
+
+
+@pytest.mark.parametrize("dtype", QUANT)
 def test_chain_scaled_agreement_rejects_unrounded_intermediates(dtype):
     """The rule the scaled chain kernel is held to on the card passes the
     plain version against itself and fails a chain whose intermediates
