@@ -53,13 +53,19 @@ and failing the script when it fails:
 7. ``train_parity`` — the same initial parameters on the ``cuda`` and
    ``einsum`` backends for 3 steps on the same batches: loss and grad
    norm within tolerance in f32 and in bf16.
-8. ``kernel:quantize`` / ``kernel:dequantize`` / ``kernel:matmul_scaled``
-   / ``kernel:chain_n_scaled`` — every geometry of the fp8 training
-   step's FP/BP/WG plans (the fp8 policy reprices CSSE, so they differ
-   from bf16's): the quantize kernel at every input node, the dequantize
-   kernel at every plan output, the scaled GEMM and chain at every op,
+8. ``kernel:quantize`` / ``kernel:dequantize`` / ``kernel:requantize`` /
+   ``kernel:matmul_scaled`` / ``kernel:chain_n_scaled`` — every geometry
+   of the fp8 training step's FP/BP/WG plans (the fp8 policy reprices
+   CSSE, so they differ from bf16's): the quantize kernel at every input
+   node, the dequantize kernel at every plan output (both with the
+   per-tensor scalar scale the training path passes, timed, and with
+   per-row scales), the requantize kernel at every op-result size the
+   plans requantize (laid out as the op leaves it, permute included;
+   ``launches_per_call`` 1 or 2, ``torch_ops_ms`` the torch ops that ran
+   before it), the scaled GEMM and chain at every op,
    each checked in fp8_e4m3, fp8_e5m2 and int8 against its plain version
-   (quantize/dequantize bit for bit, also on ``ref.tie_probe``) and
+   (quantize/dequantize/requantize bit for bit, also on
+   ``ref.tie_probe``) and
    timed in fp8_e4m3 beside the plain version, the bound at the fp8
    peak, and for the GEMM ``torch._scaled_mm`` where its shape rules
    admit the geometry (the reason where they do not) and its
@@ -69,9 +75,10 @@ and failing the script when it fails:
    ops run an unfused chain).
 9. ``train_fp8`` — the ``train`` phase with ``--tnn-precision fp8`` and
    loss scale 128: every loss finite, the mean of the last 5 below the
-   first and within 0.05 of the bf16 phase's, the four kernels of the
+   first and within 0.05 of the bf16 phase's, the five kernels of the
    precision path launched, no quantized degrade, every amax history
-   slot filled.
+   slot filled, and one requantize launch for every quantized plan op
+   run (no op's result requantized in torch ops).
 10. ``train_fp8_parity`` — ``cuda`` against ``einsum`` under fp8 (f32
    compute) for 3 steps: the amaxes recorded before anything quantized
    within 1e-6, a loss scale of 1 bit-identical to 128 but for row 1 of
@@ -117,8 +124,9 @@ and failing the script when it fails:
 
 It then prints the ``{"kernels": [...]}`` line (every ported kernel with
 its launches in the serve, train, train_fp8 and train_rwkv6 runs, for
-the GEMM also its split-K reduce launches, and its timings at the main
-paths' shapes), the card's ``nvidia-smi`` name and power limit, and,
+the GEMM also its split-K reduce launches, for the requantize its
+partial-amax launches, and its timings at the main paths' shapes), the
+card's ``nvidia-smi`` name and power limit, and,
 last, ``{"ok": true, ...}``.
 """
 
@@ -181,6 +189,9 @@ REPLACES = {
     "chain_n_scaled": "src/repro/kernels/fused_contraction.py:287",
     "quantize": "src/repro/kernels/quantized.py:47",
     "dequantize": "src/repro/kernels/quantized.py:78",
+    # B5's per-tensor form, the scale found on the card (the reference
+    # requantizes in jnp: src/repro/core/plan_compiler.py:886)
+    "requantize": "src/repro/kernels/quantized.py:47",
     "linear_scan": "src/repro/kernels/ssm_scan.py:86",
 }
 SOURCES = {
@@ -191,10 +202,12 @@ SOURCES = {
     "chain_n_scaled": "src/repro_torch/kernels/csrc/fused_contraction.cu",
     "quantize": "src/repro_torch/kernels/csrc/quantized.cu",
     "dequantize": "src/repro_torch/kernels/csrc/quantized.cu",
+    "requantize": "src/repro_torch/kernels/csrc/quantized.cu",
     "linear_scan": "src/repro_torch/kernels/csrc/ssm_scan.cu",
 }
 KERNELS = ("matmul", "chain_n", "flash_attention_fwd")
-QUANT_KERNELS = ("matmul_scaled", "chain_n_scaled", "quantize", "dequantize")
+QUANT_KERNELS = ("matmul_scaled", "chain_n_scaled", "quantize", "dequantize",
+                 "requantize")
 ALL_KERNELS = KERNELS + QUANT_KERNELS + ("linear_scan",)
 #: the main-path runs whose launches the kernel line counts (and whose
 #: timed shapes it sums)
@@ -386,11 +399,15 @@ def fp8_train_geometries(cfg, plan_compiler, profiles, tensorized,
     ``{geometry: phases}``: scaled GEMMs ``(m, n, k, transpose_rhs)``,
     scaled chains ``(m0, link_shapes)``, quantized input nodes and
     dequantized plan outputs as ``(rows, cols)`` (the ``[rows, -1]`` view
-    the kernels see); and the count of ``EinsumOp`` steps."""
+    the kernels see), and the op results the plans requantize per tensor
+    by element count, each ``{"phases", "ops": plan ops of that size,
+    "shape": the result as its kernel writes it, "perm": the permute
+    applied to it or None}``; and the count of ``EinsumOp`` steps."""
     import dataclasses
     tnn = dataclasses.replace(cfg.tnn,
                               precision=QuantPolicy.parse(FP8_POLICY))
-    geo = {"gemm": {}, "chain": {}, "quantize": {}, "dequantize": {}}
+    geo = {"gemm": {}, "chain": {}, "quantize": {}, "dequantize": {},
+           "requantize": {}}
     einsum_ops = 0
     tokens = TRAIN_BATCH * TRAIN_SEQ
 
@@ -421,11 +438,20 @@ def fp8_train_geometries(cfg, plan_compiler, profiles, tensorized,
                         geo["gemm"].setdefault(
                             (m.m, m.n, m.k, m.transpose_rhs),
                             set()).add(phase)
+                        axes, perm = m.m_axes + m.n_axes, m.out_perm
                     elif isinstance(op, plan_compiler.ChainOp):
                         geo["chain"].setdefault((op.m0, op.link_shapes),
                                                 set()).add(phase)
+                        axes, perm = op.m_axes + op.n_axes, op.out_perm
                     else:
                         einsum_ops += 1
+                        axes, perm = op.step.out_axes, None
+                    shape = tuple(net.sizes[a] for a in axes)
+                    rq = geo["requantize"].setdefault(math.prod(shape), {
+                        "phases": set(), "ops": 0, "shape": shape,
+                        "perm": perm})
+                    rq["phases"].add(phase)
+                    rq["ops"] += 1
     return geo, einsum_ops
 
 
@@ -451,16 +477,17 @@ def scaled_mm_ms(torch, qx, qw, trans: bool, sl, sr):
 
 def quant_kernel_phase(torch, fc, qk, ref, quant, QuantPolicy, geo, totals
                        ) -> None:
-    """Hold the precision path's four kernels against their plain versions
-    at every fp8 training geometry, in every quantized dtype; time each
-    in fp8_e4m3 (``totals[kernel]["train_fp8"]``)."""
+    """Hold the precision path's kernels against their plain versions at
+    every fp8 training geometry, in every quantized dtype; time each in
+    fp8_e4m3 (``totals[kernel]["train_fp8"]``)."""
+    import dataclasses
     gen = torch.Generator(device=DEVICE).manual_seed(2)
 
     def rand(shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=DEVICE) * scale
 
     def bits(t):
-        return t.contiguous().view(torch.uint8)
+        return t.contiguous().reshape(-1).view(torch.uint8)
 
     def account(name, err, timed):
         t = totals[name]
@@ -491,47 +518,99 @@ def quant_kernel_phase(torch, fc, qk, ref, quant, QuantPolicy, geo, totals
                 fail("quantize", rec)
             emit("kernel:quantize", ok=True, **rec)
         for (rows, cols), phases in sorted(geo["quantize"].items()):
+            # The training path's scale is per tensor (one device scalar);
+            # tile scales reach the kernel expanded per row.  Both forms
+            # are held bit for bit; the main path's is timed.
             xin = rand((rows, cols), 3.0).bfloat16()     # the compute dtype
-            s_ = quant.quantize(xin, pol).row_scales()
-            q = qk.quantize_cuda(xin, s_, pol)
+            st = quant.quantize(xin, pol).scale
+            s_ = quant.expand_row_scales(st, rows) * torch.linspace(
+                0.5, 2.0, rows, device=DEVICE)[:, None]
+            q = qk.quantize_cuda(xin, st, pol)
             rec = {"path": "train_fp8", "rows": rows, "cols": cols,
                    "phases": sorted(phases), "dtype": dname,
                    "bit_exact": torch.equal(bits(q), bits(
-                       ref.quantize(xin, s_, pol)))}
-            if not rec["bit_exact"]:
+                       ref.quantize(xin, st, pol))),
+                   "bit_exact_per_row": torch.equal(bits(
+                       qk.quantize_cuda(xin, s_, pol)), bits(
+                           ref.quantize(xin, s_, pol)))}
+            if not (rec["bit_exact"] and rec["bit_exact_per_row"]):
                 fail("quantize", rec)
             timed = None
             if timing:
-                ms = device_ms(torch, lambda: qk.quantize_cuda(xin, s_, pol))
-                plain = device_ms(torch, lambda: ref.quantize(xin, s_, pol))
-                b, by = bound_ms(rows * cols * 3 + rows * 4, 3 * rows * cols,
+                ms = device_ms(torch, lambda: qk.quantize_cuda(xin, st, pol))
+                plain = device_ms(torch, lambda: ref.quantize(xin, st, pol))
+                b, by = bound_ms(rows * cols * 3 + 4, 3 * rows * cols,
                                  "float32")
                 timed = (ms, plain, None, b, by)
                 rec.update(ms=ms, plain_ms=plain, library_ms=None,
-                           bound_ms=b, bound_by=by)
+                           bound_ms=b, bound_by=by, per_row_ms=device_ms(
+                               torch, lambda: qk.quantize_cuda(xin, s_, pol)))
             emit("kernel:quantize", ok=True, **rec)
             account("quantize", 0.0, timed)
         for (rows, cols), phases in sorted(geo["dequantize"].items()):
             t = quant.quantize(rand((rows, cols), 3.0), pol)
-            s_ = t.row_scales()
-            got = qk.dequantize_cuda(t.q, s_)
+            st = t.scale
+            s_ = t.row_scales() * torch.linspace(0.5, 2.0, rows,
+                                                 device=DEVICE)[:, None]
+            got = qk.dequantize_cuda(t.q, st)
             rec = {"path": "train_fp8", "rows": rows, "cols": cols,
                    "phases": sorted(phases), "dtype": dname,
                    "bit_exact": torch.equal(bits(got), bits(
-                       ref.dequantize(t.q, s_)))}
-            if not rec["bit_exact"]:
+                       ref.dequantize(t.q, st))),
+                   "bit_exact_per_row": all(torch.equal(bits(
+                       qk.dequantize_cuda(t.q, s_, out)), bits(
+                           ref.dequantize(t.q, s_, out)))
+                       for out in (torch.float32, torch.bfloat16))}
+            if not (rec["bit_exact"] and rec["bit_exact_per_row"]):
                 fail("dequantize", rec)
             timed = None
             if timing:
-                ms = device_ms(torch, lambda: qk.dequantize_cuda(t.q, s_))
-                plain = device_ms(torch, lambda: ref.dequantize(t.q, s_))
-                b, by = bound_ms(rows * cols * 5 + rows * 4, rows * cols,
+                ms = device_ms(torch, lambda: qk.dequantize_cuda(t.q, st))
+                plain = device_ms(torch, lambda: ref.dequantize(t.q, st))
+                b, by = bound_ms(rows * cols * 5 + 4, rows * cols,
                                  "float32")
                 timed = (ms, plain, None, b, by)
                 rec.update(ms=ms, plain_ms=plain, library_ms=None,
-                           bound_ms=b, bound_by=by)
+                           bound_ms=b, bound_by=by, per_row_ms=device_ms(
+                               torch, lambda: qk.dequantize_cuda(t.q, s_)))
             emit("kernel:dequantize", ok=True, **rec)
             account("dequantize", 0.0, timed)
+        for n, g in sorted(geo["requantize"].items()):
+            # An op's f32 result as its kernel writes it, then permuted
+            # as the plan compiler permutes it (a strided view).
+            x = rand(g["shape"], 3.0)
+            if g["perm"] is not None:
+                x = x.permute(g["perm"])
+            gq, gs = qk.requantize_cuda(x, pol)
+            wq, ws = ref.requantize(x, pol)
+            rec = {"path": "train_fp8", "numel": n, "shape": list(x.shape),
+                   "permuted": g["perm"] is not None,
+                   "phases": sorted(g["phases"]), "ops_in_plans": g["ops"],
+                   "dtype": dname,
+                   "launches_per_call": qk.requantize_launches(n),
+                   "bit_exact": (torch.equal(bits(gq), bits(wq))
+                                 and torch.equal(bits(gs), bits(ws))),
+                   "strides_match": gq.stride() == wq.stride()}
+            if not (rec["bit_exact"] and rec["strides_match"]):
+                fail("requantize", rec)
+            timed = None
+            if timing:
+                inter = dataclasses.replace(pol, granularity="tensor")
+                ms = device_ms(torch, lambda: qk.requantize_cuda(x, pol))
+                plain = device_ms(torch, lambda: ref.requantize(x, pol))
+                # the torch ops the kernel replaces on the card; their
+                # scale divides by a host number, which torch computes as
+                # a multiply by its reciprocal (not the reference's divide)
+                rec["torch_ops_ms"] = device_ms(
+                    torch, lambda: quant.quantize(x, inter))
+                rec["torch_ops_scale_bit_equal"] = torch.equal(
+                    bits(gs), bits(quant.quantize(x, inter).scale))
+                b, by = bound_ms(5 * n + 4, 4 * n, "float32")
+                timed = (ms, plain, None, b, by)
+                rec.update(ms=ms, plain_ms=plain, library_ms=None,
+                           bound_ms=b, bound_by=by)
+            emit("kernel:requantize", ok=True, **rec)
+            account("requantize", 0.0, timed)
         for (m, n, k, trans), phases in sorted(geo["gemm"].items()):
             qx = quant.quantize(rand((m, k)), pol)
             qw = quant.quantize(rand((n, k) if trans else (k, n)), pol)
@@ -1247,21 +1326,44 @@ def train_phase(torch, fc, plan_compiler, train_cli, einsum_ops, *,
     """Full-width training through the port's train entry point; returns
     the kernel launches of the run and the mean of its last 5 losses.
     With ``precision`` every tensorized plan runs quantized (``train_fp8``),
-    which must launch the precision path's four kernels, leave no
-    quantized degrade, fill every amax history slot and end within
-    ``FP8_LOSS_TOL`` of ``bf16_last5``."""
+    which must launch the precision path's kernels, leave no quantized
+    degrade, fill every amax history slot, end within ``FP8_LOSS_TOL`` of
+    ``bf16_last5``, and requantize every quantized plan op's result
+    through the requantize kernel: its launches equal the ops the plans
+    ran (counted around ``plan_compiler._run_quantized``), and
+    ``quant.quantize`` derived no scale from a tensor on the card."""
     import numpy as np
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fc.reset_launches()
     plan_compiler.reset_degrade_counts()
+    run_quantized = plan_compiler._run_quantized
+    quantize = plan_compiler.q.quantize
+    counts = {"quantized_plan_ops": 0, "torch_op_requantizes": 0}
+
+    def counted_run(compiled, tensors, **kw):
+        counts["quantized_plan_ops"] += len(compiled.ops)
+        return run_quantized(compiled, tensors, **kw)
+
+    def counted_quantize(x, policy, scale=None):
+        if scale is None and x.is_cuda:
+            counts["torch_op_requantizes"] += 1
+        return quantize(x, policy, scale=scale)
+
+    if precision:
+        plan_compiler._run_quantized = counted_run
+        plan_compiler.q.quantize = counted_quantize
     t0 = time.perf_counter()
-    out = train_cli.train(ARCH, smoke=False, tnn=True, steps=TRAIN_STEPS,
-                          global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
-                          lr=TRAIN_LR, tnn_backend="cuda", device=DEVICE,
-                          log_every=5, tnn_precision=precision,
-                          loss_scale=loss_scale)
-    torch.cuda.synchronize()
+    try:
+        out = train_cli.train(ARCH, smoke=False, tnn=True, steps=TRAIN_STEPS,
+                              global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                              lr=TRAIN_LR, tnn_backend="cuda", device=DEVICE,
+                              log_every=5, tnn_precision=precision,
+                              loss_scale=loss_scale)
+        torch.cuda.synchronize()
+    finally:
+        plan_compiler._run_quantized = run_quantized
+        plan_compiler.q.quantize = quantize
     wall = time.perf_counter() - t0
     launches = dict(fc.LAUNCHES)
     degrades = dict(plan_compiler.DEGRADE_COUNTS)
@@ -1282,9 +1384,14 @@ def train_phase(torch, fc, plan_compiler, train_cli, einsum_ops, *,
                  if n.endswith("quant_amax")}
         filled = all(bool(torch.isfinite(h).all() and (h > 0).all())
                      for h in hists.values())
-        ok = ok and bool(hists) and filled and (
+        requant_ok = (launches["requantize"] == counts["quantized_plan_ops"]
+                      and counts["torch_op_requantizes"] == 0)
+        ok = ok and bool(hists) and filled and requant_ok and (
             abs(last5 - bf16_last5) <= FP8_LOSS_TOL)
         extra = dict(precision=precision, loss_scale=loss_scale,
+                     requantize_launches=launches["requantize"],
+                     requantize_amax_launches=launches["requantize_amax"],
+                     every_op_requantized_by_kernel=requant_ok, **counts,
                      amax_histories=len(hists), amax_slots_filled=filled,
                      bf16_last5_mean_loss=bf16_last5,
                      last5_minus_bf16=last5 - bf16_last5,
@@ -1677,6 +1784,9 @@ def main() -> int:
             **({"splitk_reduce_launches": sum(launches[r][name + "_reduce"]
                                               for r in RUNS)}
                if name + "_reduce" in launches["serve"] else {}),
+            **({"amax_launches": sum(launches[r][name + "_amax"]
+                                     for r in RUNS)}
+               if name + "_amax" in launches["serve"] else {}),
             "launches_per_train_step": launches["train"][name] / TRAIN_STEPS,
             "launches_per_fp8_train_step":
                 launches["train_fp8"][name] / TRAIN_STEPS,

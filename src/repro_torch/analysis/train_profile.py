@@ -19,8 +19,9 @@ line per precision: wall ms per step with and without the profiler (host clock a
 steps that end in a synchronise), device busy ms per step (the sum of
 device-side kernel and copy times; one stream, so they do not overlap),
 the device's idle share against the unprofiled wall time, device time
-by group — the port's kernels by their names (the scaled GEMM and chain
-by their fp8/int8 template arguments), PyTorch's own matrix products as
+and device events (kernel launches and copies) per step by group — the
+port's kernels by their names (the scaled GEMM and chain by their
+fp8/int8 template arguments), PyTorch's own matrix products as
 ``torch_gemm``, the rest as ``torch`` — with the ten largest kernels by
 name, and device time by phase: the kernel time inside the tensorized
 layers' ``tnn.fp`` / ``tnn.bp`` / ``tnn.wg`` ranges, attention's
@@ -45,8 +46,12 @@ WARMUP, STEPS = 5, 3
 #: (--tnn-precision, loss scale) of each profiled run
 PRECISIONS = (("bf16", 1.0), ("fp8", 128.0))
 #: substrings of the port's kernel names -> report group, first match
-#: wins (a scaled kernel's name carries its fp8/int8 operand type)
-GROUPS = (("dequantize_kernel", "dequantize"),
+#: wins (a scaled kernel's name carries its fp8/int8 operand type;
+#: "dequantize_kernel" contains "quantize_kernel", so it comes first, and
+#: the requantize kernels, ``requant_block_kernel`` / ``requant_amax_kernel``
+#: / ``requant_cast_kernel``, have a prefix of their own)
+GROUPS = (("requant_", "requantize"),
+          ("dequantize_kernel", "dequantize"),
           ("quantize_kernel", "quantize"),
           ("gemm_tc_kernel<__nv_fp8", "matmul_scaled"),
           ("gemm_tc_kernel<signed char", "matmul_scaled"),
@@ -142,9 +147,11 @@ def profile(precision: str = "bf16", loss_scale: float = 1.0,
             kernels.append((e.name, *rng))
     by_group: dict[str, float] = {}
     by_name: dict[str, float] = {}
+    launches: dict[str, int] = {}
     for name, t0, t1 in kernels:
         by_group[_group(name)] = by_group.get(_group(name), 0.0) + t1 - t0
         by_name[name] = by_name.get(name, 0.0) + t1 - t0
+        launches[_group(name)] = launches.get(_group(name), 0) + 1
     by_phase = {p: sum(t1 - t0 for _, t0, t1 in kernels
                        if any(a <= t0 < b for a, b in spans[p]))
                 for p in PHASES}
@@ -164,6 +171,9 @@ def profile(precision: str = "bf16", loss_scale: float = 1.0,
         else "not measured",
         "device_ms_per_step_by_group": {
             g: us / 1e3 / steps for g, us in sorted(by_group.items())},
+        "device_events_per_step": len(kernels) / steps,
+        "device_events_per_step_by_group": {
+            g: c / steps for g, c in sorted(launches.items())},
         "device_ms_per_step_by_phase": (
             {p: us / 1e3 / steps for p, us in by_phase.items()}
             if any(spans.values()) else "not measured"),

@@ -29,12 +29,13 @@ reference's:
    :class:`~repro_torch.precision.policy.QuantPolicy` keeps the same ops
    and runs them in :func:`_run_quantized`: input nodes through the
    quantize kernel, GEMMs and chains through their scaled kernels with
-   the dequantization in the epilogue, intermediates requantized per
-   tensor with torch ops (as the reference does with jnp), the output
-   through the dequantize kernel.  A quantized chain the kernel refuses
-   at run time raises on the card (compilation fused it against the
-   wrapper's own budget, so that is a fault); CPU operands run the plain
-   chain math instead, counted as ``runtime_quantized``.
+   the dequantization in the epilogue, every op's result requantized per
+   tensor (:func:`_requantize`: on the card through the requantize
+   kernel, amax and scale included; the reference does it in jnp), the
+   output through the dequantize kernel.  A quantized chain the kernel
+   refuses at run time raises on the card (compilation fused it against
+   the wrapper's own budget, so that is a fault); CPU operands run the
+   plain chain math instead, counted as ``runtime_quantized``.
 
 Because the shared-memory budget (227 KB) differs from the reference's
 VMEM budget (100 MiB), fusion choices may differ from the reference's;
@@ -59,7 +60,9 @@ from repro_torch.kernels.fused_contraction import (
     ChainLoweringError, chain_band_rows, chain_n_cuda, chain_plan,
     matmul_cuda,
 )
-from repro_torch.kernels.quantized import dequantize_cuda, quantize_cuda
+from repro_torch.kernels.quantized import (
+    dequantize_cuda, quantize_cuda, requantize_cuda,
+)
 from repro_torch.precision import policy as qpolicy
 from repro_torch.precision import quant as q
 
@@ -527,7 +530,8 @@ def run(compiled: CompiledPlan, tensors: Sequence[torch.Tensor],
 
 def _quantize_input(x: torch.Tensor, scale, policy) -> q.QTensor:
     """An input node in the policy dtype: >= 2-D nodes through the
-    quantize kernel on their ``[rows, -1]`` view, with per-row scales."""
+    quantize kernel on their ``[rows, -1]`` view, with the per-tensor
+    scale as is or tile scales expanded per row."""
     if x.dim() < 2:
         return q.quantize(x, policy, scale=scale)
     if scale is None:
@@ -540,7 +544,8 @@ def _quantize_input(x: torch.Tensor, scale, policy) -> q.QTensor:
         scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
     rows = x.shape[0]
     q2 = quantize_cuda(x.reshape(rows, -1).contiguous(),
-                       q.expand_row_scales(scale, rows), policy)
+                       scale if scale.dim() == 0
+                       else q.expand_row_scales(scale, rows), policy)
     return q.QTensor(q=q2.reshape(x.shape), scale=scale)
 
 
@@ -551,8 +556,20 @@ def _dequantize_output(t: q.QTensor) -> torch.Tensor:
         return q.dequantize(t)
     rows = t.q.shape[0]
     out = dequantize_cuda(t.q.reshape(rows, -1).contiguous(),
-                          q.expand_row_scales(t.scale, rows))
+                          t.scale if t.per_tensor
+                          else q.expand_row_scales(t.scale, rows))
     return out.reshape(t.q.shape)
+
+
+def _requantize(res: torch.Tensor, policy) -> q.QTensor:
+    """An op's f32 result back in the policy dtype, per tensor: on the
+    card through the requantize kernel (amax, scale and cast; a permuted
+    result is walked in its storage order, no copy), on the CPU through
+    ``quant.quantize``, the plain ops the kernel is held to."""
+    if res.device.type == "cpu":
+        return q.quantize(res, policy)
+    qq, scale = requantize_cuda(res, policy)
+    return q.QTensor(q=qq, scale=scale)
 
 
 def _run_quantized(compiled: CompiledPlan, tensors: Sequence[torch.Tensor],
@@ -564,11 +581,13 @@ def _run_quantized(compiled: CompiledPlan, tensors: Sequence[torch.Tensor],
     ``input_scales`` gives them).  GEMM and chain ops stream the
     quantized values through the scaled kernels, with the dequantization
     in their epilogues.  Every op's f32 result is requantized per tensor
-    with torch ops.  Tile-granular input scales apply where the lhs
-    reaches its GEMM as a pure reshape; a layout change that would move
-    the scale groups collapses them to one per-tensor scale first.
-    Einsum-fallback steps dequantize, run the reference einsum, and
-    requantize.  The plan output goes through the dequantize kernel.
+    (:func:`_requantize`).  Tile-granular input scales apply where the
+    lhs reaches its GEMM as a pure reshape; a layout change that would
+    move the scale groups collapses them to one per-tensor scale first
+    (``per_tensor``: dequantize and quantize in torch ops; no training
+    path has tile scales there).  Einsum-fallback steps dequantize, run
+    the reference einsum, and requantize.  The plan output goes through
+    the dequantize kernel.
     """
     policy = compiled.policy
     inter_policy = dataclasses.replace(policy, granularity="tensor")
@@ -650,7 +669,7 @@ def _run_quantized(compiled: CompiledPlan, tensors: Sequence[torch.Tensor],
             if op.out_perm is not None:
                 res = res.permute(op.out_perm)
             out_slot = op.steps[-1].out
-        qslots[out_slot] = q.quantize(res, inter_policy)
+        qslots[out_slot] = _requantize(res, inter_policy)
         if trace:
             kind = ("einsum" if isinstance(op, EinsumOp)
                     else "gemm" if isinstance(op, GemmOp) else "chain")

@@ -91,15 +91,18 @@ CHAIN_RING_BYTES = 64 * 1024
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 #: (``flash_attention_fwd`` is counted by :mod:`.flash_attention`,
-#: ``quantize`` / ``dequantize`` by :mod:`.quantized`, ``linear_scan`` by
-#: :mod:`.ssm_scan`).  A split-K GEMM call launches two kernels: the tile
-#: kernel, counted under ``matmul`` / ``matmul_scaled``, and
-#: ``gemm_splitk_reduce``, counted under ``matmul_reduce`` /
-#: ``matmul_scaled_reduce``.
+#: ``quantize`` / ``dequantize`` / ``requantize`` by :mod:`.quantized`,
+#: ``linear_scan`` by :mod:`.ssm_scan`).  A split-K GEMM call launches two
+#: kernels: the tile kernel, counted under ``matmul`` / ``matmul_scaled``,
+#: and ``gemm_splitk_reduce``, counted under ``matmul_reduce`` /
+#: ``matmul_scaled_reduce``.  Likewise a requantize too large for one
+#: block: its cast under ``requantize``, its partial-amax kernel under
+#: ``requantize_amax``.
 LAUNCHES = {"matmul": 0, "chain_n": 0, "flash_attention_fwd": 0,
             "matmul_scaled": 0, "chain_n_scaled": 0, "quantize": 0,
             "dequantize": 0, "linear_scan": 0, "matmul_reduce": 0,
-            "matmul_scaled_reduce": 0}
+            "matmul_scaled_reduce": 0, "requantize": 0,
+            "requantize_amax": 0}
 
 #: operand dtype codes of the CUDA sources (``csrc/*.cu``)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -27,6 +27,7 @@ import math
 
 import torch
 
+from repro_torch.precision import policy as qpolicy
 from repro_torch.precision import quant
 from repro_torch.precision.policy import QuantPolicy
 
@@ -105,17 +106,36 @@ def chain_scaled_agreement(got: torch.Tensor, want: torch.Tensor
 
 def quantize(x: torch.Tensor, scale: torch.Tensor,
              policy: QuantPolicy) -> torch.Tensor:
-    """``q[R, C] = cast(clip(x / scale[R, 1], ±qmax))``: a true divide,
-    int8 rounded half to even, fp8 rounded by the cast (nearest even).
-    The precision subsystem's own cast, on per-row scales."""
+    """``q[R, C] = cast(clip(x / scale, ±qmax))``: a true divide, int8
+    rounded half to even, fp8 rounded by the cast (nearest even).  The
+    precision subsystem's own cast, on per-row scales ``[R, 1]`` or one
+    scalar scale."""
     return quant._cast(x, scale.reshape(-1), policy)
 
 
 def dequantize(q: torch.Tensor, scale: torch.Tensor,
                out_dtype=torch.float32) -> torch.Tensor:
-    """``x[R, C] = q * scale[R, 1]``: one f32 multiply, then the cast."""
+    """``x[R, C] = q * scale``: one f32 multiply, then the cast; ``scale``
+    per row ``[R, 1]`` or one scalar."""
     return quant.dequantize(quant.QTensor(q=q, scale=scale.reshape(-1)),
                             out_dtype)
+
+
+def requantize(x: torch.Tensor, policy: QuantPolicy
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The per-tensor requantize: ``(q, scale)`` with ``scale =
+    clamp(max |x|, min=1e-12) * margin / qmax`` in f32, in that order, and
+    ``q`` :func:`quantize`'s cast by it; ``quant.quantize(x, policy)`` at
+    ``granularity="tensor"``, bit for bit on the CPU.
+
+    The divide by ``qmax`` is by an f32 tensor on ``x``'s device, not by
+    a Python number: on the card torch divides by a host scalar as a
+    multiply by its reciprocal, which can move the scale's last bit
+    against the true divide of the reference (and of the kernel)."""
+    amax = qpolicy.amax_of(x)
+    qmax = torch.full((), policy.qmax, dtype=torch.float32, device=x.device)
+    scale = torch.clamp(amax, min=qpolicy._EPS) * policy.margin / qmax
+    return quant._cast(x, scale, policy), scale
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, q_chunk: int = 512,

@@ -3,9 +3,12 @@
 Port of ``src/repro/precision/quant.py``.  These are the semantics of the
 precision subsystem, in plain torch ops, used by the einsum executor
 (``contraction.execute(..., policy=...)``), by the plan compiler's
-quantized dispatch for the pieces that get no kernel (requantizing an
-intermediate), and as the oracle the quantize/dequantize kernels
-(:mod:`repro_torch.kernels.quantized`) are held to.
+quantized dispatch on the CPU and for the pieces that get no kernel
+(1-D input nodes, the tile-to-tensor collapse), and as the oracle the
+quantize / dequantize / requantize kernels
+(:mod:`repro_torch.kernels.quantized`) are held to.  On the card the plan
+compiler requantizes every op's result through the requantize kernel,
+not through :func:`quantize`.
 
 A :class:`QTensor` is storage dtype + scale: ``x ≈ q.float() * scale``
 with ``scale`` an f32 scalar (per tensor) or a ``[G]`` vector of

@@ -234,7 +234,7 @@ def test_cuda_rwkv6_train_step_matches_the_cpu(cuda_device):
 
 def _bits(t):
     """The raw bytes of ``t`` on the host, for bit-for-bit comparison."""
-    return t.contiguous().view(torch.uint8).cpu()
+    return t.contiguous().reshape(-1).view(torch.uint8).cpu()
 
 
 @pytest.mark.cuda
@@ -802,3 +802,204 @@ def test_cuda_chain_config_rule_matches_the_kernel(cuda_device,
     with pytest.raises(RuntimeError, match="chain_n_cuda launch failed"):
         call()
     assert fc.LAUNCHES["chain_n"] == before
+
+
+# ---------------------------------------------------------------------------
+# B5 / B6 with a per-tensor scalar scale, and the per-tensor requantize
+# ---------------------------------------------------------------------------
+
+
+def _same_bits(got, want) -> bool:
+    """Bit-equal, a NaN matching any NaN."""
+    g, w = torch.isnan(got.float()), torch.isnan(want.float())
+    if not torch.equal(g, w):
+        return False
+    gb = got.contiguous().reshape(-1).view(torch.uint8).reshape(g.numel(), -1)
+    wb = want.contiguous().reshape(-1).view(torch.uint8).reshape(w.numel(),
+                                                                 -1)
+    keep = ~g.reshape(-1)
+    return torch.equal(gb[keep], wb[keep])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", QUANT)
+@pytest.mark.parametrize("rows,cols,offset", [
+    (1024, 768, 0), (8, 96, 0), (12288, 8, 0), (3, 5, 0), (1, 4099, 0),
+    (300, 13, 0), (64, 64, 1), (128, 768, 3)])
+def test_cuda_quantize_scalar_and_row_scales_are_bit_exact(
+        cuda_device, dtype, rows, cols, offset):
+    """B5 and B6 with one device-scalar scale and with per-row scales, in
+    f32 and bf16, at row lengths that are and are not multiples of the
+    8-element step and at misaligned views (``offset`` elements into the
+    storage): the plain versions' bits; one launch each."""
+    pol = QuantPolicy.parse(dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(rows * cols)
+    base = torch.randn(rows * cols + offset, generator=gen,
+                       device=cuda_device) * 3
+    x32 = base[offset:].view(rows, cols)
+    st = quant.quantize(x32, pol).scale
+    srow = quant.expand_row_scales(st, rows) * torch.linspace(
+        0.5, 2.0, rows, device=cuda_device)[:, None]
+    for xin in (x32, x32.bfloat16()):
+        for sc in (st, srow):
+            before = dict(fc.LAUNCHES)
+            got = qk.quantize_cuda(xin, sc, pol)
+            assert torch.equal(_bits(got), _bits(ref.quantize(xin, sc, pol)))
+            q8 = torch.empty(rows * cols + offset, dtype=got.dtype,
+                             device=cuda_device)[offset:].view(rows, cols)
+            q8.copy_(got)
+            for out in (torch.float32, torch.bfloat16):
+                d = qk.dequantize_cuda(q8, sc, out)
+                assert torch.equal(_bits(d), _bits(ref.dequantize(q8, sc,
+                                                                  out)))
+            assert fc.LAUNCHES["quantize"] == before["quantize"] + 1
+            assert fc.LAUNCHES["dequantize"] == before["dequantize"] + 2
+
+
+def _requant_input(device, case, n, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(n, generator=gen, device=device) * 3
+    if case == "zeros":
+        x.zero_()
+    elif case == "nan":
+        x[n // 2] = float("nan")
+        x[0] = float("inf")
+    elif case == "inf":
+        x[n - 1], x[n // 3] = float("-inf"), float("inf")
+    elif case == "negzero":
+        x.zero_()
+        x[::2] = -0.0
+        x[n // 2] = -1.25
+    elif case == "tiny":
+        x *= 1e-30
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", QUANT)
+@pytest.mark.parametrize("n", [1, 7, 64, 4099, 24576, 32768, 32769, 200003,
+                               3_145_728])
+@pytest.mark.parametrize("case", ["random", "zeros", "nan", "inf", "negzero",
+                                  "tiny"])
+def test_cuda_requantize_is_bit_exact(cuda_device, dtype, n, case):
+    """The requantize kernel(s) against ``ref.requantize``: payload and
+    scale bit for bit (a NaN as a NaN), across the one-launch limit, on
+    all zeros (the 1e-12 floor), NaN, ±inf, -0.0 and subnormal-scale
+    inputs; repeats give identical bits; one launch up to
+    ``REQUANT_ONE_LAUNCH_MAX`` elements (one block), a cast and an amax
+    launch above it."""
+    pol = QuantPolicy.parse(dtype)
+    x = _requant_input(cuda_device, case, n, n)
+    before = dict(fc.LAUNCHES)
+    q, s = qk.requantize_cuda(x, pol)
+    wq, ws = ref.requantize(x, pol)
+    torch.cuda.synchronize()
+    assert _same_bits(q, wq) and _same_bits(s, ws), (float(s), float(ws))
+    assert q.dtype == pol.operand_dtype and s.shape == ()
+    two = n > qk.REQUANT_ONE_LAUNCH_MAX
+    assert fc.LAUNCHES["requantize"] == before["requantize"] + 1
+    assert (fc.LAUNCHES["requantize_amax"]
+            == before["requantize_amax"] + int(two))
+    q2, s2 = qk.requantize_cuda(x, pol)
+    assert torch.equal(_bits(q2), _bits(q)) and torch.equal(_bits(s2),
+                                                            _bits(s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", QUANT)
+@pytest.mark.parametrize("layout", ["permuted", "misaligned", "bf16",
+                                    "tie_probe", "big_permuted"])
+def test_cuda_requantize_layouts(cuda_device, dtype, layout):
+    """A permuted op result (walked in storage order; ``q`` keeps the
+    strides torch's ops give), a misaligned view, bf16 input and the tie
+    probe's values, against ``ref.requantize``; a non-dense view raises."""
+    pol = QuantPolicy.parse(dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    if layout == "permuted":
+        x = torch.randn(16, 12, 8, generator=gen,
+                        device=cuda_device).permute(2, 0, 1)
+    elif layout == "big_permuted":
+        x = torch.randn(1024, 96, 8, generator=gen,
+                        device=cuda_device).permute(1, 2, 0)
+    elif layout == "misaligned":
+        x = torch.randn(40001, generator=gen, device=cuda_device)[1:]
+    elif layout == "bf16":
+        x = torch.randn(300, 96, generator=gen,
+                        device=cuda_device).bfloat16()
+    else:
+        x, _ = ref.tie_probe(pol, device=cuda_device)
+    q, s = qk.requantize_cuda(x, pol)
+    wq, ws = ref.requantize(x, pol)
+    assert torch.equal(_bits(q), _bits(wq)) and torch.equal(_bits(s),
+                                                            _bits(ws))
+    assert q.stride() == wq.stride() == x.stride()
+    with pytest.raises(ValueError, match="dense"):
+        qk.requantize_cuda(torch.randn(8, 1, device=cuda_device).expand(8, 4),
+                           pol)
+
+
+@pytest.mark.cuda
+def test_cuda_requantize_limits_match_the_kernel(cuda_device):
+    """The wrapper's launch rule uses the CUDA source's own limits; the
+    two-launch path without its scratch is refused, not run."""
+    lib = qk._lib()
+    assert lib.q_requantize_one_launch_max() == qk.REQUANT_ONE_LAUNCH_MAX
+    assert lib.q_requantize_max_partials() == qk.REQUANT_MAX_PARTIALS
+    x = torch.ones(qk.REQUANT_ONE_LAUNCH_MAX + 1, device=cuda_device)
+    q = torch.empty(x.shape, dtype=torch.int8, device=cuda_device)
+    s = torch.empty((), device=cuda_device)
+    rc = lib.q_requantize(0, 4, x.data_ptr(), q.data_ptr(), s.data_ptr(),
+                          None, x.numel(), 127.0, 1.0, 1e-12,
+                          ctypes.c_void_p(
+                              torch.cuda.current_stream().cuda_stream))
+    assert rc != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", QUANT)
+def test_cuda_quantized_plan_requantizes_every_op_through_the_kernel(
+        cuda_device, dtype, monkeypatch):
+    """A quantized FP plan on the card: one requantize launch per op, and
+    ``quant.quantize`` derives no scale from a tensor on the card."""
+    from repro_torch.core import factorizations as F
+    from repro_torch.core import plan_compiler
+
+    net = F.tt((12, 8, 8), (8, 8, 12), 8).forward_network(
+        batch_axes=(("b", 1024),))
+    plan = csse.search(net, csse.SearchOptions(fused_chain=True)).plan
+    compiled = plan_compiler.compile_plan(plan,
+                                          policy=QuantPolicy.parse(dtype))
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    ts = [torch.randn(net.node_shape(i), generator=gen, device=cuda_device)
+          for i in range(net.num_nodes)]
+    calls = []
+    real = quant.quantize
+    monkeypatch.setattr(quant, "quantize", lambda x, p, scale=None: (
+        calls.append(scale is None and x.is_cuda) or real(x, p, scale=scale)))
+    before = dict(fc.LAUNCHES)
+    out = plan_compiler.run(compiled, ts)
+    torch.cuda.synchronize()
+    assert fc.LAUNCHES["requantize"] == (before["requantize"]
+                                         + len(compiled.ops))
+    assert fc.LAUNCHES["quantize"] == before["quantize"] + len(ts)
+    assert fc.LAUNCHES["dequantize"] == before["dequantize"] + 1
+    assert not any(calls)
+    assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", QUANT)
+def test_cuda_requantize_scale_is_the_true_divide(cuda_device, dtype):
+    """The kernel's scale is ``clamp(amax, 1e-12) * margin / qmax`` with a
+    true f32 divide, as the CPU (and the reference) computes it, at 64
+    amaxes; torch on the card divides a tensor by a Python number as a
+    multiply by its reciprocal, so ``policy.compute_scale`` there is not
+    the oracle (``ref.requantize`` divides by a device tensor)."""
+    pol = QuantPolicy.parse(dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    for i in range(64):
+        x = torch.randn(257, generator=gen, device=cuda_device) * (i + 1)
+        _, s = qk.requantize_cuda(x, pol)
+        amax = x.abs().amax().cpu()
+        want = torch.clamp(amax, min=1e-12) * pol.margin / pol.qmax
+        assert torch.equal(_bits(s), _bits(want)), (i, float(s), float(want))
