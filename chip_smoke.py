@@ -65,7 +65,8 @@ and failing the script when it fails:
    before it), the scaled GEMM and chain at every op,
    each checked in fp8_e4m3, fp8_e5m2 and int8 against its plain version
    (quantize/dequantize/requantize bit for bit, also on
-   ``ref.tie_probe``) and
+   ``ref.tie_probe``; the requantize's scale also bit for bit the one
+   the torch ops derive, ``policy.compute_scale``) and
    timed in fp8_e4m3 beside the plain version, the bound at the fp8
    peak, and for the GEMM ``torch._scaled_mm`` where its shape rules
    admit the geometry (the reason where they do not) and its
@@ -121,9 +122,43 @@ and failing the script when it fails:
    geometry): every step's loss and grad norm within three times the
    envelope that weights scaled by ``1 ± 2**-22`` open on either
    backend, or within 1e-4 where that envelope is narrower.
+15. ``kernel:zamba2`` — ``zamba2_7b`` with its one-card TNN config (TT
+   rank 64 on the Mamba-2 ``in``/``out``, the shared attention's ``o``
+   and the shared MLP): the GEMM (and chain, where a plan fuses one) at
+   every geometry of its training FP/BP/WG plans and its serve FP plans
+   at the decode batch, as in phase 2; the attention kernel at the
+   shared block's training shape (B 8, T 128, H = KV = 32, D 112,
+   causal, one kv chunk of 128), as in phase 3; the scan kernel at the
+   Mamba-2 training shape (BH 512, T 128, dk 64, dv 112, chunk 128)
+   with the log-decay one scalar per token broadcast over dk, at the
+   init's ``-softplus(N(0, 1))``, against the twin and the sequential
+   oracle, timed beside the twin and the bound.
+16. ``train_zamba2`` — ``zamba2_7b`` at full width and depth (81
+   layers, d 3584, vocab 32,000, nothing cut; 374,829,056 parameters)
+   through the train entry point with ``tnn_cfg`` the one-card config,
+   ``cuda`` backend, bf16, remat, batch 8, seq 128, 12 steps at lr 3e-4
+   (see ``ZAMBA_LR``): every loss finite, the mean of the last 5 below the
+   first, on every step the GEMM kernel, the scan kernel twice a layer
+   and the attention kernel once a shared-block application, no
+   ``EinsumOp`` in the plans, no runtime degrade; its step time, tok/s
+   and peak device memory.
+17. ``zamba2_state`` — as ``rwkv6_state`` for ``zamba2_7b`` at full
+   width, 2 layers with the shared block after both: ``prefill`` (the
+   scan kernel twice, the attention kernel once) then ``decode_step``
+   (neither) within 5% of the logit scale of ``forward``.
+18. ``zamba2_parity`` — as ``rwkv6_parity`` for that 2-layer
+   ``zamba2_7b`` (the GEMM at its rank-64 geometries against
+   ``einsum``).
+19. ``serve_zamba2`` — ``zamba2_7b`` at full width and depth through
+   ``ServeEngine`` (the sequential ``decode_step`` fallback) at the
+   serve CLI's defaults, as phase 4: every request completes, the first
+   wave's greedy tokens equal a hand-rolled ``decode_step`` loop at the
+   same batch, no runtime degrade; tok/s and tick times, and how many of
+   request 0's tokens the ``prefill`` route gives too.
 
 It then prints the ``{"kernels": [...]}`` line (every ported kernel with
-its launches in the serve, train, train_fp8 and train_rwkv6 runs, for
+its launches in the serve, train, train_fp8, train_rwkv6, train_zamba2
+and serve_zamba2 runs, for
 the GEMM also its split-K reduce launches, for the requantize its
 partial-amax launches, and its timings at the main paths' shapes), the
 card's ``nvidia-smi`` name and power limit, and,
@@ -175,7 +210,18 @@ FLASH_SHAPES = [(8, 128, 12, 12, 64, True, None),
 RWKV_ARCH, RWKV_STEPS, RWKV_LR = "rwkv6_7b", 12, 1e-3
 # zamba2_7b's ssd scan: (BH = batch 8 x 64 heads, T, dk, dv, chunk).
 SSD_SHAPE = (8 * 64, 128, 64, 112, 128)
-# rwkv6_state: layers kept, batch and tokens (prefill T - 1, decode 1).
+# zamba2_7b training at full width and depth, the train CLI's shape, with
+# the arch's one-card TNN config (its tnn_default leaves 6.59 B
+# parameters, ~105 GB of training state: PERF.md §4).  Its learning rate
+# is 3e-4, below the CLI's 3e-3 and rwkv6's 1e-3: at both of those the
+# loss falls until the learning rates summed over the steps reach about
+# 3e-3, then rises (the grad norm stays 2.5-38), so the last five end
+# above the first.  Adam moves every TT core element by about lr a step,
+# and a rank-64 core's elements are ~0.07 (PERF.md, Findings; ROADMAP.md
+# C).  At 3e-4 the twelve warm-up steps sum to 1.95e-3.
+ZAMBA_ARCH, ZAMBA_STEPS, ZAMBA_LR = "zamba2_7b", 12, 3e-4
+# rwkv6_state / zamba2_state: layers kept (the hybrid's shared block
+# after both), batch and tokens (prefill T - 1, decode 1).
 STATE_LAYERS, STATE_BATCH, STATE_T = 2, 2, 128
 STATE_TOL_REL = 0.05
 
@@ -211,7 +257,8 @@ QUANT_KERNELS = ("matmul_scaled", "chain_n_scaled", "quantize", "dequantize",
 ALL_KERNELS = KERNELS + QUANT_KERNELS + ("linear_scan",)
 #: the main-path runs whose launches the kernel line counts (and whose
 #: timed shapes it sums)
-RUNS = ("serve", "train", "train_fp8", "train_rwkv6")
+RUNS = ("serve", "train", "train_fp8", "train_rwkv6", "train_zamba2",
+        "serve_zamba2")
 
 
 def emit(phase: str, **fields) -> None:
@@ -341,12 +388,15 @@ def bf16_ulp(scale: float) -> float:
     return 2.0 ** (math.floor(math.log2(max(scale, 1e-30))) - 7)
 
 
-def main_path_geometries(cfg, plan_compiler, profiles, tensorized):
+def main_path_geometries(cfg, plan_compiler, profiles, tensorized,
+                         token_batches=(BATCH * CHUNK, BATCH)):
     """Every distinct GEMM ``(m, n, k, transpose_rhs)`` and chain
     ``(m0, link_shapes)`` the serve path launches: the compiled FP plans
-    of each tensorized projection at the prefill and decode batches."""
+    of each tensorized projection at the prefill and decode batches (a
+    model served through ``decode_step`` alone runs the decode batch
+    only)."""
     gemms, chains = set(), set()
-    for tokens in (BATCH * CHUNK, BATCH):
+    for tokens in token_batches:
         for _, d_in, d_out in profiles.tensorized_projections(cfg):
             layer = tensorized.make_tensorized_linear(
                 d_out, d_in, cfg.tnn, compute_dtype=cfg.compute_dtype,
@@ -583,6 +633,7 @@ def quant_kernel_phase(torch, fc, qk, ref, quant, QuantPolicy, geo, totals
                 x = x.permute(g["perm"])
             gq, gs = qk.requantize_cuda(x, pol)
             wq, ws = ref.requantize(x, pol)
+            inter = dataclasses.replace(pol, granularity="tensor")
             rec = {"path": "train_fp8", "numel": n, "shape": list(x.shape),
                    "permuted": g["perm"] is not None,
                    "phases": sorted(g["phases"]), "ops_in_plans": g["ops"],
@@ -590,21 +641,22 @@ def quant_kernel_phase(torch, fc, qk, ref, quant, QuantPolicy, geo, totals
                    "launches_per_call": qk.requantize_launches(n),
                    "bit_exact": (torch.equal(bits(gq), bits(wq))
                                  and torch.equal(bits(gs), bits(ws))),
-                   "strides_match": gq.stride() == wq.stride()}
-            if not (rec["bit_exact"] and rec["strides_match"]):
+                   "strides_match": gq.stride() == wq.stride(),
+                   # the torch ops' scale (policy.compute_scale, which
+                   # divides by qmax as a device f32 tensor: the
+                   # reference's true divide) against the kernel's
+                   "torch_ops_scale_bit_equal": torch.equal(
+                       bits(gs), bits(quant.quantize(x, inter).scale))}
+            if not (rec["bit_exact"] and rec["strides_match"]
+                    and rec["torch_ops_scale_bit_equal"]):
                 fail("requantize", rec)
             timed = None
             if timing:
-                inter = dataclasses.replace(pol, granularity="tensor")
                 ms = device_ms(torch, lambda: qk.requantize_cuda(x, pol))
                 plain = device_ms(torch, lambda: ref.requantize(x, pol))
-                # the torch ops the kernel replaces on the card; their
-                # scale divides by a host number, which torch computes as
-                # a multiply by its reciprocal (not the reference's divide)
+                # the torch ops the kernel replaces on the card
                 rec["torch_ops_ms"] = device_ms(
                     torch, lambda: quant.quantize(x, inter))
-                rec["torch_ops_scale_bit_equal"] = torch.equal(
-                    bits(gs), bits(quant.quantize(x, inter).scale))
                 b, by = bound_ms(5 * n + 4, 4 * n, "float32")
                 timed = (ms, plain, None, b, by)
                 rec.update(ms=ms, plain_ms=plain, library_ms=None,
@@ -812,6 +864,62 @@ def kernel_phase(torch, fc, ref, gemms, chains, totals, *, path: str,
             account("chain_n", geo, dname, err, timed)
 
 
+def flash_case(torch, fa, ref, gen, shape, chunks, totals, *, path=None
+               ) -> None:
+    """The attention kernel against its plain version (out and lse) at
+    ``shape = (B, T, H, KV, D, causal)`` and ``chunks`` in bf16 and f32,
+    timed beside the plain version, scaled_dot_product_attention and the
+    bound; with ``path`` the bf16 time adds to
+    ``totals["flash_attention_fwd"][path]``."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, T, H, KV, D, causal = shape
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        q, k, v = (torch.randn(s, generator=gen, device=DEVICE).to(dtype)
+                   for s in ((B, T, H, D), (B, T, KV, D), (B, T, KV, D)))
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, **chunks)
+
+        def plain():
+            return ref.flash_attention_fwd(q, k, v, causal=causal, **chunks)
+
+        want, want_lse = plain()
+        torch.cuda.synchronize()
+        scale = want.float().abs().max().item()
+        err = (out.float() - want.float()).abs().max().item()
+        lse_scale = want_lse.abs().max().item()
+        lse_err = (lse - want_lse).abs().max().item()
+        # f32: sums in another order.  bf16: out is rounded to bf16 once,
+        # and p's rounding can land one ulp apart where the two sum the
+        # score in another order: one ulp of the scale.
+        tol = 1e-5 * scale if dtype == torch.float32 else bf16_ulp(scale)
+        ok = err <= tol and lse_err <= 1e-5 * lse_scale
+        rec = {"path": path, "B": B, "T": T, "H": H, "KV": KV, "D": D,
+               "causal": causal, **chunks, "dtype": dname,
+               "kernel": fa.kernel_for(q, k, v), "max_abs_err": err,
+               "max_rel_err": err / max(scale, 1e-30), "scale": scale,
+               "tol": tol, "lse_max_rel_err": lse_err / lse_scale}
+        if not ok:
+            emit("kernel:flash_attention_fwd", ok=False, **rec)
+            raise AssertionError(f"attention kernel disagrees: {rec}")
+        qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        ms = device_ms(torch, lambda: fa.flash_attention_fwd(
+            q, k, v, causal=causal, **chunks))
+        plain_ms = device_ms(torch, plain)
+        lib = device_ms(torch, lambda: sdpa(qs, ks, vs, is_causal=causal,
+                                            enable_gqa=H != KV))
+        nbytes = ((q.numel() + k.numel() + v.numel() + out.numel())
+                  * dtype.itemsize + lse.numel() * 4)
+        flops = 4 * B * H * T * T * D // (2 if causal else 1)
+        b, by = bound_ms(nbytes, flops, dname)
+        emit("kernel:flash_attention_fwd", ok=True, ms=ms, plain_ms=plain_ms,
+             library_ms=lib, bound_ms=b, bound_by=by, **rec)
+        t = totals["flash_attention_fwd"]
+        t["max_abs_err"] = max(t["max_abs_err"], err)
+        if path and dtype == torch.bfloat16:
+            add_total(t.setdefault(path, new_totals()), ms, plain_ms, lib,
+                      b, by)
+
+
 def flash_phase(torch, fa, ref, cfg, totals) -> None:
     """Hold the attention kernel against its plain version (out and lse)
     at every ``FLASH_SHAPES`` entry in bf16 and f32, both stepping the
@@ -822,60 +930,11 @@ def flash_phase(torch, fa, ref, cfg, totals) -> None:
     the rounding probe to one ulp, where a kernel that skipped ``p``'s
     rounding or stepped over half the chunk misses by several."""
     gen = torch.Generator(device=DEVICE).manual_seed(1)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     for i, (B, T, H, KV, D, causal, kv_chunk) in enumerate(FLASH_SHAPES):
         chunks = dict(q_chunk=min(cfg.q_chunk, T),
                       kv_chunk=min(kv_chunk or cfg.kv_chunk, T))
-        for dtype in (torch.bfloat16, torch.float32):
-            dname = str(dtype).split(".")[-1]
-            q, k, v = (torch.randn(s, generator=gen, device=DEVICE).to(dtype)
-                       for s in ((B, T, H, D), (B, T, KV, D), (B, T, KV, D)))
-            out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
-                                              **chunks)
-
-            def plain():
-                return ref.flash_attention_fwd(q, k, v, causal=causal,
-                                               **chunks)
-
-            want, want_lse = plain()
-            torch.cuda.synchronize()
-            scale = want.float().abs().max().item()
-            err = (out.float() - want.float()).abs().max().item()
-            lse_scale = want_lse.abs().max().item()
-            lse_err = (lse - want_lse).abs().max().item()
-            # f32: sums in another order.  bf16: out is rounded to bf16
-            # once, and p's rounding can land one ulp apart where the two
-            # sum the score in another order: one ulp of the scale.
-            tol = (1e-5 * scale if dtype == torch.float32
-                   else bf16_ulp(scale))
-            ok = err <= tol and lse_err <= 1e-5 * lse_scale
-            rec = {"B": B, "T": T, "H": H, "KV": KV, "D": D,
-                   "causal": causal, **chunks, "dtype": dname,
-                   "kernel": fa.kernel_for(q, k, v),
-                   "max_abs_err": err,
-                   "max_rel_err": err / max(scale, 1e-30), "scale": scale,
-                   "tol": tol, "lse_max_rel_err": lse_err / lse_scale}
-            if not ok:
-                emit("kernel:flash_attention_fwd", ok=False, **rec)
-                raise AssertionError(f"attention kernel disagrees: {rec}")
-            qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            ms = device_ms(torch, lambda: fa.flash_attention_fwd(
-                q, k, v, causal=causal, **chunks))
-            plain_ms = device_ms(torch, plain)
-            lib = device_ms(torch, lambda: sdpa(qs, ks, vs, is_causal=causal,
-                                                enable_gqa=H != KV))
-            nbytes = ((q.numel() + k.numel() + v.numel() + out.numel())
-                      * dtype.itemsize + lse.numel() * 4)
-            flops = 4 * B * H * T * T * D // (2 if causal else 1)
-            b, by = bound_ms(nbytes, flops, dname)
-            emit("kernel:flash_attention_fwd", ok=True, ms=ms,
-                 plain_ms=plain_ms, library_ms=lib, bound_ms=b, bound_by=by,
-                 **rec)
-            t = totals["flash_attention_fwd"]
-            t["max_abs_err"] = max(t["max_abs_err"], err)
-            if i == 0 and dtype == torch.bfloat16:   # the training shape
-                add_total(t.setdefault("train", new_totals()), ms, plain_ms,
-                          lib, b, by)
+        flash_case(torch, fa, ref, gen, (B, T, H, KV, D, causal), chunks,
+                   totals, path="train" if i == 0 else None)
 
     # The rounding probe at the training shape and chunk (non-causal).
     B, T, H, _, D, _, _ = FLASH_SHAPES[0]
@@ -1035,23 +1094,31 @@ def scan_phase(torch, sk, ref, ssm, cfg, totals) -> None:
     emit("kernel:linear_scan", ok=ok, **rec)
     if not ok:
         raise AssertionError(f"scan kernel fails chunk continuity: {rec}")
-    scan_overflow_check(torch, sk, ref, gen)
+    bh, t = SSD_SHAPE[:2]
+    broadcast_scan_check(torch, sk, ref, gen,
+                         torch.full((bh, t, 1), -0.7, device=DEVICE),
+                         check="ssd_broadcast_overflow")
 
 
-def scan_overflow_check(torch, sk, ref, gen) -> None:
-    """zamba2's ssd shape with the log-decay one scalar per token,
-    broadcast over dk (an expanded view, Mamba-2's form), at -0.7 a token:
-    a chunk's lc reaches -89.6, where the factored form's exp(-lc)
-    overflows f32 (as the reference does on this input).  The kernel
-    takes the exp(lc_i - lc_j) form: it and the twin must be finite, and
-    the kernel within the f32 / bf16 gates of the twin and of the
-    sequential oracle, output and final state; timed in bf16."""
+def broadcast_scan_check(torch, sk, ref, gen, ld_tok, *, check: str,
+                         path: str | None = None, totals=None) -> None:
+    """zamba2's ssd shape with the log-decay ``ld_tok [BH, T, 1]`` one
+    scalar per token, broadcast over dk (an expanded view, Mamba-2's
+    form).  ``ssd_broadcast_overflow``: -0.7 a token, so a chunk's lc
+    reaches -89.6, where the factored form's exp(-lc) overflows f32 (as
+    the reference does on this input), which the check requires.  The
+    kernel takes the exp(lc_i - lc_j) form: it and the twin must be
+    finite, and the kernel within the f32 / bf16 gates of the twin and
+    of the sequential oracle, output and final state; timed in bf16
+    (with ``path``, beside the twin and the bound, adding to
+    ``totals["linear_scan"][path]``)."""
     bh, t, dk, dv, chunk = SSD_SHAPE
-    ld = torch.full((bh, t, 1), -0.7, device=DEVICE).expand(bh, t, dk)
+    ld = ld_tok.expand(bh, t, dk)
     base = [torch.randn(s, generator=gen, device=DEVICE)
             for s in ((bh, t, dk), (bh, t, dk), (bh, t, dv))]
     factored, _ = ref.chunked_linear_scan(*base, ld.contiguous(),
                                           mode="ssd", chunk=chunk)
+    must_overflow = check == "ssd_broadcast_overflow"
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
         q, k, v = (x.to(dtype) for x in base)
@@ -1065,17 +1132,20 @@ def scan_overflow_check(torch, sk, ref, gen) -> None:
         oo, ost = ref.linear_scan_batched(q, k, v, ld, mode="ssd",
                                           out_dtype=torch.float32)
         torch.cuda.synchronize()
-        rec = {"check": "ssd_broadcast_overflow", "mode": "ssd",
-               "log_decay_per_token": -0.7, "BH": bh, "T": t, "dk": dk,
+        rec = {"check": check, "path": path, "mode": "ssd",
+               "log_decay_per_token_min": ld_tok.min().item(),
+               "log_decay_per_token_max": ld_tok.max().item(),
+               "BH": bh, "T": t, "dk": dk,
                "dv": dv, "chunk": chunk, "dtype": dname,
                "factored_form_finite": bool(torch.isfinite(factored).all()),
                "kernel_finite": bool(torch.isfinite(o).all()
                                      and torch.isfinite(st).all()),
                "twin_finite": bool(torch.isfinite(wo).all()
                                    and torch.isfinite(wst).all())}
-        # The input must reach the overflow the form repairs.
+        # The overflow check's input must reach the overflow the form
+        # repairs.
         ok = (rec["kernel_finite"] and rec["twin_finite"]
-              and not rec["factored_form_finite"])
+              and not (must_overflow and rec["factored_form_finite"]))
         for name, want, want_st in (("twin", wo, wst), ("oracle", oo, ost)):
             scale = want.float().abs().max().item()
             err = (o.float() - want.float()).abs().max().item()
@@ -1091,22 +1161,37 @@ def scan_overflow_check(torch, sk, ref, gen) -> None:
         rec["state_tol_rel"] = 1e-5
         if not ok:
             emit("kernel:linear_scan", ok=False, **rec)
-            raise AssertionError(f"scan kernel fails the overflow check: "
-                                 f"{rec}")
+            raise AssertionError(f"scan kernel fails {check}: {rec}")
         if dtype == torch.bfloat16:
             b, by = scan_bound(bh, t, dk, dv, chunk, "ssd", dtype,
                                scalar_decay=True)
-            rec.update(ms=device_ms(torch, kernel, inner=10, reps=15),
-                       bound_ms=b, bound_by=by)
+            ms = device_ms(torch, kernel, inner=10, reps=15)
+            rec.update(ms=ms, bound_ms=b, bound_by=by)
+            if path:
+                plain_ms = device_ms(torch, lambda: ref.chunked_linear_scan(
+                    q, k, v, ld, mode="ssd", chunk=chunk), inner=5, reps=9)
+                rec.update(plain_ms=plain_ms, library_ms=None,
+                           library_note="no PyTorch call computes this "
+                           "recurrence")
+                add_total(totals["linear_scan"].setdefault(
+                    path, new_totals()), ms, plain_ms, None, b, by)
+        if totals is not None:
+            totals["linear_scan"]["max_abs_err"] = max(
+                totals["linear_scan"]["max_abs_err"],
+                rec["max_abs_err_vs_twin"])
         emit("kernel:linear_scan", ok=True, **rec)
 
 
-def train_rwkv6_phase(torch, fc, plan_compiler, train_cli, cfg,
-                      einsum_ops) -> dict:
-    """``rwkv6_7b`` at full width and depth through the train entry
-    point; returns the run's kernel launches.  Each step must launch the
-    GEMM kernel and the scan kernel twice per layer (forward and the
-    checkpoint re-run)."""
+def train_ssm_phase(torch, fc, plan_compiler, train_cli, einsum_ops, *,
+                    name: str, arch_id: str, steps: int, lr: float,
+                    tnn_cfg=None) -> dict:
+    """``arch_id`` (``rwkv6_7b``, ``zamba2_7b``) at full width and depth
+    through the train entry point (``tnn_cfg`` in place of the arch's
+    ``tnn_default`` when given); returns the run's kernel launches.  Each
+    step must launch the GEMM kernel, the scan kernel twice per layer
+    (forward and the checkpoint re-run) and, for the hybrid, the
+    attention kernel once per shared-block application (not
+    checkpointed)."""
     import numpy as np
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -1119,61 +1204,77 @@ def train_rwkv6_phase(torch, fc, plan_compiler, train_cli, cfg,
         seen.append(dict(fc.LAUNCHES))
 
     t0 = time.perf_counter()
-    out = train_cli.train(RWKV_ARCH, smoke=False, tnn=True, steps=RWKV_STEPS,
+    out = train_cli.train(arch_id, smoke=False, tnn=True, steps=steps,
                           global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
-                          lr=RWKV_LR, tnn_backend="cuda", device=DEVICE,
-                          log_every=4, on_step=on_step)
+                          lr=lr, tnn_backend="cuda", device=DEVICE,
+                          log_every=4, on_step=on_step, tnn_cfg=tnn_cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(fc.LAUNCHES)
     degrades = dict(plan_compiler.DEGRADE_COUNTS)
     peak = torch.cuda.max_memory_allocated()
     per_step = [{k: b[k] - a[k] for k in ("matmul", "matmul_reduce",
-                                           "chain_n", "linear_scan")}
+                                           "chain_n", "linear_scan",
+                                           "flash_attention_fwd")}
                 for a, b in zip(seen, seen[1:])]
     losses = out["losses"]
     rcfg = out["cfg"]
     scans_per_step = 2 * rcfg.num_layers if rcfg.remat else rcfg.num_layers
+    attn_per_step = (rcfg.num_layers // rcfg.hybrid.shared_every
+                     if rcfg.hybrid else 0)
     step_ms = statistics.median(out["step_s"][3:]) * 1e3
     last5 = statistics.mean(losses[-5:])
     n_params = sum(p.numel() for p in out["state"]["params"].values())
     first_step_s = out["step_s"][0]
     out_gnorms = out["grad_norms"]
-    ok = (all(np.isfinite(losses)) and len(losses) == RWKV_STEPS
-          and last5 < losses[0] and len(per_step) == RWKV_STEPS
+    ok = (all(np.isfinite(losses)) and len(losses) == steps
+          and last5 < losses[0] and len(per_step) == steps
           and all(s["matmul"] > 0 and s["linear_scan"] == scans_per_step
+                  and s["flash_attention_fwd"] == attn_per_step
                   for s in per_step)
           and einsum_ops == 0 and degrades["runtime"] == 0)
     del out
-    emit("train_rwkv6", ok=bool(ok), arch=RWKV_ARCH, d_model=rcfg.d_model,
+    emit(name, ok=bool(ok), arch=arch_id, d_model=rcfg.d_model,
          layers=rcfg.num_layers, heads=rcfg.num_heads, d_ff=rcfg.d_ff,
          vocab=rcfg.vocab, params=n_params, remat=rcfg.remat,
+         tnn_targets=list(rcfg.tnn.targets), tnn_rank=rcfg.tnn.rank,
+         shared_every=rcfg.hybrid.shared_every if rcfg.hybrid else None,
          dtype=str(rcfg.compute_dtype).split(".")[-1], batch=TRAIN_BATCH,
-         seq=TRAIN_SEQ, steps=RWKV_STEPS, lr=RWKV_LR, losses=losses,
+         seq=TRAIN_SEQ, steps=steps, lr=lr, losses=losses,
          grad_norms=out_gnorms, first_loss=losses[0], last5_mean_loss=last5,
          step_ms_median_after_3=step_ms,
          tok_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
          first_step_s=first_step_s, wall_s=wall,
          launches=launches, launches_per_step=per_step,
-         scans_per_step_expected=scans_per_step, degrades=degrades,
+         scans_per_step_expected=scans_per_step,
+         attention_per_step_expected=attn_per_step, degrades=degrades,
          einsum_ops_in_plans=einsum_ops, max_memory_allocated=peak)
     if not ok:
-        raise AssertionError("train_rwkv6 phase failed")
+        raise AssertionError(f"{name} phase failed")
     return launches
 
 
-def rwkv6_state_phase(torch, fc, lm_mod, cfgbase) -> None:
-    """The scan kernel's final state at the model level: ``rwkv6_7b`` at
-    full width, STATE_LAYERS layers, bf16, ``cuda`` backend.  ``prefill``
-    over the first STATE_T - 1 tokens (the kernel) then ``decode_step``
-    on the last (the plain recurrence on the kernel's states) against
-    the last row of ``forward`` over all STATE_T tokens."""
+def state_phase(torch, fc, lm_mod, cfgbase, *, name: str, arch_id: str
+                ) -> None:
+    """The scan kernel's final state at the model level: ``arch_id`` at
+    full width (its one-card TNN config where it has one), STATE_LAYERS
+    layers (the hybrid's shared block after both), bf16, ``cuda``
+    backend.  ``prefill`` over the first STATE_T - 1 tokens (the scan
+    kernel; the shared attention through the attention kernel, its K/V
+    kept) then ``decode_step`` on the last (the plain recurrences on the
+    kernel's states, the shared attention over the prefilled K/V)
+    against the last row of ``forward`` over all STATE_T tokens."""
     import dataclasses
 
     import numpy as np
-    arch = cfgbase.get(RWKV_ARCH)
-    tnn = dataclasses.replace(arch.tnn_default, backend="cuda")
+    arch = cfgbase.get(arch_id)
+    tnn = dataclasses.replace(arch.tnn_one_card or arch.tnn_default,
+                              backend="cuda")
     cfg = dataclasses.replace(arch.model(tnn), num_layers=STATE_LAYERS)
+    if cfg.hybrid:
+        cfg = dataclasses.replace(cfg, hybrid=dataclasses.replace(
+            cfg.hybrid, shared_every=STATE_LAYERS))
+    groups = cfg.num_layers // cfg.hybrid.shared_every if cfg.hybrid else 0
     torch.cuda.empty_cache()
     model = lm_mod.LM(cfg, device=DEVICE, seed=0)
     rng = np.random.default_rng(4)
@@ -1184,8 +1285,10 @@ def rwkv6_state_phase(torch, fc, lm_mod, cfgbase) -> None:
         fc.reset_launches()
         lp, cache = model.prefill(toks[:, :-1], max_len=STATE_T)
         prefill_scans = fc.LAUNCHES["linear_scan"]
+        prefill_attn = fc.LAUNCHES["flash_attention_fwd"]
         ld, cache = model.decode_step(toks[:, -1], cache)
         decode_scans = fc.LAUNCHES["linear_scan"] - prefill_scans
+        decode_attn = fc.LAUNCHES["flash_attention_fwd"] - prefill_attn
         prev = model(toks[:, :-1])[:, -1].float()
     torch.cuda.synchronize()
     scale = full.abs().max().item()
@@ -1194,25 +1297,31 @@ def rwkv6_state_phase(torch, fc, lm_mod, cfgbase) -> None:
     ok = (diff <= STATE_TOL_REL * scale
           and pre_diff <= STATE_TOL_REL * prev.abs().max().item()
           and prefill_scans == STATE_LAYERS and decode_scans == 0
+          and prefill_attn == groups and decode_attn == 0
           and int(cache.length) == STATE_T and bool(torch.isfinite(ld).all()))
-    emit("rwkv6_state", ok=bool(ok), arch=RWKV_ARCH, layers=STATE_LAYERS,
+    emit(name, ok=bool(ok), arch=arch_id, layers=STATE_LAYERS,
+         shared_every=cfg.hybrid.shared_every if cfg.hybrid else None,
          d_model=cfg.d_model, batch=STATE_BATCH, prefill_tokens=STATE_T - 1,
          dtype=str(cfg.compute_dtype).split(".")[-1],
          decode_vs_forward_max_abs=diff, logit_scale=scale,
          decode_vs_forward_rel=diff / scale,
          prefill_vs_forward_rel=pre_diff / prev.abs().max().item(),
          tol_rel=STATE_TOL_REL, prefill_scan_launches=prefill_scans,
-         decode_scan_launches=decode_scans, cache_length=int(cache.length))
+         decode_scan_launches=decode_scans,
+         prefill_attention_launches=prefill_attn,
+         decode_attention_launches=decode_attn,
+         cache_length=int(cache.length))
     del model
     if not ok:
-        raise AssertionError("rwkv6_state phase failed")
+        raise AssertionError(f"{name} phase failed")
 
 
-def rwkv6_parity_phase(torch, fc, arch, steps_lib) -> None:
-    """``rwkv6_7b`` at full width, STATE_LAYERS layers, f32, on the cuda
-    and einsum backends for PARITY_STEPS steps from the same weights and
-    batches: the GEMM kernel at every rank-64 FP/BP/WG geometry against
-    ``torch.einsum``.  The model magnifies f32 roundoff (gradients at the
+def ssm_parity_phase(torch, fc, arch, steps_lib, *, name: str) -> None:
+    """``arch`` (``rwkv6_7b``, ``zamba2_7b`` with its one-card TNN config
+    and the shared block after both layers) at full width, STATE_LAYERS
+    layers, f32, on the cuda and einsum backends for PARITY_STEPS steps
+    from the same weights and batches: the GEMM kernel at every rank-64
+    FP/BP/WG geometry against ``torch.einsum``.  The model magnifies f32 roundoff (gradients at the
     noise floor, then AdamW's sign-like step on them), so, as in
     ``train_fp8_parity``, each backend is also run from its weights
     scaled by ``1 ± 2**-22``: at every step the backends' loss and grad
@@ -1224,11 +1333,15 @@ def rwkv6_parity_phase(torch, fc, arch, steps_lib) -> None:
     from repro_torch.optim.adamw import AdamW
     base_sd = None
 
+    hybrid = arch.model().hybrid is not None
+
     def train(backend, nudge=0.0):
         nonlocal base_sd
         model, cfg = steps_lib.build_model(
-            arch, arch.tnn_default, device=DEVICE, seed=0, backend=backend,
-            compute_dtype=torch.float32, num_layers=STATE_LAYERS)
+            arch, arch.tnn_one_card or arch.tnn_default, device=DEVICE,
+            seed=0, backend=backend, compute_dtype=torch.float32,
+            num_layers=STATE_LAYERS,
+            shared_every=STATE_LAYERS if hybrid else None)
         if base_sd is None:
             base_sd = {k: v.clone() for k, v in model.state_dict().items()}
         model.load_state_dict({k: v * (1 + nudge) if v.is_floating_point()
@@ -1271,12 +1384,137 @@ def rwkv6_parity_phase(torch, fc, arch, steps_lib) -> None:
                           "cuda_vs_einsum_rel": [g[i] for g in gap],
                           "envelope_rel": env, "tol_rel": tol}
         ok = ok and good
-    emit("rwkv6_parity", ok=ok, arch=RWKV_ARCH, layers=STATE_LAYERS,
+    emit(name, ok=ok, arch=arch.id, layers=STATE_LAYERS,
          dtype="float32", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
          steps=PARITY_STEPS, runs={b: r[0] for b, r in runs.items()},
          gemm_launches=launches, **report)
     if not ok:
-        raise AssertionError("rwkv6 parity failed")
+        raise AssertionError(f"{name} failed")
+
+
+def zamba2_kernel_phase(torch, fc, fa, sk, ref, plan_compiler, profiles,
+                        tensorized, cfg, totals) -> int:
+    """``kernel:zamba2``: the kernels at ``zamba2_7b``'s main-path shapes
+    (its one-card TNN config).  The GEMM (and the chain, where the plans
+    fuse one) at every geometry of the training step's FP/BP/WG plans
+    and of the serve path's FP plans at the decode batch (the engine
+    serves the hybrid through ``decode_step``), as in phase 2; the
+    attention kernel at the shared block's training shape; the scan
+    kernel at the Mamba-2 training shape with the log-decay at the
+    model's init form (``-softplus(N(0, 1))`` a token, broadcast over
+    dk).  Returns the training plans' ``EinsumOp`` count."""
+    gemms, chains, einsum_ops = train_path_geometries(
+        cfg, plan_compiler, profiles, tensorized)
+    kernel_phase(torch, fc, ref, sorted(gemms), sorted(chains), totals,
+                 path="train_zamba2", phases={**gemms, **chains},
+                 time_dtypes=("bfloat16",))
+    s_gemms, s_chains = main_path_geometries(
+        cfg, plan_compiler, profiles, tensorized, token_batches=(BATCH,))
+    kernel_phase(torch, fc, ref, s_gemms, s_chains, totals,
+                 path="serve_zamba2", time_dtypes=("bfloat16",))
+    T = TRAIN_SEQ
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    flash_case(torch, fa, ref, gen,
+               (TRAIN_BATCH, T, cfg.num_heads, cfg.num_kv_heads, cfg.hd,
+                True), dict(q_chunk=min(cfg.q_chunk, T),
+                            kv_chunk=min(cfg.kv_chunk, T)),
+               totals, path="train_zamba2")
+    bh, t = SSD_SHAPE[:2]
+    ld = -torch.nn.functional.softplus(
+        torch.randn((bh, t, 1), generator=gen, device=DEVICE))
+    broadcast_scan_check(torch, sk, ref, gen, ld, check="zamba2_train_scan",
+                         path="train_zamba2", totals=totals)
+    emit("kernel:zamba2", ok=True, arch=ZAMBA_ARCH,
+         tnn_targets=list(cfg.tnn.targets),
+         train_geometries={"gemm": len(gemms), "chain": len(chains),
+                           "einsum_ops": einsum_ops},
+         serve_geometries={"gemm": len(s_gemms), "chain": len(s_chains)},
+         sums={name: {path: {k: (sorted(v) if isinstance(v, set) else v)
+                             for k, v in totals[name][path].items()}
+                      for path in ("train_zamba2", "serve_zamba2")
+                      if path in totals[name]}
+               for name in ALL_KERNELS})
+    return einsum_ops
+
+
+def serve_zamba2_phase(torch, fc, plan_compiler, tm, steps_lib, profiles,
+                       arch, ServeEngine, Request) -> dict:
+    """``zamba2_7b`` at full width and depth (one-card TNN config,
+    ``cuda`` backend, bf16) through ``ServeEngine`` at the serve CLI's
+    defaults; the engine serves it through the reference's sequential
+    fallback (each prompt token through ``decode_step``).  Every request
+    must complete; the first wave's tokens (requests 0 to BATCH - 1,
+    admitted together) must equal a hand-rolled loop of ``decode_step``
+    over the prompts, then over the greedy tokens, at the same batch; no
+    runtime degrade.  Also reported, not gated: how many of request 0's
+    tokens the full-sequence route gives (``prefill`` over the prompt,
+    then ``decode_step``).  Returns the run's kernel launches."""
+    import dataclasses
+
+    import numpy as np
+    torch.cuda.empty_cache()
+    tnn = dataclasses.replace(arch.tnn_one_card, backend="cuda")
+    model, cfg = steps_lib.build_model(arch, tnn, device=DEVICE, seed=0)
+    profiles.build_profiles(cfg, batch_size=BATCH, prefill_chunk=CHUNK)
+    fc.reset_launches()
+    plan_compiler.reset_degrade_counts()
+    done, secs, engine = run_engine(torch, model, cfg.vocab, ServeEngine,
+                                    Request)
+    launches = dict(fc.LAUNCHES)
+    degrades = dict(plan_compiler.DEGRADE_COUNTS)
+    tick_ms = tick_spans_ms(torch, tm, model, cfg.vocab, ServeEngine,
+                            Request)
+    tokens = sum(len(r.out_tokens) for r in done)
+    got = {r.rid: r.out_tokens for r in done}
+    wave = serve_requests(cfg.vocab, Request)[:BATCH]
+    prompts = torch.as_tensor(np.stack([r.prompt for r in wave]),
+                              device=DEVICE)
+    # The engine's cache length (its max_len plus a chunk of slack): the
+    # shared attention reduces over the whole K/V buffer, so another
+    # length may sum in another order.
+    max_len = engine.cache_len
+    with torch.inference_mode():
+        cache = model.init_cache(BATCH, max_len)._replace(
+            length=torch.zeros(BATCH, dtype=torch.int32))
+        for i in range(PROMPT):
+            logits, cache = model.decode_step(prompts[:, i], cache)
+        hand = [logits.float().argmax(-1)]
+        while len(hand) < MAX_NEW:
+            logits, cache = model.decode_step(hand[-1], cache)
+            hand.append(logits.float().argmax(-1))
+        hand = torch.stack(hand, dim=1).cpu().tolist()
+        lp, pcache = model.prefill(prompts[:1], max_len=max_len)
+        seq = [lp.float().argmax(-1)]
+        while len(seq) < MAX_NEW:
+            logits, pcache = model.decode_step(seq[-1], pcache)
+            seq.append(logits.float().argmax(-1))
+        seq = torch.cat(seq).cpu().tolist()
+    first_wave_equal = all(got[r.rid] == hand[i] for i, r in enumerate(wave))
+    prefill_agree = next((i for i, (a, b) in enumerate(zip(seq, got[0]))
+                          if a != b), MAX_NEW)
+    ok = (len(done) == REQUESTS
+          and all(len(r.out_tokens) == MAX_NEW for r in done)
+          and first_wave_equal and launches["matmul"] > 0
+          and degrades["runtime"] == 0
+          and tick_ms["prefill"] and tick_ms["decode"])
+    emit("serve_zamba2", ok=bool(ok), arch=ZAMBA_ARCH, d_model=cfg.d_model,
+         layers=cfg.num_layers, tnn_targets=list(cfg.tnn.targets),
+         requests=len(done), tokens=tokens, seconds=secs,
+         tok_per_s=tokens / secs, ticks=engine.tick,
+         prefill_tick_ms=tick_ms["prefill"],
+         decode_tick_ms_median=statistics.median(tick_ms["decode"] or [0]),
+         decode_ticks=len(tick_ms["decode"]),
+         first_wave_equals_hand_rolled_decode=first_wave_equal,
+         tokens_req0=got[0], hand_rolled_tokens_req0=hand[0],
+         prefill_route_tokens_req0=seq,
+         prefill_route_leading_tokens_equal=prefill_agree,
+         slot_bytes=engine.slot_cost["total"],
+         launches=launches, degrades=degrades,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    del model, engine
+    if not ok:
+        raise AssertionError("serve_zamba2 phase failed")
+    return launches
 
 
 def serve_requests(vocab: int, Request):
@@ -1757,14 +1995,40 @@ def main() -> int:
                for name in ALL_KERNELS if "train_rwkv6" in totals[name]})
 
     # -- 12. rwkv6_7b training at full width and depth --------------------------
-    launches["train_rwkv6"] = train_rwkv6_phase(
-        torch, fc, plan_compiler, train_cli, r_cfg, r_einsum_ops)
+    launches["train_rwkv6"] = train_ssm_phase(
+        torch, fc, plan_compiler, train_cli, r_einsum_ops,
+        name="train_rwkv6", arch_id=RWKV_ARCH, steps=RWKV_STEPS, lr=RWKV_LR)
 
     # -- 13. the scan's final state through prefill -> decode -------------------
-    rwkv6_state_phase(torch, fc, lm_mod, cfgbase)
+    state_phase(torch, fc, lm_mod, cfgbase, name="rwkv6_state",
+                arch_id=RWKV_ARCH)
 
     # -- 14. the GEMM at rwkv6's geometries against einsum, in f32 --------------
-    rwkv6_parity_phase(torch, fc, r_arch, steps_lib)
+    ssm_parity_phase(torch, fc, r_arch, steps_lib, name="rwkv6_parity")
+
+    # -- 15. the kernels at zamba2_7b's main-path shapes --------------------------
+    z_arch = cfgbase.get(ZAMBA_ARCH)
+    z_cfg = z_arch.model(z_arch.tnn_one_card)
+    z_einsum_ops = zamba2_kernel_phase(torch, fc, fa, sk, ref, plan_compiler,
+                                       profiles, tensorized, z_cfg, totals)
+
+    # -- 16. zamba2_7b training at full width and depth -------------------------
+    launches["train_zamba2"] = train_ssm_phase(
+        torch, fc, plan_compiler, train_cli, z_einsum_ops,
+        name="train_zamba2", arch_id=ZAMBA_ARCH, steps=ZAMBA_STEPS,
+        lr=ZAMBA_LR, tnn_cfg=z_arch.tnn_one_card)
+
+    # -- 17. the hybrid's decode state through prefill -> decode ----------------
+    state_phase(torch, fc, lm_mod, cfgbase, name="zamba2_state",
+                arch_id=ZAMBA_ARCH)
+
+    # -- 18. the GEMM at zamba2's geometries against einsum, in f32 -------------
+    ssm_parity_phase(torch, fc, z_arch, steps_lib, name="zamba2_parity")
+
+    # -- 19. zamba2_7b served at full width and depth ---------------------------
+    launches["serve_zamba2"] = serve_zamba2_phase(
+        torch, fc, plan_compiler, tm, steps_lib, profiles, z_arch,
+        ServeEngine, Request)
 
     # -- the kernel line ---------------------------------------------------------
     kernels = []
@@ -1792,6 +2056,8 @@ def main() -> int:
                 launches["train_fp8"][name] / TRAIN_STEPS,
             "launches_per_rwkv6_train_step":
                 launches["train_rwkv6"][name] / RWKV_STEPS,
+            "launches_per_zamba2_train_step":
+                launches["train_zamba2"][name] / ZAMBA_STEPS,
             "max_abs_err": t["max_abs_err"],
             "ms": sum(s_["ms"] for s_ in sums),
             "plain_ms": sum(s_["plain_ms"] for s_ in sums),

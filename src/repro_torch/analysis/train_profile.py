@@ -3,9 +3,12 @@
     PYTHONPATH=src python -m repro_torch.analysis.train_profile
     PYTHONPATH=src python -m repro_torch.analysis.train_profile \
         --arch rwkv6_7b --precision bf16
+    PYTHONPATH=src python -m repro_torch.analysis.train_profile \
+        --arch zamba2_7b --precision bf16
 
 Trains ``--arch``'s full-width config (default ``paper_atis_tt``;
-``tnn_default``, ``cuda`` backend, bf16, seed 0) at the train CLI's
+``tnn_one_card`` where the arch has one, as ``zamba2_7b`` does, else
+``tnn_default``; ``cuda`` backend, bf16, seed 0) at the train CLI's
 default batch 8 x seq 128, once per ``--precision`` (default: each entry
 of :data:`PRECISIONS`, the tensorized layers' ``--tnn-precision`` with
 its loss scale; ``fp8`` runs every plan through the scaled and
@@ -96,7 +99,7 @@ def profile(precision: str = "bf16", loss_scale: float = 1.0,
         raise SystemExit("train_profile: needs a CUDA card")
     batch, seq, warmup, steps = BATCH, SEQ, WARMUP, STEPS
     arch = cfgbase.get(arch_id)
-    tnn = dataclasses.replace(arch.tnn_default,
+    tnn = dataclasses.replace(arch.tnn_one_card or arch.tnn_default,
                               precision=QuantPolicy.parse(precision))
     model, cfg = steps_lib.build_model(arch, tnn, device="cuda", seed=0,
                                        backend="cuda")

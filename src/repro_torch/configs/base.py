@@ -3,8 +3,11 @@
 Port of ``src/repro/configs/base.py``: each architecture module defines an
 :class:`ArchConfig` with its published model config, a reduced smoke
 config of the same family and its TNN variant; ``--arch <id>`` resolves
-through :func:`get`.  Ported so far: the paper's own ``paper_atis_tt``
-and ``rwkv6_7b``; the other architectures are queued in ROADMAP.md.
+through :func:`get`.  Ported so far: the paper's own ``paper_atis_tt``,
+``rwkv6_7b`` and ``zamba2_7b``; the other architectures are queued in
+ROADMAP.md.  ``tnn_one_card`` (the port's addition) names the TNN config
+that fits the full model's training state on one 80 GB card where
+``tnn_default`` does not.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from typing import Any, Callable
 from repro_torch.core.tensorized import TNNConfig
 
 #: architectures this package has ported
-ARCH_IDS = ["paper_atis_tt", "rwkv6_7b"]
+ARCH_IDS = ["paper_atis_tt", "rwkv6_7b", "zamba2_7b"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +33,7 @@ class ArchConfig:
     tnn_default: TNNConfig = TNNConfig(
         enabled=True, method="tt", rank=64, num_factors=2, targets=("mlp",),
         backend="einsum")
+    tnn_one_card: TNNConfig | None = None
 
     def model(self, tnn: TNNConfig | None = None):
         return self.make_model(tnn=tnn)

@@ -7,7 +7,9 @@ dict for :class:`repro_torch.models.lm.LM`: nested dict keys join with
 ``[L, ...]`` leaves under ``layers`` split into ``layers.<l>.<...>``.
 :func:`to_numpy_tree` is its reverse, for a state dict or anything keyed
 like one (gradients, optimizer moments): it rebuilds the reference's
-nested tree with the per-layer tensors stacked again.
+nested tree with the per-layer tensors stacked again.  Every other
+leaf (``embed``, ``lm_head``, ``ln_f``, the hybrid's ``shared.*``) is
+one tensor in both.
 :func:`reference_ndim` is the rank a port tensor has as a reference leaf
 (one more under ``layers.``), which the optimizer's weight-decay rule
 reads.  Layouts are unchanged (``Dense.w`` stays ``[d_in, d_out]``, cores

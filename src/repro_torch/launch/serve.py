@@ -9,7 +9,9 @@ plus ``--tnn-backend`` (the executor of the tensorized projections:
       --tnn --tnn-backend cuda --requests 8 --max-new 16
 
 ``--serve-kv-dtype`` accepts ``bf16`` only so far; the quantized KV cache
-is queued in ROADMAP.md.  Server start builds the phase-specialized plan
+is queued in ROADMAP.md.  SSM and hybrid models (``rwkv6_7b``,
+``zamba2_7b``) are served through the engine's sequential
+``decode_step`` fallback.  Server start builds the phase-specialized plan
 profiles when the model is tensorized, then runs the slot-table engine.
 """
 
@@ -27,9 +29,7 @@ from repro_torch.core.contraction import canonical_backend
 from repro_torch.launch import steps as steps_lib
 from repro_torch.memory.planner import format_bytes
 from repro_torch.serving import profiles as profiles_lib
-from repro_torch.serving.engine import (
-    Request, ServeEngine, require_attention,
-)
+from repro_torch.serving.engine import Request, ServeEngine
 
 _log = tm.get_logger("serve")
 
@@ -78,9 +78,6 @@ def main(argv=None) -> list[Request]:
 
     arch = cfgbase.get(args.arch)
     tnn_cfg = arch.tnn_default if args.tnn else None
-    # Refuse an SSM model before building it (rwkv6_7b is 3.8 B weights).
-    require_attention(arch.smoke(tnn_cfg) if args.smoke
-                      else arch.model(tnn_cfg))
     model, cfg = steps_lib.build_model(arch, tnn=tnn_cfg, smoke=args.smoke,
                                        device=args.device,
                                        backend=args.tnn_backend)

@@ -25,12 +25,14 @@ from repro_torch.optim.adamw import AdamW
 def build_model(arch: ArchConfig, tnn: TNNConfig | None = None,
                 smoke: bool = False, *, device="cuda", seed: int = 0,
                 backend: str | None = None, compute_dtype=None,
-                num_layers: int | None = None):
+                num_layers: int | None = None,
+                shared_every: int | None = None):
     """``(model, cfg)`` for ``arch``: its published config (or the smoke
     one), random weights from ``seed`` on ``device``.  ``backend``
     overrides the TNN executor (``einsum`` | ``cuda`` | ``pallas``),
-    ``compute_dtype`` the model's compute dtype and ``num_layers`` its
-    depth."""
+    ``compute_dtype`` the model's compute dtype, ``num_layers`` its
+    depth and ``shared_every`` a hybrid's shared-block period (a depth
+    cut must stay a multiple of it)."""
     if arch.model_kind != "lm":
         raise NotImplementedError(f"model kind {arch.model_kind!r} is not "
                                   "ported yet (ROADMAP.md, queue A)")
@@ -42,6 +44,9 @@ def build_model(arch: ArchConfig, tnn: TNNConfig | None = None,
         cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
     if num_layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    if shared_every is not None:
+        cfg = dataclasses.replace(cfg, hybrid=dataclasses.replace(
+            cfg.hybrid, shared_every=shared_every))
     if (cfg.tnn.enabled and cfg.tnn.stash_policy().mode == "recompute"
             and not cfg.remat):
         # The recompute stash is realised at the model level: per-layer

@@ -11,6 +11,12 @@ Port of ``src/repro/launch/train.py`` (single device)::
       --tnn --tnn-backend cuda --tnn-precision fp8 --loss-scale 128
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6_7b \
       --tnn --tnn-backend cuda --steps 12 --batch 8 --seq 128
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2_7b \
+      --smoke --tnn --device cpu --steps 3 --batch 2 --seq 16
+
+``--arch zamba2_7b --tnn`` builds ``tnn_default`` (the MLP only), whose
+training state does not fit one 80 GB card; the full model trains there
+through ``train(..., tnn_cfg=arch.tnn_one_card)`` (``chip_smoke.py``).
 
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs the kernels'
 plain versions.  The loop, its ``train.step`` / ``train.data`` /
@@ -39,6 +45,7 @@ import torch
 
 from repro_torch import telemetry as tm
 from repro_torch.configs import base as cfgbase
+from repro_torch.core.tensorized import TNNConfig
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.distributed import fault_tolerance as ft
 from repro_torch.launch import steps as steps_lib
@@ -66,16 +73,20 @@ def train(arch_id: str, *, smoke: bool, tnn: bool, steps: int,
           tnn_backend: str | None = None, tnn_remat: str | None = None,
           tnn_precision: str | None = None,
           loss_scale: float = 1.0, trace_path: str | None = None,
-          device: str = "cuda", on_step=None) -> dict:
+          device: str = "cuda", on_step=None,
+          tnn_cfg: TNNConfig | None = None) -> dict:
     """Train ``arch_id`` for ``steps`` steps on synthetic data; returns
     the per-step losses, grad norms and step seconds, and the final
     state.  ``on_step(step, metrics)``, when given, runs after each
-    step."""
+    step.  ``tnn_cfg``, when given, takes the place of the arch's
+    ``tnn_default`` (the backend, precision and remat overrides still
+    apply on top)."""
     owns_trace = bool(trace_path) and not tm.enabled()
     if owns_trace:
         tm.configure(trace_path)
     arch = cfgbase.get(arch_id)
-    tnn_cfg = arch.tnn_default if tnn else None
+    if tnn_cfg is None:
+        tnn_cfg = arch.tnn_default if tnn else None
     if tnn_cfg is not None and tnn_backend is not None:
         tnn_cfg = dataclasses.replace(tnn_cfg, backend=tnn_backend)
     if tnn_cfg is not None and tnn_precision:

@@ -5,9 +5,10 @@ matrix, or a :class:`~repro_torch.core.tensorized.TensorizedLinear` when a
 TNN config targets the projection), :func:`rmsnorm`,
 :func:`groupnorm_heads` (RWKV-6's per-head output norm), :func:`rope`,
 :class:`KVCache`, the GQA :class:`Attention` with its full-sequence
-training forward and its serving paths (``extend`` — chunked prefill at
-per-slot depths — and ``decode_step``), :func:`blockwise_attention` with
-the flash backward, and :class:`SwiGLU`.
+training forward and its serving paths (``prefill``, which the hybrid
+stack's prefill runs, ``extend`` — chunked prefill at per-slot depths —
+and ``decode_step``), :func:`blockwise_attention` with the flash
+backward, and :class:`SwiGLU`.
 
 Parameter names and layouts are the reference's (``Dense.w`` is
 ``[d_in, d_out]``, TT cores keep their shapes), so
@@ -19,8 +20,9 @@ Pallas kernel on a TPU and the jnp twin elsewhere; the flash backward is
 torch ops, as the reference's is plain jnp.  The serving paths' attention
 is the reference's plain-array code (f32 scores, softmax, f32 context).
 
-Not ported yet: ``prefill`` (ROADMAP.md, queue A item 10) and
-:class:`MoE` (item 7).
+Not ported yet: :class:`MoE` (ROADMAP.md, queue A item 7).  (The
+attention family's ``LM.prefill``, item 10, is refused in
+:mod:`repro_torch.models.lm`, not here.)
 """
 
 from __future__ import annotations
@@ -205,6 +207,22 @@ class Attention(nn.Module):
                                   q_chunk=self.q_chunk,
                                   kv_chunk=self.kv_chunk)
         return self.o(ctx.reshape(B, T, self.num_heads * self.head_dim))
+
+    def prefill(self, x: torch.Tensor, positions: torch.Tensor,
+                max_len: int) -> tuple[torch.Tensor, KVCache]:
+        """Full attention over the prompt (the flash path, as
+        :meth:`forward`) and the K/V cache it leaves: k/v zero-padded to
+        ``max_len`` positions, length ``T`` (a host scalar)."""
+        B, T, _ = x.shape
+        q, k, v = self._qkv(x, positions)
+        ctx = blockwise_attention(q, k, v, causal=True,
+                                  q_chunk=self.q_chunk,
+                                  kv_chunk=self.kv_chunk)
+        pad = (0, 0, 0, 0, 0, max_len - T)
+        cache = KVCache(torch.nn.functional.pad(k, pad),
+                        torch.nn.functional.pad(v, pad),
+                        torch.tensor(T, dtype=torch.int32))
+        return self.o(ctx.reshape(B, T, self.num_heads * self.head_dim)), cache
 
     def _attend(self, q, kc, vc, positions, dtype):
         """Scores of ``q [B, C, H, D]`` against the whole cache, masked to

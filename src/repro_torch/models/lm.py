@@ -1,11 +1,13 @@
-"""Decoder-only language model: the dense-attention and RWKV-6 families.
+"""Decoder-only language model: the dense-attention, RWKV-6, Mamba-2 and
+hybrid (Mamba-2 with a shared attention block) families.
 
-Port of ``src/repro/models/lm.py``: :class:`LMConfig`, and :class:`LM`
-with the training forward (``forward`` — the reference's ``__call__`` —
-over :meth:`LM.apply_layers`, and the masked next-token loss
-``token_loss`` / ``loss``) and the serving entry points ``init_cache``,
-``extend`` (chunked prefill at per-slot depths, attention only),
-``prefill`` (RWKV-6 only) and ``decode_step``.
+Port of ``src/repro/models/lm.py``: :class:`HybridSpec`,
+:class:`LMConfig`, and :class:`LM` with the training forward (``forward``
+— the reference's ``__call__`` — over :meth:`LM.apply_layers`, and the
+masked next-token loss ``token_loss`` / ``loss``) and the serving entry
+points ``init_cache``, ``extend`` (chunked prefill at per-slot depths,
+attention only), ``prefill`` (the recurrent families) and
+``decode_step``.
 Every projection consults ``cfg.tnn``
 (:func:`repro_torch.models.blocks.make_dense`), which is how the paper's
 technique, and with ``backend="cuda"`` the CUDA kernels, enter the model.
@@ -13,23 +15,30 @@ technique, and with ``backend="cuda"`` the CUDA kernels, enter the model.
 ``block="rwkv6"`` stacks RWKV-6 layers (:mod:`repro_torch.models.ssm`):
 their full-sequence time mix runs the scan kernel (B8), and ``prefill``
 hands the kernel's final states to ``decode_step``'s single-step
-recurrence through a :class:`StateCache`.
+recurrence through a :class:`StateCache`.  ``block="mamba2"`` stacks
+Mamba-2 layers (``ln``, ``mamba``), whose SSD also runs B8; with a
+:class:`HybridSpec` (``zamba2_7b``) one shared block (``shared.ln1``,
+``shared.attn``, ``shared.ln2``, ``shared.mlp``, the same weights every
+time) follows every ``shared_every`` layers, and the decode state is a
+:class:`MambaCache`: the stacked per-layer :class:`~repro_torch.models.ssm.MambaState`
+and one K/V cache per shared-block application.
 
 ``remat`` re-runs each layer's forward inside the backward
 (``torch.utils.checkpoint`` per layer, non-reentrant), the reference's
-per-layer ``jax.checkpoint`` with ``nothing_saveable``.  The reference's
+per-layer ``jax.checkpoint`` with ``nothing_saveable``; as there, the
+hybrid's shared block is not checkpointed.  The reference's
 ``scan_layers`` and ``remat_group`` choose how XLA lowers the layer stack;
 an eager loop over per-layer modules has nothing to choose, so they are
 left out.
 
 Parameter names follow the reference's tree with the stacked ``[L, ...]``
 layer leaves split per layer (``layers.<l>.attn.q.cores.<i>``,
-``layers.<l>.rwkv.mix.r``), so
+``layers.<l>.rwkv.mix.r``, ``layers.<l>.mamba.in.cores.<i>``) and the
+shared block unstacked (``shared.attn.o.cores.<i>``), so
 :func:`repro_torch.convert.params_from_numpy` loads reference parameters.
 
-Not ported yet: MoE and its auxiliary loss (ROADMAP.md, queue A item 7),
-Mamba-2 and the hybrid blocks (items 6-7), and the attention family's
-``prefill`` (item 10).
+Not ported yet: MoE and its auxiliary loss (ROADMAP.md, queue A item 7)
+and the attention family's ``prefill`` (item 10).
 """
 
 from __future__ import annotations
@@ -50,6 +59,14 @@ from repro_torch.models.blocks import (
 
 
 @dataclasses.dataclass(frozen=True)
+class HybridSpec:
+    """Zamba2-style: one shared attention block applied after every
+    ``shared_every`` backbone layers (the same weights each time)."""
+    shared_every: int = 27
+    d_ff_shared: int | None = None
+
+
+@dataclasses.dataclass(frozen=True)
 class LMConfig:
     name: str
     num_layers: int
@@ -59,7 +76,9 @@ class LMConfig:
     d_ff: int
     vocab: int
     head_dim: int | None = None            # default d_model // num_heads
-    block: str = "attn"                    # attn | rwkv6 (mamba2: not yet)
+    block: str = "attn"                    # attn | rwkv6 | mamba2
+    hybrid: HybridSpec | None = None
+    ssm_state: int = 64
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
@@ -76,12 +95,15 @@ class LMConfig:
         return self.head_dim or self.d_model // self.num_heads
 
     def validate(self):
-        if self.block == "mamba2":
-            raise NotImplementedError(
-                "block 'mamba2' is not ported yet (ROADMAP.md, queue A "
-                "item 6: Mamba-2 and zamba2_7b; its hybrid path is item 7)")
-        if self.block not in ("attn", "rwkv6"):
+        if self.block not in ("attn", "rwkv6", "mamba2"):
             raise ValueError(f"unknown block {self.block!r}")
+        if self.hybrid:
+            if self.block != "mamba2":
+                raise ValueError("a hybrid stack has a mamba2 backbone")
+            if self.num_layers % self.hybrid.shared_every:
+                raise ValueError(
+                    f"{self.num_layers} layers not divisible by "
+                    f"shared_every={self.hybrid.shared_every}")
 
 
 class DecodeCache(NamedTuple):
@@ -97,8 +119,18 @@ class StateCache(NamedTuple):
     length: torch.Tensor   # [] int32 tokens seen, on the CPU
 
 
-def _stacked(states: list[ssm.RWKVState]) -> ssm.RWKVState:
-    return ssm.RWKVState(*(torch.stack(s) for s in zip(*states)))
+class MambaCache(NamedTuple):
+    """Mamba-2 decode state (the reference's ``DecodeCache`` for the
+    block): per-layer states stacked ``[L, ...]`` and, for the hybrid,
+    the shared block's K/V stacked per application."""
+    layers: ssm.MambaState  # ssm [L, B, H, dk, hd], conv [L, B, W-1, C] f32
+    shared: KVCache | None  # k/v [G, B, max_len, KV, hd]; length [G] (CPU)
+    length: torch.Tensor    # [] (or [B]) int32 tokens seen, on the CPU
+
+
+def _stacked(states: list):
+    """Per-layer state tuples -> one tuple of ``[L, ...]`` stacks."""
+    return type(states[0])(*(torch.stack(s) for s in zip(*states)))
 
 
 class DecoderLayer(nn.Module):
@@ -130,6 +162,39 @@ class RWKVLayer(nn.Module):
             device=device, generator=generator)
 
 
+class MambaLayer(nn.Module):
+    def __init__(self, cfg: LMConfig, device=None, generator=None):
+        super().__init__()
+        c = cfg
+        self.ln = RMSNorm(c.d_model, device=device)
+        self.mamba = ssm.Mamba2Block(
+            c.d_model, d_state=c.ssm_state, head_dim=c.hd,
+            tnn=c.tnn if c.tnn.enabled else None,
+            param_dtype=c.param_dtype, compute_dtype=c.compute_dtype,
+            device=device, generator=generator)
+
+
+class SharedBlock(nn.Module):
+    """The hybrid's shared attention + SwiGLU block."""
+
+    def __init__(self, cfg: LMConfig, device=None, generator=None):
+        super().__init__()
+        c = cfg
+        tnn = c.tnn if c.tnn.enabled else None
+        common = dict(param_dtype=c.param_dtype, compute_dtype=c.compute_dtype,
+                      device=device, generator=generator)
+        self.ln1 = RMSNorm(c.d_model, device=device)
+        self.attn = Attention(c.d_model, c.num_heads, c.num_kv_heads, c.hd,
+                              rope_theta=c.rope_theta, q_chunk=c.q_chunk,
+                              kv_chunk=c.kv_chunk, tnn=tnn, **common)
+        self.ln2 = RMSNorm(c.d_model, device=device)
+        self.mlp = SwiGLU(c.d_model, c.hybrid.d_ff_shared or c.d_ff, tnn=tnn,
+                          **common)
+
+
+_LAYERS = {"attn": DecoderLayer, "rwkv6": RWKVLayer, "mamba2": MambaLayer}
+
+
 class LM(nn.Module):
     """``device`` defaults to ``cuda``; weights are random from ``seed``
     (or loaded with ``load_state_dict``)."""
@@ -145,7 +210,7 @@ class LM(nn.Module):
             (torch.randn(c.vocab, c.d_model, generator=gen) * std).to(
                 device=self.device, dtype=c.param_dtype))
         self.ln_f = RMSNorm(c.d_model, device=self.device)
-        layer = RWKVLayer if c.block == "rwkv6" else DecoderLayer
+        layer = _LAYERS[c.block]
         self.layers = nn.ModuleList(
             layer(c, device=self.device, generator=gen)
             for _ in range(c.num_layers))
@@ -154,6 +219,8 @@ class LM(nn.Module):
                                  param_dtype=c.param_dtype,
                                  compute_dtype=c.compute_dtype,
                                  device=self.device, generator=gen)
+        if c.hybrid:
+            self.shared = SharedBlock(c, device=self.device, generator=gen)
 
     # -- pieces ---------------------------------------------------------------
 
@@ -193,19 +260,45 @@ class LM(nn.Module):
                 shift_cm=xn2[:, -1].to(c.compute_dtype))
         return x
 
+    def _mamba_layer(self, layer: MambaLayer, x: torch.Tensor,
+                     want_state: bool = False):
+        """One Mamba-2 layer; with ``want_state`` also its decode state."""
+        xn = layer.ln(x, self.cfg.norm_eps)
+        if want_state:
+            h, state = layer.mamba(xn, return_state=True)
+            return x + h, state
+        return x + layer.mamba(xn)
+
+    def _shared_block(self, x: torch.Tensor, positions: torch.Tensor
+                      ) -> torch.Tensor:
+        c, sb = self.cfg, self.shared
+        x = x + sb.attn(sb.ln1(x, c.norm_eps), positions)
+        return x + sb.mlp(sb.ln2(x, c.norm_eps))
+
+    def _shared_after(self, li: int) -> bool:
+        """Whether the hybrid's shared block follows layer ``li``."""
+        h = self.cfg.hybrid
+        return h is not None and (li + 1) % h.shared_every == 0
+
     def apply_layers(self, x: torch.Tensor, positions: torch.Tensor
                      ) -> torch.Tensor:
-        """Run the layer stack; with ``cfg.remat`` and grad enabled, each
-        layer's activations are recomputed in the backward."""
-        if self.cfg.block == "rwkv6":
+        """Run the layer stack (the hybrid's shared block after every
+        ``shared_every`` layers); with ``cfg.remat`` and grad enabled,
+        each layer's activations are recomputed in the backward."""
+        block = self.cfg.block
+        if block == "rwkv6":
             fn, extra = self._rwkv_layer, ()
+        elif block == "mamba2":
+            fn, extra = self._mamba_layer, ()
         else:
             fn, extra = self._attn_layer, (positions,)
-        for layer in self.layers:
+        for li, layer in enumerate(self.layers):
             if self.cfg.remat and torch.is_grad_enabled():
                 x = checkpoint(fn, layer, x, *extra, use_reentrant=False)
             else:
                 x = fn(layer, x, *extra)
+            if self._shared_after(li):
+                x = self._shared_block(x, positions)
         return x
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
@@ -241,19 +334,34 @@ class LM(nn.Module):
     # -- caches ---------------------------------------------------------------
 
     def init_cache(self, batch: int, max_len: int
-                   ) -> DecodeCache | StateCache:
+                   ) -> DecodeCache | StateCache | MambaCache:
         """Zeroed decode state: K/V buffers of ``max_len`` positions, or
-        for RWKV-6 the per-layer recurrent states (``max_len`` unused)."""
+        for RWKV-6 and Mamba-2 the per-layer recurrent states (``max_len``
+        sizes only the hybrid's shared-block K/V)."""
         c = self.cfg
+        length = torch.zeros((), dtype=torch.int32)
         if c.block == "rwkv6":
             states = [layer.rwkv.init_state(batch) for layer in self.layers]
-            return StateCache(_stacked(states),
-                              torch.zeros((), dtype=torch.int32))
-        shape = (c.num_layers, batch, max_len, c.num_kv_heads, c.hd)
+            return StateCache(_stacked(states), length)
+        kv_shape = (batch, max_len, c.num_kv_heads, c.hd)
+        if c.block == "mamba2":
+            one = self.layers[0].mamba.init_state(batch)
+            layers = type(one)(*(torch.zeros((c.num_layers,) + s.shape,
+                                             dtype=s.dtype, device=s.device)
+                                 for s in one))
+            shared = None
+            if c.hybrid:
+                groups = c.num_layers // c.hybrid.shared_every
+                shared = KVCache(
+                    *(torch.zeros((groups,) + kv_shape, dtype=c.compute_dtype,
+                                  device=self.device) for _ in "kv"),
+                    torch.zeros(groups, dtype=torch.int32))
+            return MambaCache(layers, shared, length)
+        shape = (c.num_layers,) + kv_shape
         return DecodeCache(
             k=torch.zeros(shape, dtype=c.compute_dtype, device=self.device),
             v=torch.zeros(shape, dtype=c.compute_dtype, device=self.device),
-            length=torch.zeros((), dtype=torch.int32))
+            length=length)
 
     # -- serving --------------------------------------------------------------
 
@@ -287,11 +395,16 @@ class LM(nn.Module):
                                    cache.length + adv)
 
     def decode_step(self, token: torch.Tensor,
-                    cache: DecodeCache | StateCache
-                    ) -> tuple[torch.Tensor, DecodeCache | StateCache]:
-        """token: [B] ids -> (logits [B, V], advanced cache).  RWKV-6
-        runs each layer's single-step recurrence on its carried state."""
+                    cache: DecodeCache | StateCache | MambaCache
+                    ) -> tuple[torch.Tensor,
+                               DecodeCache | StateCache | MambaCache]:
+        """token: [B] ids -> (logits [B, V], advanced cache).  RWKV-6 and
+        Mamba-2 run each layer's single-step recurrence on its carried
+        state; the hybrid's shared block attends over its application's
+        K/V cache at each slot's depth (``cache.length``)."""
         c = self.cfg
+        if c.block == "mamba2":
+            return self._mamba_decode_step(token, cache)
         if c.block != "rwkv6":
             logits, new = self.extend(token[:, None], cache)
             return logits[:, 0], new
@@ -309,21 +422,65 @@ class LM(nn.Module):
         logits = self._logits(self.ln_f(x, c.norm_eps))[:, 0]
         return logits, StateCache(_stacked(new_states), cache.length + 1)
 
-    def prefill(self, inputs: torch.Tensor, max_len: int
-                ) -> tuple[torch.Tensor, StateCache]:
-        """Ingest the prompt ``[B, T]`` with the full-sequence (scan
-        kernel) path; returns the last position's logits ``[B, V]`` and
-        the decode state.  RWKV-6 only so far."""
+    def _mamba_decode_step(self, token: torch.Tensor, cache: MambaCache
+                           ) -> tuple[torch.Tensor, MambaCache]:
         c = self.cfg
-        if c.block != "rwkv6":
+        x = self._embed(token[:, None])
+        states, ks, vs = [], [], []
+        for li, layer in enumerate(self.layers):
+            st = ssm.MambaState(*(s[li] for s in cache.layers))
+            h, st = layer.mamba.decode_step(layer.ln(x, c.norm_eps), st)
+            x = x + h
+            states.append(st)
+            if self._shared_after(li):
+                gi, sb = len(ks), self.shared
+                kv = KVCache(cache.shared.k[gi], cache.shared.v[gi],
+                             cache.length)
+                h, kv = sb.attn.decode_step(sb.ln1(x, c.norm_eps), kv)
+                x = x + h
+                x = x + sb.mlp(sb.ln2(x, c.norm_eps))
+                ks.append(kv.k)
+                vs.append(kv.v)
+        shared = (KVCache(torch.stack(ks), torch.stack(vs),
+                          cache.shared.length + 1) if ks else None)
+        logits = self._logits(self.ln_f(x, c.norm_eps))[:, 0]
+        return logits, MambaCache(_stacked(states), shared, cache.length + 1)
+
+    def prefill(self, inputs: torch.Tensor, max_len: int
+                ) -> tuple[torch.Tensor, StateCache | MambaCache]:
+        """Ingest the prompt ``[B, T]`` with the full-sequence path (the
+        scan kernel; the hybrid's shared attention through the flash
+        kernel, its K/V padded to ``max_len``); returns the last
+        position's logits ``[B, V]`` and the decode state.  RWKV-6 and
+        Mamba-2 only so far."""
+        c = self.cfg
+        if c.block == "attn":
             raise NotImplementedError(
                 "prefill of an attention model is not ported yet "
                 "(ROADMAP.md, queue A item 10)")
+        B, T = inputs.shape[:2]
+        positions = torch.arange(T, device=self.device)[None].expand(B, T)
         x = self._embed(inputs)
-        states = []
-        for layer in self.layers:
-            x, st = self._rwkv_layer(layer, x, want_state=True)
+        states, ks, vs = [], [], []
+        for li, layer in enumerate(self.layers):
+            if c.block == "rwkv6":
+                x, st = self._rwkv_layer(layer, x, want_state=True)
+            else:
+                x, st = self._mamba_layer(layer, x, want_state=True)
             states.append(st)
+            if self._shared_after(li):
+                sb = self.shared
+                h, kv = sb.attn.prefill(sb.ln1(x, c.norm_eps), positions,
+                                        max_len)
+                x = x + h
+                x = x + sb.mlp(sb.ln2(x, c.norm_eps))
+                ks.append(kv.k)
+                vs.append(kv.v)
         logits = self._logits(self.ln_f(x, c.norm_eps)[:, -1:])[:, 0]
-        return logits, StateCache(
-            _stacked(states), torch.tensor(inputs.shape[1], dtype=torch.int32))
+        length = torch.tensor(T, dtype=torch.int32)
+        if c.block == "rwkv6":
+            return logits, StateCache(_stacked(states), length)
+        shared = (KVCache(torch.stack(ks), torch.stack(vs),
+                          torch.full((len(ks),), T, dtype=torch.int32))
+                  if ks else None)
+        return logits, MambaCache(_stacked(states), shared, length)

@@ -120,12 +120,27 @@ def _f32(x, like: torch.Tensor | None = None) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
+#: ``qmax`` as an f32 tensor per (value, device), made on first use
+_DIVISORS: dict[tuple[float, torch.device], torch.Tensor] = {}
+
+
+def _divisor(qmax: float, like: torch.Tensor) -> torch.Tensor:
+    key = (float(qmax), like.device)
+    if key not in _DIVISORS:
+        _DIVISORS[key] = _f32(qmax, like)
+    return _DIVISORS[key]
+
+
 def compute_scale(amax, qmax: float, margin: float = 1.0) -> torch.Tensor:
     """f32 dequantization scale for a tensor (or tile) with given amax:
     ``q = x / scale`` maps ``[-amax, amax]`` onto ``±qmax / margin``; the
-    epsilon floor keeps all-zero tensors finite."""
+    epsilon floor keeps all-zero tensors finite.  ``qmax`` divides as an
+    f32 tensor on amax's device, the reference's true divide: torch
+    computes a CUDA tensor over a Python number as a multiply by its
+    reciprocal.  The divisor is made once per device, so a call copies
+    nothing from the host (and can be captured in a CUDA graph)."""
     amax = _f32(amax)
-    return torch.clamp(amax, min=_EPS) * margin / qmax
+    return torch.clamp(amax, min=_EPS) * margin / _divisor(qmax, amax)
 
 
 def amax_of(x: torch.Tensor) -> torch.Tensor:

@@ -10,9 +10,13 @@ of ``batch_size`` slots and advances in **ticks**.  Each tick:
    slots beyond ``budget // slot_bytes`` are never occupied.
 2. **prefill** — slots still ingesting their prompt consume up to
    ``prefill_chunk`` prompt tokens each through one ``model.extend`` call,
-   bounded globally by ``max_prefill_tokens`` per tick.  A slot whose
-   prompt completes samples its first token from its last valid chunk
-   position and flips to decode.
+   bounded globally by ``max_prefill_tokens`` per tick.  A model without
+   a native ``extend`` (the SSM and hybrid blocks) takes the reference's
+   sequential fallback: the chunk's columns go through ``decode_step`` in
+   order, and a slot past its ``valid`` count is frozen by
+   :meth:`ServeEngine._select`.  A slot whose prompt completes samples
+   its first token from its last valid chunk position and flips to
+   decode.
 3. **decode** — every decoding slot feeds its last sampled token through
    one ``model.decode_step`` call; EOS or ``max_new_tokens`` frees the
    slot at end of tick.
@@ -28,9 +32,10 @@ Differences from the reference: the tick functions run eagerly (no
 ``jit``); sampling draws from a ``torch.Generator`` seeded from ``seed``,
 so sampled (temperature > 0) streams differ from the reference's while
 greedy ones match; a quantized ``kv_policy`` raises NotImplementedError
-(ROADMAP.md, queue A: quantized KV cache); models whose blocks are not
-attention (RWKV-6; the reference serves them through a sequential
-``decode_step`` fallback) raise, naming their ROADMAP.md item.  With
+(ROADMAP.md, queue A: quantized KV cache); the sequential fallback stops
+after the chunk's last column that some slot still ingests (the
+reference runs all ``prefill_chunk`` columns; the ones skipped are
+frozen for every slot, and no caller reads their logits).  With
 tracing on, the ``serve.prefill_chunk`` and
 ``serve.decode_step`` spans wait for the card before they close, so on a
 GPU they hold the tick's device time, not its launch time; tracing off,
@@ -81,16 +86,16 @@ class Request:
         return self.t_first - self.t_submit
 
 
-def require_attention(cfg) -> None:
-    """Refuse a model whose blocks are not attention: the reference
-    serves those through a sequential ``decode_step`` fallback, which is
-    not ported yet."""
-    block = getattr(cfg, "block", "attn")
-    if block != "attn":
-        raise NotImplementedError(
-            f"serving block {block!r} is not ported yet (ROADMAP.md, queue "
-            "A item 6: SSM serving through the engine's sequential "
-            "decode_step fallback)")
+def _tree_map(fn, *trees):
+    """``fn`` over the tensors of nested tuples (cache NamedTuples);
+    ``None`` fields stay ``None``."""
+    first = trees[0]
+    if first is None:
+        return None
+    if isinstance(first, tuple):
+        return type(first)(*(_tree_map(fn, *parts)
+                             for parts in zip(*trees)))
+    return fn(*trees)
 
 
 class ServeEngine:
@@ -120,16 +125,17 @@ class ServeEngine:
             raise NotImplementedError(
                 f"quantized KV cache ({kv_policy.dtype}) is not ported yet "
                 "(ROADMAP.md, queue A: quantized KV cache)")
-        require_attention(getattr(model, "cfg", None))
-        if not hasattr(model, "extend"):
-            raise NotImplementedError(
-                "models without extend() (SSM/hybrid) are not ported yet "
-                "(ROADMAP.md, queue A)")
+        cfg = getattr(model, "cfg", None)
+        attn_only = cfg is None or (getattr(cfg, "block", "attn") == "attn"
+                                    and not getattr(cfg, "hybrid", None))
+        self._native_extend = attn_only and hasattr(model, "extend")
 
         # -- admission capacity: memory budget / modeled per-slot bytes ----
-        cfg = getattr(model, "cfg", None)
-        if cfg is not None:
+        if cfg is not None and attn_only:
             self.slot_cost = kvq.slot_bytes(cfg, max_len)
+        elif cfg is not None:
+            per = kvq.model_slot_bytes(model, max_len)
+            self.slot_cost = {"payload": per, "meta": 0, "total": per}
         else:
             self.slot_cost = {"payload": 0, "meta": 0, "total": 0}
         budget = parse_budget(memory_budget)
@@ -171,11 +177,11 @@ class ServeEngine:
                                                        dtype=torch.int32))
 
     def _select(self, active: np.ndarray, new, old):
-        """Per-field batch-axis select: inactive slots keep their old
-        state.  Stacked per-layer buffers are >= 3-D with batch on axis 1
-        ([L, B, ...]), per-slot vectors 1-/2-D with batch on axis 0 —
-        checked in that order.  Fields without a batch axis pass through
-        from ``new``."""
+        """Per-tensor batch-axis select over the (nested) cache:
+        inactive slots keep their old state.  Stacked per-layer buffers
+        are >= 3-D with batch on axis 1 ([L, B, ...]), per-slot vectors
+        1-/2-D with batch on axis 0 — checked in that order.  Tensors
+        without a batch axis pass through from ``new``."""
         B = self.batch
 
         def sel(n, o):
@@ -188,16 +194,34 @@ class ServeEngine:
             m = torch.as_tensor(active, device=n.device).reshape(shape)
             return torch.where(m, n, o)
 
-        return type(new)(*(sel(n, o) for n, o in zip(new, old)))
+        return _tree_map(sel, new, old)
 
     @torch.no_grad()
     def _extend(self, toks: np.ndarray, valid: np.ndarray,
                 active: np.ndarray):
         cache = self.cache._replace(length=torch.from_numpy(self.lengths))
-        logits, new = self.model.extend(
-            torch.as_tensor(toks, device=self.device), cache,
-            valid=torch.from_numpy(valid))
+        if self._native_extend:
+            logits, new = self.model.extend(
+                torch.as_tensor(toks, device=self.device), cache,
+                valid=torch.from_numpy(valid))
+        else:
+            logits, new = self._extend_sequential(toks, valid, cache)
         return logits, self._select(active, new, cache)
+
+    def _extend_sequential(self, toks: np.ndarray, valid: np.ndarray,
+                           cache):
+        """The reference's fallback for a model without ``extend``: the
+        chunk's columns through ``decode_step`` in order, each slot
+        frozen past its ``valid`` count.  Returns the columns' logits
+        ``[B, n, V]`` (``n`` the largest ``valid``, at least 1) and the
+        cache."""
+        logits = []
+        for i in range(max(int(valid.max()), 1)):
+            out, new = self.model.decode_step(
+                torch.as_tensor(toks[:, i], device=self.device), cache)
+            cache = self._select(valid > i, new, cache)
+            logits.append(out)
+        return torch.stack(logits, dim=1), cache
 
     @torch.no_grad()
     def _decode(self, active: np.ndarray):
@@ -266,8 +290,7 @@ class ServeEngine:
         if admitted:
             mask = np.zeros(self.batch, bool)
             mask[admitted] = True
-            zeros = type(self.cache)(*(torch.zeros_like(t)
-                                       for t in self.cache))
+            zeros = _tree_map(torch.zeros_like, self.cache)
             self.cache = self._select(mask, zeros, self.cache)
             tm.inc("serve.admitted", len(admitted))
         self.max_occupancy = max(self.max_occupancy, self.occupancy)

@@ -44,7 +44,11 @@ def phase_tnn(tnn: TNNConfig, phase: str) -> TNNConfig:
 
 def tensorized_projections(cfg) -> list[tuple[str, int, int]]:
     """``(name, d_in, d_out)`` of every distinct tensorized projection an
-    ``LMConfig`` instantiates, per its ``tnn.targets``."""
+    ``LMConfig`` instantiates, per its ``tnn.targets``.  For Mamba-2 the
+    port also lists the block's ``in`` (``mix``) and ``out`` projections
+    and, for the hybrid, the shared block's attention and MLP (the
+    reference lists the attention family's projections for every
+    block)."""
     c = cfg
     out: list[tuple[str, int, int]] = []
     seen: set[tuple[int, int]] = set()
@@ -65,14 +69,25 @@ def tensorized_projections(cfg) -> list[tuple[str, int, int]]:
             add("rwkv.cm_k", c.d_model, c.d_ff)
             add("rwkv.cm_v", c.d_ff, c.d_model)
         return out
+    d_ff = c.d_ff
+    if c.block == "mamba2":
+        d_inner = 2 * c.d_model
+        if "mix" in targets:
+            add("mamba.in", c.d_model,
+                2 * d_inner + 2 * c.ssm_state + d_inner // c.hd)
+        if "out" in targets:
+            add("mamba.out", d_inner, c.d_model)
+        if not c.hybrid:
+            return out
+        d_ff = c.hybrid.d_ff_shared or c.d_ff
     if "qkv" in targets:
         add("attn.q", c.d_model, c.num_heads * c.hd)
         add("attn.kv", c.d_model, c.num_kv_heads * c.hd)
     if "out" in targets:
         add("attn.o", c.num_heads * c.hd, c.d_model)
     if "mlp" in targets:
-        add("mlp.in", c.d_model, c.d_ff)
-        add("mlp.down", c.d_ff, c.d_model)
+        add("mlp.in", c.d_model, d_ff)
+        add("mlp.down", d_ff, c.d_model)
     return out
 
 

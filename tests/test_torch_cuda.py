@@ -1003,3 +1003,149 @@ def test_cuda_requantize_scale_is_the_true_divide(cuda_device, dtype):
         amax = x.abs().amax().cpu()
         want = torch.clamp(amax, min=1e-12) * pol.margin / pol.qmax
         assert torch.equal(_bits(s), _bits(want)), (i, float(s), float(want))
+
+
+def _fp8_op_results():
+    """Every op-result shape the fp8 training plans of ``paper_atis_tt``
+    requantize (one per size): the sizes ``chip_smoke.py``'s
+    ``kernel:requantize`` checks."""
+    import dataclasses
+
+    from repro_torch.configs import base
+    from repro_torch.core import plan_compiler, tensorized
+    from repro_torch.serving import profiles
+
+    arch = base.get("paper_atis_tt")
+    cfg = arch.model(arch.tnn_default)
+    tnn = dataclasses.replace(cfg.tnn, precision=QuantPolicy.parse("fp8"))
+    shapes = {}
+    for _, d_in, d_out in profiles.tensorized_projections(cfg):
+        layer = tensorized.make_tensorized_linear(
+            d_out, d_in, tnn, compute_dtype=cfg.compute_dtype, device="meta")
+        for results in tensorized.phase_plans(layer.fact, 8 * 128,
+                                              layer.opts).values():
+            for r in results:
+                net = r.plan.network
+                compiled = plan_compiler.compile_cached(
+                    r.plan, fuse=layer.opts.fused_chain,
+                    max_chain_len=layer.opts.max_chain_len,
+                    policy=layer.precision)
+                for op in compiled.ops:
+                    if isinstance(op, plan_compiler.GemmOp):
+                        axes = op.mat.m_axes + op.mat.n_axes
+                    elif isinstance(op, plan_compiler.ChainOp):
+                        axes = op.m_axes + op.n_axes
+                    else:
+                        axes = op.step.out_axes
+                    shape = tuple(net.sizes[a] for a in axes)
+                    shapes[math.prod(shape)] = shape
+    return [shapes[n] for n in sorted(shapes)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", QUANT)
+def test_cuda_compute_scale_is_the_reference_divide(cuda_device, dtype):
+    """``policy.compute_scale`` on a CUDA amax equals numpy's f32
+    ``max(amax, eps) * margin / qmax`` bit for bit (the reference's true
+    divide), at the amax of every fp8 training op result, as the
+    requantize kernel's scale does; so the scales the torch ops derive
+    (delayed and just in time) are the kernel's."""
+    from repro_torch.precision.policy import compute_scale
+
+    pol = QuantPolicy.parse(dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    shapes = _fp8_op_results()
+    assert len(shapes) == 20
+    for shape in shapes:
+        x = torch.randn(shape, generator=gen, device=cuda_device) * 3.0
+        amax = x.abs().amax()
+        got = compute_scale(amax, pol.qmax, pol.margin)
+        a = np.float32(amax.item())
+        want = (np.maximum(a, np.float32(1e-12)) * np.float32(pol.margin)
+                / np.float32(pol.qmax))
+        assert got.dtype == torch.float32 and got.is_cuda
+        assert got.cpu().numpy().tobytes() == np.float32(want).tobytes(), (
+            shape, float(got), float(want))
+        assert torch.equal(_bits(got), _bits(qk.requantize_cuda(x, pol)[1]))
+        assert torch.equal(_bits(quant.quantize(x, pol).scale), _bits(got))
+
+
+@pytest.mark.cuda
+def test_cuda_zamba2_train_step_matches_the_cpu(cuda_device):
+    """One f32 training step of the zamba2_7b smoke LM (remat on, TT on
+    the Mamba-2 projections, the shared attention's o and the shared
+    MLP) through the kernels on the card and their plain versions on the
+    CPU: loss within 1e-5 and every gradient within 1e-4 of its scale;
+    the scan kernel runs twice a layer (forward and the checkpoint
+    re-run), the attention kernel once a shared-block application."""
+    import dataclasses
+
+    from repro_torch.configs import base
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import steps
+
+    arch = base.get("zamba2_7b")
+    grads, losses = [], []
+    for device in ("cpu", cuda_device):
+        model, cfg = steps.build_model(arch, arch.tnn_one_card, smoke=True,
+                                       device=device, backend="cuda",
+                                       compute_dtype=torch.float32)
+        model.cfg = dataclasses.replace(cfg, remat=True)
+        if grads:
+            model.load_state_dict(base_sd)
+        else:
+            base_sd = {k: v.clone() for k, v in model.state_dict().items()}
+        batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                       global_batch=4)).batch(0)
+        before = dict(fc.LAUNCHES)
+        loss, _ = model.loss({k: torch.from_numpy(v)
+                              for k, v in batch.items()})
+        loss.backward()
+        if device != "cpu":
+            assert fc.LAUNCHES["linear_scan"] == (before["linear_scan"]
+                                                  + 2 * cfg.num_layers)
+            groups = cfg.num_layers // cfg.hybrid.shared_every
+            assert fc.LAUNCHES["flash_attention_fwd"] == (
+                before["flash_attention_fwd"] + groups)
+            assert fc.LAUNCHES["matmul"] > before["matmul"]
+        losses.append(float(loss.detach()))
+        grads.append({n: p.grad.cpu() for n, p in model.named_parameters()})
+    assert losses[1] == pytest.approx(losses[0], rel=1e-5)
+    for name, g in grads[0].items():
+        torch.testing.assert_close(grads[1][name], g, rtol=0,
+                                   atol=1e-4 * float(g.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_mamba2_block_matches_the_cpu(cuda_device, dtype):
+    """The Mamba-2 block at its init decay (about -0.7 a token), T 128,
+    chunk 128, where the factored scan overflows: on the card (the GEMM
+    and the scan kernel's broadcast-decay form) against the same block
+    on the CPU (their plain versions), finite, within 1e-5 of the scale
+    in f32 and 2e-2 in bf16 (a bf16 rounding of a projection or the
+    scan's output landing one ulp apart, carried on)."""
+    from repro_torch.configs import base
+    from repro_torch.launch import steps
+
+    arch = base.get("zamba2_7b")
+    outs = []
+    x = torch.randn(2, 128, 64, generator=torch.Generator().manual_seed(5))
+    for device in ("cpu", cuda_device):
+        model, _ = steps.build_model(arch, arch.tnn_one_card, smoke=True,
+                                     device=device, backend="cuda",
+                                     compute_dtype=dtype)
+        if outs:
+            model.load_state_dict(base_sd)
+        else:
+            base_sd = {k: v.clone() for k, v in model.state_dict().items()}
+        before = fc.LAUNCHES["linear_scan"]
+        with torch.no_grad():
+            y = model.layers[0].mamba(x.to(device, dtype), chunk=128)
+        if device != "cpu":
+            assert fc.LAUNCHES["linear_scan"] == before + 1
+        outs.append(y.float().cpu())
+    assert bool(torch.isfinite(outs[1]).all())
+    scale = float(outs[0].abs().max())
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert _max_err(outs[1], outs[0]) <= tol * scale

@@ -30,9 +30,10 @@ RWKV-6 block and LM) against the JAX reference on the same numpy inputs.
   ``make_train_step`` (``no_shard``) against the port's, loss and grad
   norm within 6e-5 relative; ``prefill`` + ``decode_step`` against the
   port's own ``forward`` and the reference's prefill/decode.
-* AdamW decays every RWKV leaf the reference decays; the train CLI runs
-  ``rwkv6_7b`` on the CPU; the serve CLI refuses it with its ROADMAP
-  item; shapes the scan kernel cannot take raise on either device.
+* AdamW decays every RWKV leaf the reference decays; the train and
+  serve CLIs run ``rwkv6_7b`` on the CPU, and a quantized KV cache for
+  it is refused with its ROADMAP item; shapes the scan kernel cannot
+  take raise on either device.
 
 The CUDA kernel is held against its plain twin on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -67,6 +68,7 @@ from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models.lm import LMConfig, RWKVLayer  # noqa: E402
 from repro_torch.optim.adamw import AdamW  # noqa: E402
+from repro_torch.serving.engine import ServeEngine  # noqa: E402
 
 MODES = ["ssd", "rwkv6"]
 
@@ -584,9 +586,20 @@ def test_build_model_cuts_depth_only():
 
 
 def test_unported_blocks_raise_with_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 6"):
+    """Mamba-2 is ported (``tests/test_torch_zamba2.py``); what is not
+    raises: an unknown block, an architecture of a family still queued
+    (MoE, item 7) and the attention family's prefill (item 10)."""
+    with pytest.raises(ValueError, match="unknown block"):
         LMConfig(name="m", num_layers=1, d_model=8, num_heads=1,
-                 num_kv_heads=1, d_ff=8, vocab=8, block="mamba2").validate()
+                 num_kv_heads=1, d_ff=8, vocab=8, block="moe").validate()
+    LMConfig(name="m", num_layers=1, d_model=8, num_heads=1,
+             num_kv_heads=1, d_ff=8, vocab=8, block="mamba2").validate()
+    with pytest.raises(KeyError, match="ROADMAP.md"):
+        tbase.get("olmoe_1b_7b")
+    model, _ = steps.build_model(tbase.get("paper_atis_tt"), smoke=True,
+                                 device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        model.prefill(torch.zeros((1, 4), dtype=torch.long), max_len=8)
 
 
 def test_train_cli_runs_rwkv6_on_the_cpu(capsys):
@@ -598,6 +611,17 @@ def test_train_cli_runs_rwkv6_on_the_cpu(capsys):
 
 
 def test_serve_cli_refuses_rwkv6_with_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*SSM"):
+    """The serve CLI now serves rwkv6_7b (the engine's sequential
+    ``decode_step`` fallback); a quantized KV cache for it is still
+    refused, by the CLI and by the engine, with its ROADMAP.md item."""
+    done = serve_cli.main(["--arch", "rwkv6_7b", "--smoke", "--device",
+                           "cpu", "--requests", "1", "--prompt-len", "4",
+                           "--max-new", "2"])
+    assert [len(r.out_tokens) for r in done] == [2]
+    with pytest.raises(SystemExit):
         serve_cli.main(["--arch", "rwkv6_7b", "--smoke", "--device", "cpu",
-                        "--requests", "1"])
+                        "--serve-kv-dtype", "fp8"])
+    model, _ = steps.build_model(tbase.get("rwkv6_7b"), smoke=True,
+                                 device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ServeEngine(model, batch_size=1, max_len=8, kv_policy="fp8")
