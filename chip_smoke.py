@@ -156,9 +156,43 @@ and failing the script when it fails:
    same batch, no runtime degrade; tok/s and tick times, and how many of
    request 0's tokens the ``prefill`` route gives too.
 
+20. ``kernel:qwen2`` — ``qwen2_7b`` (the dense GQA family) with
+   ``--tnn``'s default (TT rank 64 on the SwiGLU): the GEMM (and chain,
+   where a plan fuses one) at every geometry of its training FP/BP/WG
+   plans, of the engine's FP plans (prefill chunk and decode batches)
+   and of ``LM.prefill``'s at the first wave's 4 x 16 prompt tokens, as
+   in phase 2; the attention kernel at the training shape (B 8, T 128,
+   H 28, KV 4, D 128, causal, one kv chunk of 128) and at
+   ``LM.prefill``'s (B 4, T 16, chunks of 16), and at the other dense
+   configs' training shapes (``tinyllama_1_1b``, ``internlm2_1_8b``,
+   ``phi4_mini_3_8b``: rows off the main path), as in phase 3.
+21. ``train_qwen2`` — ``qwen2_7b`` at full width and depth (28 layers,
+   d 3584, vocab 152,064, nothing cut; 1,980,923,392 parameters) through
+   the train entry point, ``cuda`` backend, bf16, remat, batch 8, seq
+   128, 12 steps at the CLI's lr 3e-3: every loss finite, the mean of
+   the last 5 below the first, on every step the GEMM kernel and the
+   attention kernel twice a layer (forward and the checkpoint re-run),
+   no ``EinsumOp`` in the plans, no runtime degrade; its step time,
+   tok/s and peak device memory.
+22. ``qwen2_parity`` — phase 7 for ``qwen2_7b`` at full width, 2 layers:
+   ``cuda`` against ``einsum`` for 3 steps, f32 and bf16, to the ATIS
+   gates; first, in f32, the serve requests through the engine (its
+   native ``extend``), whose first wave's greedy tokens must equal
+   ``LM.prefill`` over the wave's prompts (the attention kernel once a
+   layer) followed by ``decode_step``.
+23. ``serve_qwen2`` — ``qwen2_7b`` at full width and depth through
+   ``ServeEngine`` at the serve CLI's defaults with a bf16 and with an
+   fp8 (e4m3) KV cache, on the same requests: every request completes
+   in both, first tokens equal, the fp8 cache (one new token a request)
+   within 0.08 of the bf16 cache's amax, its requantize under an
+   unchanged amax bit-stable on the card; tok/s and tick times of both,
+   and the first wave through ``LM.prefill`` (how many of request 0's
+   tokens it shares with the engine, reported).
+
 It then prints the ``{"kernels": [...]}`` line (every ported kernel with
-its launches in the serve, train, train_fp8, train_rwkv6, train_zamba2
-and serve_zamba2 runs, for
+its launches in the serve, train, train_fp8, train_rwkv6, train_zamba2,
+serve_zamba2, train_qwen2, serve_qwen2 (bf16 and fp8 KV) and
+prefill_qwen2 runs, for
 the GEMM also its split-K reduce launches, for the requantize its
 partial-amax launches, and its timings at the main paths' shapes), the
 card's ``nvidia-smi`` name and power limit, and,
@@ -167,6 +201,7 @@ last, ``{"ok": true, ...}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -220,8 +255,24 @@ SSD_SHAPE = (8 * 64, 128, 64, 112, 128)
 # and a rank-64 core's elements are ~0.07 (PERF.md, Findings; ROADMAP.md
 # C).  At 3e-4 the twelve warm-up steps sum to 1.95e-3.
 ZAMBA_ARCH, ZAMBA_STEPS, ZAMBA_LR = "zamba2_7b", 12, 3e-4
+# qwen2_7b (the dense GQA family: 28 heads over 4 kv heads of 128) at
+# full width and depth under --tnn's default (TT rank 64, 2 factors, on
+# the SwiGLU; q/k/v/o, the QKV bias and lm_head dense f32): 1,980,923,392
+# parameters, ~31.7 GB of f32 weights, gradients and two moments.  The
+# train CLI's shape, steps as rwkv6's and zamba2's, and zamba2's lr: at
+# the CLI's 3e-3 the loss climbs from step 2 (grad norm 10.7 -> 125,
+# loss 12.43 -> 18.60 at step 7) and at 1e-3 it ends at 13.16 (PERF.md,
+# Findings).  Adam moves every weight by about lr a step, and a logit
+# sums 3584 such moves of the lm_head's column: d_model sets the lr.
+QWEN_ARCH, QWEN_STEPS, QWEN_LR = "qwen2_7b", 12, 3e-4
+# serve_qwen2's quantized KV cache (the serve CLI's --serve-kv-dtype).
+QWEN_KV_POLICY = "fp8"
+# The other dense configs, whose attention shapes are checked and timed
+# as rows off the main path (their full-width runs are not made here).
+DENSE_OTHERS = ("tinyllama_1_1b", "internlm2_1_8b", "phi4_mini_3_8b")
 # rwkv6_state / zamba2_state: layers kept (the hybrid's shared block
-# after both), batch and tokens (prefill T - 1, decode 1).
+# after both), batch and tokens (prefill T - 1, decode 1); qwen2_parity's
+# depth.
 STATE_LAYERS, STATE_BATCH, STATE_T = 2, 2, 128
 STATE_TOL_REL = 0.05
 
@@ -258,7 +309,8 @@ ALL_KERNELS = KERNELS + QUANT_KERNELS + ("linear_scan",)
 #: the main-path runs whose launches the kernel line counts (and whose
 #: timed shapes it sums)
 RUNS = ("serve", "train", "train_fp8", "train_rwkv6", "train_zamba2",
-        "serve_zamba2")
+        "serve_zamba2", "train_qwen2", "serve_qwen2", "serve_qwen2_fp8",
+        "prefill_qwen2")
 
 
 def emit(phase: str, **fields) -> None:
@@ -368,7 +420,6 @@ def unfused_scaled_chain(fc, quant, pol, qx, qws):
     """The scaled chain as plan_compiler's quantized ops run it unfused:
     one scaled GEMM per link, each f32 result requantized per tensor to
     the policy's type (plain torch ops) before the next link."""
-    import dataclasses
     inter = dataclasses.replace(pol, granularity="tensor")
     t = qx
     for i, qw in enumerate(qws):
@@ -453,7 +504,6 @@ def fp8_train_geometries(cfg, plan_compiler, profiles, tensorized,
     by element count, each ``{"phases", "ops": plan ops of that size,
     "shape": the result as its kernel writes it, "perm": the permute
     applied to it or None}``; and the count of ``EinsumOp`` steps."""
-    import dataclasses
     tnn = dataclasses.replace(cfg.tnn,
                               precision=QuantPolicy.parse(FP8_POLICY))
     geo = {"gemm": {}, "chain": {}, "quantize": {}, "dequantize": {},
@@ -530,7 +580,6 @@ def quant_kernel_phase(torch, fc, qk, ref, quant, QuantPolicy, geo, totals
     """Hold the precision path's kernels against their plain versions at
     every fp8 training geometry, in every quantized dtype; time each in
     fp8_e4m3 (``totals[kernel]["train_fp8"]``)."""
-    import dataclasses
     gen = torch.Generator(device=DEVICE).manual_seed(2)
 
     def rand(shape, scale=1.0):
@@ -1182,15 +1231,16 @@ def broadcast_scan_check(torch, sk, ref, gen, ld_tok, *, check: str,
         emit("kernel:linear_scan", ok=True, **rec)
 
 
-def train_ssm_phase(torch, fc, plan_compiler, train_cli, einsum_ops, *,
-                    name: str, arch_id: str, steps: int, lr: float,
-                    tnn_cfg=None) -> dict:
-    """``arch_id`` (``rwkv6_7b``, ``zamba2_7b``) at full width and depth
-    through the train entry point (``tnn_cfg`` in place of the arch's
-    ``tnn_default`` when given); returns the run's kernel launches.  Each
-    step must launch the GEMM kernel, the scan kernel twice per layer
-    (forward and the checkpoint re-run) and, for the hybrid, the
-    attention kernel once per shared-block application (not
+def train_model_phase(torch, fc, plan_compiler, train_cli, einsum_ops, *,
+                      name: str, arch_id: str, steps: int, lr: float,
+                      tnn_cfg=None) -> dict:
+    """``arch_id`` (``rwkv6_7b``, ``zamba2_7b``, ``qwen2_7b``) at full
+    width and depth through the train entry point (``tnn_cfg`` in place
+    of the arch's ``tnn_default`` when given); returns the run's kernel
+    launches.  Each step must launch the GEMM kernel and, under remat,
+    the scan kernel twice per recurrent layer (forward and the
+    checkpoint re-run), the attention kernel twice per attention layer,
+    and for the hybrid once per shared-block application (not
     checkpointed)."""
     import numpy as np
     torch.cuda.empty_cache()
@@ -1219,9 +1269,13 @@ def train_ssm_phase(torch, fc, plan_compiler, train_cli, einsum_ops, *,
                 for a, b in zip(seen, seen[1:])]
     losses = out["losses"]
     rcfg = out["cfg"]
-    scans_per_step = 2 * rcfg.num_layers if rcfg.remat else rcfg.num_layers
-    attn_per_step = (rcfg.num_layers // rcfg.hybrid.shared_every
-                     if rcfg.hybrid else 0)
+    per_layer = 2 if rcfg.remat else 1
+    if rcfg.block == "attn":
+        scans_per_step, attn_per_step = 0, per_layer * rcfg.num_layers
+    else:
+        scans_per_step = per_layer * rcfg.num_layers
+        attn_per_step = (rcfg.num_layers // rcfg.hybrid.shared_every
+                         if rcfg.hybrid else 0)
     step_ms = statistics.median(out["step_s"][3:]) * 1e3
     last5 = statistics.mean(losses[-5:])
     n_params = sum(p.numel() for p in out["state"]["params"].values())
@@ -1235,7 +1289,8 @@ def train_ssm_phase(torch, fc, plan_compiler, train_cli, einsum_ops, *,
           and einsum_ops == 0 and degrades["runtime"] == 0)
     del out
     emit(name, ok=bool(ok), arch=arch_id, d_model=rcfg.d_model,
-         layers=rcfg.num_layers, heads=rcfg.num_heads, d_ff=rcfg.d_ff,
+         layers=rcfg.num_layers, heads=rcfg.num_heads,
+         kv_heads=rcfg.num_kv_heads, head_dim=rcfg.hd, d_ff=rcfg.d_ff,
          vocab=rcfg.vocab, params=n_params, remat=rcfg.remat,
          tnn_targets=list(rcfg.tnn.targets), tnn_rank=rcfg.tnn.rank,
          shared_every=rcfg.hybrid.shared_every if rcfg.hybrid else None,
@@ -1264,8 +1319,6 @@ def state_phase(torch, fc, lm_mod, cfgbase, *, name: str, arch_id: str
     kept) then ``decode_step`` on the last (the plain recurrences on the
     kernel's states, the shared attention over the prefilled K/V)
     against the last row of ``forward`` over all STATE_T tokens."""
-    import dataclasses
-
     import numpy as np
     arch = cfgbase.get(arch_id)
     tnn = dataclasses.replace(arch.tnn_one_card or arch.tnn_default,
@@ -1438,23 +1491,23 @@ def zamba2_kernel_phase(torch, fc, fa, sk, ref, plan_compiler, profiles,
 
 
 def serve_zamba2_phase(torch, fc, plan_compiler, tm, steps_lib, profiles,
-                       arch, ServeEngine, Request) -> dict:
+                       arch, ServeEngine, Request, *, name="serve_zamba2",
+                       compute_dtype=None) -> dict:
     """``zamba2_7b`` at full width and depth (one-card TNN config,
-    ``cuda`` backend, bf16) through ``ServeEngine`` at the serve CLI's
-    defaults; the engine serves it through the reference's sequential
-    fallback (each prompt token through ``decode_step``).  Every request
-    must complete; the first wave's tokens (requests 0 to BATCH - 1,
+    ``cuda`` backend, bf16 or ``compute_dtype``) through ``ServeEngine``
+    at the serve CLI's defaults; the engine serves it through the
+    reference's sequential fallback (each prompt token through
+    ``decode_step``).  Every request must complete; the first wave's tokens (requests 0 to BATCH - 1,
     admitted together) must equal a hand-rolled loop of ``decode_step``
     over the prompts, then over the greedy tokens, at the same batch; no
     runtime degrade.  Also reported, not gated: how many of request 0's
     tokens the full-sequence route gives (``prefill`` over the prompt,
     then ``decode_step``).  Returns the run's kernel launches."""
-    import dataclasses
-
     import numpy as np
     torch.cuda.empty_cache()
     tnn = dataclasses.replace(arch.tnn_one_card, backend="cuda")
-    model, cfg = steps_lib.build_model(arch, tnn, device=DEVICE, seed=0)
+    model, cfg = steps_lib.build_model(arch, tnn, device=DEVICE, seed=0,
+                                       compute_dtype=compute_dtype)
     profiles.build_profiles(cfg, batch_size=BATCH, prefill_chunk=CHUNK)
     fc.reset_launches()
     plan_compiler.reset_degrade_counts()
@@ -1497,8 +1550,9 @@ def serve_zamba2_phase(torch, fc, plan_compiler, tm, steps_lib, profiles,
           and first_wave_equal and launches["matmul"] > 0
           and degrades["runtime"] == 0
           and tick_ms["prefill"] and tick_ms["decode"])
-    emit("serve_zamba2", ok=bool(ok), arch=ZAMBA_ARCH, d_model=cfg.d_model,
+    emit(name, ok=bool(ok), arch=ZAMBA_ARCH, d_model=cfg.d_model,
          layers=cfg.num_layers, tnn_targets=list(cfg.tnn.targets),
+         dtype=str(cfg.compute_dtype).split(".")[-1],
          requests=len(done), tokens=tokens, seconds=secs,
          tok_per_s=tokens / secs, ticks=engine.tick,
          prefill_tick_ms=tick_ms["prefill"],
@@ -1513,7 +1567,177 @@ def serve_zamba2_phase(torch, fc, plan_compiler, tm, steps_lib, profiles,
          max_memory_allocated=torch.cuda.max_memory_allocated())
     del model, engine
     if not ok:
-        raise AssertionError("serve_zamba2 phase failed")
+        raise AssertionError(f"{name} phase failed")
+    return launches
+
+
+def qwen2_kernel_phase(torch, fc, fa, ref, plan_compiler, profiles,
+                       tensorized, cfgbase, cfg, totals) -> int:
+    """``kernel:qwen2``: the kernels at ``qwen2_7b``'s main-path shapes
+    (``--tnn``'s default: TT rank 64 on the SwiGLU).  The GEMM (and the
+    chain, where a plan fuses one) at every geometry of the training
+    step's FP/BP/WG plans, of the engine's FP plans at the prefill-chunk
+    and decode batches, and of ``LM.prefill``'s at the first wave's
+    prompt tokens, as in phase 2; the attention kernel at the training
+    shape (B 8, T 128, H 28, KV 4, D 128, one kv chunk of 128) and at
+    ``LM.prefill``'s (B 4, T 16, chunks of 16), as in phase 3, and off
+    the main path at the other dense configs' training shapes.  Returns
+    the training plans' ``EinsumOp`` count."""
+    gemms, chains, einsum_ops = train_path_geometries(
+        cfg, plan_compiler, profiles, tensorized)
+    kernel_phase(torch, fc, ref, sorted(gemms), sorted(chains), totals,
+                 path="train_qwen2", phases={**gemms, **chains},
+                 time_dtypes=("bfloat16",))
+    s_gemms, s_chains = main_path_geometries(cfg, plan_compiler, profiles,
+                                             tensorized)
+    kernel_phase(torch, fc, ref, s_gemms, s_chains, totals,
+                 path="serve_qwen2", time_dtypes=("bfloat16",))
+    p_gemms, p_chains = main_path_geometries(
+        cfg, plan_compiler, profiles, tensorized,
+        token_batches=(BATCH * PROMPT,))
+    kernel_phase(torch, fc, ref, [g for g in p_gemms if g not in s_gemms],
+                 [c for c in p_chains if c not in s_chains], totals,
+                 path="prefill_qwen2", time_dtypes=("bfloat16",))
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    heads = (cfg.num_heads, cfg.num_kv_heads, cfg.hd)
+    for path, (b, t) in (("train_qwen2", (TRAIN_BATCH, TRAIN_SEQ)),
+                         ("prefill_qwen2", (BATCH, PROMPT))):
+        flash_case(torch, fa, ref, gen, (b, t, *heads, True),
+                   dict(q_chunk=min(cfg.q_chunk, t),
+                        kv_chunk=min(cfg.kv_chunk, t)), totals, path=path)
+    for arch_id in DENSE_OTHERS:
+        c = cfgbase.get(arch_id).model()
+        t = TRAIN_SEQ
+        flash_case(torch, fa, ref, gen,
+                   (TRAIN_BATCH, t, c.num_heads, c.num_kv_heads, c.hd, True),
+                   dict(q_chunk=min(c.q_chunk, t),
+                        kv_chunk=min(c.kv_chunk, t)), totals)
+    paths = ("train_qwen2", "serve_qwen2", "prefill_qwen2")
+    emit("kernel:qwen2", ok=True, arch=QWEN_ARCH,
+         tnn_targets=list(cfg.tnn.targets), tnn_rank=cfg.tnn.rank,
+         train_geometries={"gemm": len(gemms), "chain": len(chains),
+                           "einsum_ops": einsum_ops},
+         serve_geometries={"gemm": len(s_gemms), "chain": len(s_chains)},
+         prefill_geometries={"gemm": len(p_gemms), "chain": len(p_chains)},
+         sums={name: {path: {k: (sorted(v) if isinstance(v, set) else v)
+                             for k, v in totals[name][path].items()}
+                      for path in paths if path in totals[name]}
+               for name in ALL_KERNELS})
+    return einsum_ops
+
+
+def serve_qwen2_phase(torch, fc, plan_compiler, tm, steps_lib, profiles,
+                      kv_cache, QuantPolicy, arch, ServeEngine, Request
+                      ) -> dict:
+    """``qwen2_7b`` at full width and depth (``--tnn``'s default,
+    ``cuda`` backend, bf16) through ``ServeEngine`` at the serve CLI's
+    defaults, once with a bf16 KV cache and once with an fp8 one
+    (``QWEN_KV_POLICY``), on the same requests.  Every request must
+    complete in both, with the GEMM kernel launched and no runtime
+    degrade, and each request's first token must be the same in both
+    (a single-chunk prompt's first token reads only its own tick's K/V).
+    With one new token a request (so the caches hold the last wave's
+    prompts and nothing else), the fp8 cache dequantized must lie within
+    0.08 of the bf16 cache's amax, and dequantizing it to the compute
+    dtype and requantizing it must give it back bit for bit on the card,
+    amax unchanged (in f32, the bits).  Then the first wave through
+    :func:`prefill_route` (counted as the ``prefill_qwen2`` run): the
+    attention kernel once a layer; how many of request 0's bf16 tokens
+    it shares with the engine is reported, not gated.  Returns the runs'
+    kernel launches."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tnn = dataclasses.replace(arch.tnn_default, backend="cuda")
+    model, cfg = steps_lib.build_model(arch, tnn, device=DEVICE, seed=0)
+    profiles.build_profiles(cfg, batch_size=BATCH, prefill_chunk=CHUNK)
+    launches, runs, ok = {}, {}, True
+    for kv, run in ((None, "serve_qwen2"), (QWEN_KV_POLICY,
+                                            "serve_qwen2_fp8")):
+        fc.reset_launches()
+        plan_compiler.reset_degrade_counts()
+        done, secs, engine = run_engine(torch, model, cfg.vocab, ServeEngine,
+                                        Request, kv)
+        launches[run] = dict(fc.LAUNCHES)
+        degrades = dict(plan_compiler.DEGRADE_COUNTS)
+        tick_ms = tick_spans_ms(torch, tm, model, cfg.vocab, ServeEngine,
+                                Request, kv)
+        tokens = sum(len(r.out_tokens) for r in done)
+        runs[run] = {
+            "kv": kv or "bf16", "requests": len(done), "tokens": tokens,
+            "seconds": secs, "tok_per_s": tokens / secs, "ticks": engine.tick,
+            "prefill_tick_ms": tick_ms["prefill"],
+            "decode_tick_ms_median": statistics.median(
+                tick_ms["decode"] or [0]),
+            "slot_bytes": engine.slot_cost["total"],
+            "out_tokens": {r.rid: r.out_tokens for r in done},
+            "launches": launches[run], "degrades": degrades}
+        ok = (ok and len(done) == REQUESTS
+              and all(len(r.out_tokens) == MAX_NEW for r in done)
+              and launches[run]["matmul"] > 0 and degrades["runtime"] == 0
+              and bool(tick_ms["decode"]))
+    bf16, fp8 = (runs[r]["out_tokens"] for r in ("serve_qwen2",
+                                                 "serve_qwen2_fp8"))
+    first_equal = all(bf16[rid][0] == fp8[rid][0] for rid in bf16)
+    equal_tokens = sum(a == b for rid in bf16
+                       for a, b in zip(bf16[rid], fp8[rid]))
+
+    # The caches after one new token a request.
+    _, _, e_bf16 = run_engine(torch, model, cfg.vocab, ServeEngine, Request,
+                              max_new=1)
+    _, _, e_fp8 = run_engine(torch, model, cfg.vocab, ServeEngine, Request,
+                             QWEN_KV_POLICY, max_new=1)
+    pol = e_fp8.kv_policy
+    deq = kv_cache.dequantize_kv(e_fp8.qkv, pol, torch.float32)
+    cache_err = {}
+    for name, b, q in (("k", e_bf16.cache.k, deq[0]),
+                       ("v", e_bf16.cache.v, deq[1])):
+        b, q = b[:, :, :PROMPT].float(), q[:, :, :PROMPT]
+        amax = b.abs().max().item()
+        cache_err[name] = {"max_abs_err": (q - b).abs().max().item(),
+                           "amax": amax, "tol": 0.08 * amax}
+    # Requantize the dequantized cache, as every tick does (to the compute
+    # dtype), and in f32: there ``qmax * scale`` may land an ulp above the
+    # amax it came from, which then grows by that ulp (the bits hold).
+    stable = {}
+    for dname, dtype in (("compute", cfg.compute_dtype),
+                         ("float32", torch.float32)):
+        q0 = e_fp8.qkv
+        again = kv_cache.quantize_kv(
+            *kv_cache.dequantize_kv(q0, pol, dtype), pol, prev=q0)
+        stable[dname] = {
+            "bits_equal": all(
+                torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                for a, b in ((again.qk, q0.qk), (again.qv, q0.qv))),
+            "amax_equal": bool(torch.equal(again.k_amax, q0.k_amax)
+                               and torch.equal(again.v_amax, q0.v_amax)),
+            "amax_max_rel_change": max(
+                ((a - b) / b).abs().max().item() for a, b in (
+                    (again.k_amax, q0.k_amax), (again.v_amax, q0.v_amax)))}
+    stable_ok = (stable["compute"]["bits_equal"]
+                 and stable["compute"]["amax_equal"]
+                 and stable["float32"]["bits_equal"])
+    cache_ok = all(e["max_abs_err"] <= e["tol"] for e in cache_err.values())
+
+    fc.reset_launches()
+    route = prefill_route(torch, fc, model, cfg.vocab, Request, bf16,
+                          e_bf16.cache_len)
+    launches["prefill_qwen2"] = dict(fc.LAUNCHES)
+    ok = (ok and first_equal and cache_ok and stable_ok
+          and route["prefill_attention_launches"] == cfg.num_layers)
+    emit("serve_qwen2", ok=bool(ok), arch=QWEN_ARCH, d_model=cfg.d_model,
+         layers=cfg.num_layers, heads=cfg.num_heads,
+         kv_heads=cfg.num_kv_heads, head_dim=cfg.hd,
+         tnn_targets=list(cfg.tnn.targets), runs=runs,
+         first_tokens_equal=first_equal,
+         tokens_equal_bf16_fp8=equal_tokens,
+         tokens=sum(len(t) for t in bf16.values()),
+         fp8_cache_vs_bf16=cache_err, fp8_cache_ok=cache_ok,
+         requantize_bit_stable=stable, prefill_route=route,
+         prefill_launches=launches["prefill_qwen2"],
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    del model, e_bf16, e_fp8
+    if not ok:
+        raise AssertionError("serve_qwen2 phase failed")
     return launches
 
 
@@ -1526,13 +1750,16 @@ def serve_requests(vocab: int, Request):
             for rid in range(REQUESTS)]
 
 
-def run_engine(torch, model, vocab, ServeEngine, Request):
-    """Serve the phase's requests; returns (completed, wall seconds of
+def run_engine(torch, model, vocab, ServeEngine, Request, kv_policy=None,
+               max_new=MAX_NEW):
+    """Serve the phase's requests (``max_new`` tokens each, a KV cache
+    stored as ``kv_policy``); returns (completed, wall seconds of
     ``engine.run()``, engine).  Nothing times the ticks inside the run."""
     engine = ServeEngine(model, batch_size=BATCH,
-                         max_len=PROMPT + MAX_NEW + 8, prefill_chunk=CHUNK)
+                         max_len=PROMPT + MAX_NEW + 8, prefill_chunk=CHUNK,
+                         kv_policy=kv_policy)
     for req in serve_requests(vocab, Request):
-        engine.submit(req)
+        engine.submit(dataclasses.replace(req, max_new_tokens=max_new))
     engine.warmup()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1541,14 +1768,15 @@ def run_engine(torch, model, vocab, ServeEngine, Request):
     return done, time.perf_counter() - t0, engine
 
 
-def tick_spans_ms(torch, tm, model, vocab, ServeEngine, Request) -> dict:
+def tick_spans_ms(torch, tm, model, vocab, ServeEngine, Request,
+                  kv_policy=None) -> dict:
     """Tick times from the engine's own ``serve.prefill_chunk`` /
     ``serve.decode_step`` spans, over one traced run of the phase's
     requests (with tracing on, each span closes when the card is done)."""
     tm.reset()
     tm.configure()
     try:
-        run_engine(torch, model, vocab, ServeEngine, Request)
+        run_engine(torch, model, vocab, ServeEngine, Request, kv_policy)
         spans = [e for e in tm.snapshot() if e.get("type") == "span"]
     finally:
         tm.reset()
@@ -1652,9 +1880,15 @@ def train_phase(torch, fc, plan_compiler, train_cli, einsum_ops, *,
     return launches, last5
 
 
-def train_parity_phase(torch, arch, steps_lib) -> None:
+def train_parity_phase(torch, arch, steps_lib, *, name="train_parity",
+                       tnn=None, num_layers=None, routes=None) -> None:
     """The same initial parameters trained on the cuda and einsum
-    backends for PARITY_STEPS steps on the same batches."""
+    backends for PARITY_STEPS steps on the same batches (``arch`` with
+    ``tnn`` for its TNN config and ``num_layers`` its depth when given).
+    With ``routes`` (``(ServeEngine, Request, fc)``) the f32 cuda model,
+    before it trains, also serves the serve phase's requests through the
+    engine, whose first wave's greedy tokens must equal
+    :func:`prefill_route`'s."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.optim.adamw import AdamW
     # f32: the executors sum in other orders; 1e-4 relative holds that
@@ -1665,16 +1899,22 @@ def train_parity_phase(torch, arch, steps_lib) -> None:
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         runs = {}
-        base_sd = None
+        model, cfg = steps_lib.build_model(arch, tnn, device=DEVICE, seed=0,
+                                           backend="cuda",
+                                           compute_dtype=dtype,
+                                           num_layers=num_layers)
+        models = {"cuda": model, "einsum": backend_twin(model, "einsum")}
+        if routes and dtype == torch.float32:
+            ServeEngine, Request, fc = routes
+            done, _, engine = run_engine(torch, model, cfg.vocab,
+                                         ServeEngine, Request)
+            report["routes_f32"] = prefill_route(
+                torch, fc, model, cfg.vocab, Request,
+                {r.rid: r.out_tokens for r in done}, engine.cache_len)
+            ok = ok and report["routes_f32"]["equal"]
+        del model
         for backend in ("cuda", "einsum"):
-            model, cfg = steps_lib.build_model(arch, device=DEVICE, seed=0,
-                                               backend=backend,
-                                               compute_dtype=dtype)
-            if base_sd is None:
-                base_sd = {k: v.clone() for k, v in
-                           model.state_dict().items()}
-            else:
-                model.load_state_dict(base_sd)
+            model = models.pop(backend)
             data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                                           global_batch=TRAIN_BATCH))
             opt = AdamW(lr=TRAIN_LR, total_steps=TRAIN_STEPS,
@@ -1700,9 +1940,58 @@ def train_parity_phase(torch, arch, steps_lib) -> None:
                          "einsum": runs["einsum"], "loss_rel": loss_rel,
                          "grad_norm_rel": gn_rel, "tol_loss_rel": tl,
                          "tol_grad_norm_rel": tg}
-    emit("train_parity", ok=ok, steps=PARITY_STEPS, **report)
+    emit(name, ok=ok, arch=arch.id, layers=cfg.num_layers,
+         steps=PARITY_STEPS, **report)
     if not ok:
-        raise AssertionError("train parity failed")
+        raise AssertionError(f"{name} failed")
+
+
+def backend_twin(model, backend: str):
+    """A copy of ``model`` (same weights, on its device) whose tensorized
+    layers run ``backend``: what ``build_model(backend=...)`` gives from
+    the same seed, without drawing the weights on the host again."""
+    import copy
+
+    from repro_torch.core import contraction
+    from repro_torch.core.tensorized import TensorizedLinear
+    twin = copy.deepcopy(model)
+    for m in twin.modules():
+        if isinstance(m, TensorizedLinear):
+            m.backend = contraction.canonical_backend(backend)
+    twin.cfg = dataclasses.replace(twin.cfg, tnn=dataclasses.replace(
+        twin.cfg.tnn, backend=backend))
+    return twin
+
+
+def prefill_route(torch, fc, model, vocab, Request, got: dict, cache_len
+                  ) -> dict:
+    """The first wave's prompts (requests 0 to BATCH - 1, which the
+    engine admitted together) through the full-sequence route:
+    ``LM.prefill`` over all of them (the attention kernel at each layer),
+    its cache ``cache_len`` long as the engine's, then ``decode_step``
+    greedily.  Returns its tokens beside the engine's (``got``, by
+    request id), whether they are equal, and the attention launches of
+    the prefill."""
+    import numpy as np
+    wave = serve_requests(vocab, Request)[:BATCH]
+    prompts = torch.as_tensor(np.stack([r.prompt for r in wave]),
+                              device=DEVICE)
+    with torch.inference_mode():
+        before = fc.LAUNCHES["flash_attention_fwd"]
+        logits, cache = model.prefill(prompts, max_len=cache_len)
+        flash = fc.LAUNCHES["flash_attention_fwd"] - before
+        toks = [logits.float().argmax(-1)]
+        while len(toks) < MAX_NEW:
+            logits, cache = model.decode_step(toks[-1], cache)
+            toks.append(logits.float().argmax(-1))
+    seq = torch.stack(toks, dim=1).cpu().tolist()
+    engine_wave = [got[r.rid] for r in wave]
+    return {"equal": seq == engine_wave,
+            "leading_tokens_equal": [
+                next((i for i, (a, b) in enumerate(zip(x, y)) if a != b),
+                     MAX_NEW) for x, y in zip(seq, engine_wave)],
+            "prefill_tokens": seq[0], "engine_tokens": engine_wave[0],
+            "prefill_attention_launches": flash}
 
 
 def train_fp8_parity_phase(torch, arch, steps_lib, QuantPolicy) -> None:
@@ -1722,7 +2011,6 @@ def train_fp8_parity_phase(torch, arch, steps_lib, QuantPolicy) -> None:
       roundoff): at every step the backends' loss, grad norm and largest
       relative amax difference stay within FP8_PARITY_FACTOR times that
       envelope."""
-    import dataclasses
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.optim.adamw import AdamW
     tnn = dataclasses.replace(arch.tnn_default,
@@ -1836,7 +2124,7 @@ def main() -> int:
     from repro_torch.models import lm as lm_mod, ssm
     from repro_torch.precision import QuantPolicy, quant
     from repro_torch.launch import train as train_cli
-    from repro_torch.serving import profiles
+    from repro_torch.serving import kv_cache, profiles
     from repro_torch.serving.engine import Request, ServeEngine
 
     # -- 1. env ---------------------------------------------------------------
@@ -1995,7 +2283,7 @@ def main() -> int:
                for name in ALL_KERNELS if "train_rwkv6" in totals[name]})
 
     # -- 12. rwkv6_7b training at full width and depth --------------------------
-    launches["train_rwkv6"] = train_ssm_phase(
+    launches["train_rwkv6"] = train_model_phase(
         torch, fc, plan_compiler, train_cli, r_einsum_ops,
         name="train_rwkv6", arch_id=RWKV_ARCH, steps=RWKV_STEPS, lr=RWKV_LR)
 
@@ -2013,7 +2301,7 @@ def main() -> int:
                                        profiles, tensorized, z_cfg, totals)
 
     # -- 16. zamba2_7b training at full width and depth -------------------------
-    launches["train_zamba2"] = train_ssm_phase(
+    launches["train_zamba2"] = train_model_phase(
         torch, fc, plan_compiler, train_cli, z_einsum_ops,
         name="train_zamba2", arch_id=ZAMBA_ARCH, steps=ZAMBA_STEPS,
         lr=ZAMBA_LR, tnn_cfg=z_arch.tnn_one_card)
@@ -2029,6 +2317,28 @@ def main() -> int:
     launches["serve_zamba2"] = serve_zamba2_phase(
         torch, fc, plan_compiler, tm, steps_lib, profiles, z_arch,
         ServeEngine, Request)
+
+    # -- 20. the kernels at qwen2_7b's main-path shapes -----------------------
+    q_arch = cfgbase.get(QWEN_ARCH)
+    q_cfg = q_arch.model(q_arch.tnn_default)
+    q_einsum_ops = qwen2_kernel_phase(torch, fc, fa, ref, plan_compiler,
+                                      profiles, tensorized, cfgbase, q_cfg,
+                                      totals)
+
+    # -- 21. qwen2_7b training at full width and depth ------------------------
+    launches["train_qwen2"] = train_model_phase(
+        torch, fc, plan_compiler, train_cli, q_einsum_ops,
+        name="train_qwen2", arch_id=QWEN_ARCH, steps=QWEN_STEPS, lr=QWEN_LR)
+
+    # -- 22. cuda against einsum at 2 layers; the f32 prefill route -----------
+    train_parity_phase(torch, q_arch, steps_lib, name="qwen2_parity",
+                       tnn=q_arch.tnn_default, num_layers=STATE_LAYERS,
+                       routes=(ServeEngine, Request, fc))
+
+    # -- 23. qwen2_7b served with a bf16 and an fp8 KV cache ------------------
+    launches.update(serve_qwen2_phase(
+        torch, fc, plan_compiler, tm, steps_lib, profiles, kv_cache,
+        QuantPolicy, q_arch, ServeEngine, Request))
 
     # -- the kernel line ---------------------------------------------------------
     kernels = []
@@ -2058,6 +2368,8 @@ def main() -> int:
                 launches["train_rwkv6"][name] / RWKV_STEPS,
             "launches_per_zamba2_train_step":
                 launches["train_zamba2"][name] / ZAMBA_STEPS,
+            "launches_per_qwen2_train_step":
+                launches["train_qwen2"][name] / QWEN_STEPS,
             "max_abs_err": t["max_abs_err"],
             "ms": sum(s_["ms"] for s_ in sums),
             "plain_ms": sum(s_["plain_ms"] for s_ in sums),

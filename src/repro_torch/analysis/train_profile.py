@@ -5,6 +5,8 @@
         --arch rwkv6_7b --precision bf16
     PYTHONPATH=src python -m repro_torch.analysis.train_profile \
         --arch zamba2_7b --precision bf16
+    PYTHONPATH=src python -m repro_torch.analysis.train_profile \
+        --arch qwen2_7b --precision bf16
 
 Trains ``--arch``'s full-width config (default ``paper_atis_tt``;
 ``tnn_one_card`` where the arch has one, as ``zamba2_7b`` does, else

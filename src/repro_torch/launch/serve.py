@@ -7,9 +7,13 @@ plus ``--tnn-backend`` (the executor of the tensorized projections:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch paper_atis_tt \\
       --tnn --tnn-backend cuda --requests 8 --max-new 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_7b \\
+      --tnn --tnn-backend cuda --serve-kv-dtype fp8
 
-``--serve-kv-dtype`` accepts ``bf16`` only so far; the quantized KV cache
-is queued in ROADMAP.md.  SSM and hybrid models (``rwkv6_7b``,
+``--serve-kv-dtype`` is ``bf16`` (the default) or, for attention models,
+a quantized K/V store: ``fp8`` (e4m3), ``fp8_e5m2`` or ``int8``, with
+running per-layer scales (:mod:`repro_torch.serving.kv_cache`); the
+engine refuses it for the others.  SSM and hybrid models (``rwkv6_7b``,
 ``zamba2_7b``) are served through the engine's sequential
 ``decode_step`` fallback.  Server start builds the phase-specialized plan
 profiles when the model is tensorized, then runs the slot-table engine.
@@ -49,7 +53,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--serve-kv-dtype", default="bf16",
-                    help="KV cache storage (bf16 only in this port so far)")
+                    help="KV cache storage: bf16, or fp8 | fp8_e5m2 | int8 "
+                         "with running per-layer scales (attention models)")
     ap.add_argument("--serve-memory-budget", default=None,
                     help="KV admission budget, e.g. 64MB (modeled bytes)")
     ap.add_argument("--serve-prefill-chunk", type=int, default=32,
@@ -60,11 +65,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="write a telemetry trace of the serving run "
                          "('*.jsonl' streams events, any other suffix "
                          "writes Chrome trace-event JSON)")
-    args = ap.parse_args(argv)
-    if args.serve_kv_dtype != "bf16":
-        ap.error(f"--serve-kv-dtype {args.serve_kv_dtype}: only bf16 is "
-                 "ported (quantized KV cache: ROADMAP.md, queue A)")
-    return args
+    return ap.parse_args(argv)
 
 
 def main(argv=None) -> list[Request]:

@@ -2,12 +2,13 @@
 
 Port of ``src/repro/launch/steps.py``: :func:`build_model` (with the
 reference's rule that the ``recompute`` stash policy turns on per-layer
-remat) and :func:`make_train_step`.  The reference's step is a pure
-function jitted by the launcher; this one runs eagerly, accumulates the
-gradients in the parameters' ``.grad`` and updates the parameters and
-optimizer state in place (:class:`repro_torch.optim.adamw.AdamW`).  The
-dry-run input specs and the prefill/decode step builders have no use in
-an eager port (the serving engine calls the model directly).
+remat), :func:`make_train_step`, :func:`make_prefill_step` and
+:func:`make_decode_step`.  The reference's steps are pure functions
+jitted by the launcher; these run eagerly.  The train step accumulates
+the gradients in the parameters' ``.grad`` and updates the parameters
+and optimizer state in place (:class:`repro_torch.optim.adamw.AdamW`);
+the serving steps hold the model, so they take no parameters.  The
+dry-run input specs have no use in an eager port.
 """
 
 from __future__ import annotations
@@ -119,3 +120,23 @@ def make_train_step(model: LM, opt: AdamW, microbatches: int = 1):
                 {**metrics, **om, "loss": loss})
 
     return train_step
+
+
+def make_prefill_step(model: LM, max_len: int):
+    """``prefill_step(inputs) -> (logits [B, V], cache)``: the prompt
+    through :meth:`LM.prefill`, its cache sized ``max_len``."""
+    @torch.no_grad()
+    def prefill_step(inputs):
+        return model.prefill(torch.as_tensor(inputs).to(model.device),
+                             max_len)
+    return prefill_step
+
+
+def make_decode_step(model: LM):
+    """``decode_step(token, cache) -> (logits [B, V], cache)``: one token
+    a slot through :meth:`LM.decode_step`."""
+    @torch.no_grad()
+    def decode_step(token, cache):
+        return model.decode_step(torch.as_tensor(token).to(model.device),
+                                 cache)
+    return decode_step

@@ -13,6 +13,11 @@ Port of ``src/repro/launch/train.py`` (single device)::
       --tnn --tnn-backend cuda --steps 12 --batch 8 --seq 128
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2_7b \
       --smoke --tnn --device cpu --steps 3 --batch 2 --seq 16
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_7b \
+      --tnn --tnn-backend cuda --steps 12 --batch 8 --seq 128 --lr 3e-4
+
+The default lr (3e-3) suits the small models; at ``qwen2_7b``'s and
+``zamba2_7b``'s width the loss climbs at it, and both train at 3e-4.
 
 ``--arch zamba2_7b --tnn`` builds ``tnn_default`` (the MLP only), whose
 training state does not fit one 80 GB card; the full model trains there

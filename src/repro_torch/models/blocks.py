@@ -5,9 +5,10 @@ matrix, or a :class:`~repro_torch.core.tensorized.TensorizedLinear` when a
 TNN config targets the projection), :func:`rmsnorm`,
 :func:`groupnorm_heads` (RWKV-6's per-head output norm), :func:`rope`,
 :class:`KVCache`, the GQA :class:`Attention` with its full-sequence
-training forward and its serving paths (``prefill``, which the hybrid
-stack's prefill runs, ``extend`` — chunked prefill at per-slot depths —
-and ``decode_step``), :func:`blockwise_attention` with the flash
+training forward and its serving paths (``prefill``, which
+``LM.prefill`` runs for the attention layers and the hybrid's shared
+block, ``extend`` — chunked prefill at per-slot depths — and
+``decode_step``), :func:`blockwise_attention` with the flash
 backward, and :class:`SwiGLU`.
 
 Parameter names and layouts are the reference's (``Dense.w`` is
@@ -20,9 +21,11 @@ Pallas kernel on a TPU and the jnp twin elsewhere; the flash backward is
 torch ops, as the reference's is plain jnp.  The serving paths' attention
 is the reference's plain-array code (f32 scores, softmax, f32 context).
 
-Not ported yet: :class:`MoE` (ROADMAP.md, queue A item 7).  (The
-attention family's ``LM.prefill``, item 10, is refused in
-:mod:`repro_torch.models.lm`, not here.)
+GQA takes any ``H`` that is a multiple of ``KV`` (``qwen2_7b``'s 28 / 4);
+a QKV bias (``qkv_bias``) is the q/k/v projections' own bias, as in the
+reference.
+
+Not ported yet: :class:`MoE` (ROADMAP.md, queue A item 7).
 """
 
 from __future__ import annotations

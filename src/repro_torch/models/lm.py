@@ -6,8 +6,7 @@ Port of ``src/repro/models/lm.py``: :class:`HybridSpec`,
 — the reference's ``__call__`` — over :meth:`LM.apply_layers`, and the
 masked next-token loss ``token_loss`` / ``loss``) and the serving entry
 points ``init_cache``, ``extend`` (chunked prefill at per-slot depths,
-attention only), ``prefill`` (the recurrent families) and
-``decode_step``.
+attention only), ``prefill`` and ``decode_step``.
 Every projection consults ``cfg.tnn``
 (:func:`repro_torch.models.blocks.make_dense`), which is how the paper's
 technique, and with ``backend="cuda"`` the CUDA kernels, enter the model.
@@ -37,8 +36,7 @@ layer leaves split per layer (``layers.<l>.attn.q.cores.<i>``,
 shared block unstacked (``shared.attn.o.cores.<i>``), so
 :func:`repro_torch.convert.params_from_numpy` loads reference parameters.
 
-Not ported yet: MoE and its auxiliary loss (ROADMAP.md, queue A item 7)
-and the attention family's ``prefill`` (item 10).
+Not ported yet: MoE and its auxiliary loss (ROADMAP.md, queue A item 7).
 """
 
 from __future__ import annotations
@@ -447,22 +445,32 @@ class LM(nn.Module):
         return logits, MambaCache(_stacked(states), shared, cache.length + 1)
 
     def prefill(self, inputs: torch.Tensor, max_len: int
-                ) -> tuple[torch.Tensor, StateCache | MambaCache]:
-        """Ingest the prompt ``[B, T]`` with the full-sequence path (the
-        scan kernel; the hybrid's shared attention through the flash
-        kernel, its K/V padded to ``max_len``); returns the last
-        position's logits ``[B, V]`` and the decode state.  RWKV-6 and
-        Mamba-2 only so far."""
+                ) -> tuple[torch.Tensor,
+                           DecodeCache | StateCache | MambaCache]:
+        """Ingest the prompt ``[B, T]`` with the full-sequence path and
+        return the last position's logits ``[B, V]`` and the decode
+        state.  Attention layers run the flash kernel over the prompt and
+        leave their K/V zero-padded to ``max_len`` (a
+        :class:`DecodeCache` of length ``T``); RWKV-6 and Mamba-2 run the
+        scan kernel and keep its final states, the hybrid's shared
+        attention as the attention layers do."""
         c = self.cfg
-        if c.block == "attn":
-            raise NotImplementedError(
-                "prefill of an attention model is not ported yet "
-                "(ROADMAP.md, queue A item 10)")
         B, T = inputs.shape[:2]
         positions = torch.arange(T, device=self.device)[None].expand(B, T)
         x = self._embed(inputs)
         states, ks, vs = [], [], []
+
+        def attn_block(attn, ln1, ln2, mlp, x):
+            h, kv = attn.prefill(ln1(x, c.norm_eps), positions, max_len)
+            x = x + h
+            ks.append(kv.k)
+            vs.append(kv.v)
+            return x + mlp(ln2(x, c.norm_eps))
+
         for li, layer in enumerate(self.layers):
+            if c.block == "attn":
+                x = attn_block(layer.attn, layer.ln1, layer.ln2, layer.mlp, x)
+                continue
             if c.block == "rwkv6":
                 x, st = self._rwkv_layer(layer, x, want_state=True)
             else:
@@ -470,14 +478,12 @@ class LM(nn.Module):
             states.append(st)
             if self._shared_after(li):
                 sb = self.shared
-                h, kv = sb.attn.prefill(sb.ln1(x, c.norm_eps), positions,
-                                        max_len)
-                x = x + h
-                x = x + sb.mlp(sb.ln2(x, c.norm_eps))
-                ks.append(kv.k)
-                vs.append(kv.v)
+                x = attn_block(sb.attn, sb.ln1, sb.ln2, sb.mlp, x)
         logits = self._logits(self.ln_f(x, c.norm_eps)[:, -1:])[:, 0]
         length = torch.tensor(T, dtype=torch.int32)
+        if c.block == "attn":
+            return logits, DecodeCache(torch.stack(ks), torch.stack(vs),
+                                       length)
         if c.block == "rwkv6":
             return logits, StateCache(_stacked(states), length)
         shared = (KVCache(torch.stack(ks), torch.stack(vs),

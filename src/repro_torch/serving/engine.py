@@ -28,11 +28,20 @@ slot state; the cache's per-slot lengths are set from them before every
 call, and inactive slots are frozen out of every call by a per-field
 ``torch.where`` on the batch axis.
 
+A quantized ``kv_policy`` (fp8_e4m3, fp8_e5m2, int8; attention-only
+models) stores the K/V buffers as a
+:class:`~repro_torch.serving.kv_cache.QuantKV` and prices a slot at its
+storage width: every tick dequantizes the
+cache, runs the model step, keeps the active slots' new K/V and
+requantizes under the running per-layer amax (``prev=`` the last
+tick's).  As in the reference, admission does not zero a quantized
+cache: a new slot's stale entries sit past its length, where no mask
+exposes them.
+
 Differences from the reference: the tick functions run eagerly (no
 ``jit``); sampling draws from a ``torch.Generator`` seeded from ``seed``,
 so sampled (temperature > 0) streams differ from the reference's while
-greedy ones match; a quantized ``kv_policy`` raises NotImplementedError
-(ROADMAP.md, queue A: quantized KV cache); the sequential fallback stops
+greedy ones match; the sequential fallback stops
 after the chunk's last column that some slot still ingests (the
 reference runs all ``prefill_chunk`` columns; the ones skipped are
 frozen for every slot, and no caller reads their logits).  With
@@ -121,18 +130,20 @@ class ServeEngine:
 
         if isinstance(kv_policy, str):
             kv_policy = QuantPolicy.parse(kv_policy)
-        if kv_policy is not None and kv_policy.quantized:
-            raise NotImplementedError(
-                f"quantized KV cache ({kv_policy.dtype}) is not ported yet "
-                "(ROADMAP.md, queue A: quantized KV cache)")
+        if kv_policy is not None and not kv_policy.quantized:
+            kv_policy = None
+        self.kv_policy = kv_policy
         cfg = getattr(model, "cfg", None)
+        self._kv_dtype = getattr(cfg, "compute_dtype", torch.bfloat16)
         attn_only = cfg is None or (getattr(cfg, "block", "attn") == "attn"
                                     and not getattr(cfg, "hybrid", None))
         self._native_extend = attn_only and hasattr(model, "extend")
+        if kv_policy is not None and not attn_only:
+            raise ValueError("quantized KV requires an attention-only model")
 
         # -- admission capacity: memory budget / modeled per-slot bytes ----
         if cfg is not None and attn_only:
-            self.slot_cost = kvq.slot_bytes(cfg, max_len)
+            self.slot_cost = kvq.slot_bytes(cfg, max_len, kv_policy)
         elif cfg is not None:
             per = kvq.model_slot_bytes(model, max_len)
             self.slot_cost = {"payload": per, "meta": 0, "total": per}
@@ -173,8 +184,34 @@ class ServeEngine:
 
     def _init_device_cache(self):
         cache = self.model.init_cache(self.batch, self.cache_len)
-        self.cache = cache._replace(length=torch.zeros(self.batch,
-                                                       dtype=torch.int32))
+        if self.kv_policy is None:
+            self.cache = cache._replace(length=torch.zeros(
+                self.batch, dtype=torch.int32))
+            self.qkv = None
+        else:
+            self._cache_type = type(cache)
+            self.cache = None
+            self.qkv = kvq.quantize_kv(cache.k, cache.v, self.kv_policy)
+
+    def _cache_in(self):
+        """The cache the model reads this tick, at the host table's
+        per-slot lengths: the stored one, or the quantized one
+        dequantized to the compute dtype."""
+        lengths = torch.from_numpy(self.lengths)
+        if self.kv_policy is None:
+            return self.cache._replace(length=lengths)
+        k, v = kvq.dequantize_kv(self.qkv, self.kv_policy, self._kv_dtype)
+        return self._cache_type(k, v, lengths)
+
+    def _commit(self, active: np.ndarray, new, cache) -> None:
+        """Keep ``new`` for the active slots and ``cache`` for the rest; a
+        quantized cache is requantized under its running amax."""
+        new = self._select(active, new, cache)
+        if self.kv_policy is None:
+            self.cache = new
+        else:
+            self.qkv = kvq.quantize_kv(new.k, new.v, self.kv_policy,
+                                       prev=self.qkv)
 
     def _select(self, active: np.ndarray, new, old):
         """Per-tensor batch-axis select over the (nested) cache:
@@ -198,15 +235,16 @@ class ServeEngine:
 
     @torch.no_grad()
     def _extend(self, toks: np.ndarray, valid: np.ndarray,
-                active: np.ndarray):
-        cache = self.cache._replace(length=torch.from_numpy(self.lengths))
+                active: np.ndarray) -> torch.Tensor:
+        cache = self._cache_in()
         if self._native_extend:
             logits, new = self.model.extend(
                 torch.as_tensor(toks, device=self.device), cache,
                 valid=torch.from_numpy(valid))
         else:
             logits, new = self._extend_sequential(toks, valid, cache)
-        return logits, self._select(active, new, cache)
+        self._commit(active, new, cache)
+        return logits
 
     def _extend_sequential(self, toks: np.ndarray, valid: np.ndarray,
                            cache):
@@ -224,11 +262,12 @@ class ServeEngine:
         return torch.stack(logits, dim=1), cache
 
     @torch.no_grad()
-    def _decode(self, active: np.ndarray):
-        cache = self.cache._replace(length=torch.from_numpy(self.lengths))
+    def _decode(self, active: np.ndarray) -> torch.Tensor:
+        cache = self._cache_in()
         logits, new = self.model.decode_step(
             torch.as_tensor(self.next_tok, device=self.device), cache)
-        return logits, self._select(active, new, cache)
+        self._commit(active, new, cache)
+        return logits
 
     # -- public API ---------------------------------------------------------
 
@@ -261,9 +300,9 @@ class ServeEngine:
             state = self.gen.get_state()
             zeros = np.zeros(B, np.int32)
             idle = np.zeros(B, bool)
-            logits, _ = self._extend(np.zeros((B, C), np.int32), zeros, idle)
+            logits = self._extend(np.zeros((B, C), np.int32), zeros, idle)
             self._sample(logits[:, 0], np.zeros(B, np.float32))
-            dlogits, _ = self._decode(idle)
+            dlogits = self._decode(idle)
             self._sample(dlogits, np.zeros(B, np.float32))
             self.gen.set_state(state)
             self._init_device_cache()
@@ -287,11 +326,12 @@ class ServeEngine:
             self._seq += 1
             self.events.append((self.tick, "admit", req.rid))
             admitted.append(slot)
-        if admitted:
+        if admitted and self.kv_policy is None:
             mask = np.zeros(self.batch, bool)
             mask[admitted] = True
             zeros = _tree_map(torch.zeros_like, self.cache)
             self.cache = self._select(mask, zeros, self.cache)
+        if admitted:
             tm.inc("serve.admitted", len(admitted))
         self.max_occupancy = max(self.max_occupancy, self.occupancy)
         tm.sample("serve.occupancy", self.occupancy)
@@ -360,7 +400,7 @@ class ServeEngine:
         tm.inc("serve.prefill_tokens", int(valid.sum()))
         with tm.span("serve.prefill_chunk", tick=self.tick,
                      tokens=int(valid.sum()), slots=int(active.sum())):
-            logits, self.cache = self._extend(toks, valid, active)
+            logits = self._extend(toks, valid, active)
             _end_on_device(logits)
         self.lengths[active] += valid[active]
         self.prefill_pos[active] += valid[active]
@@ -385,7 +425,7 @@ class ServeEngine:
         tm.inc("serve.decode_tokens", int(active.sum()))
         with tm.span("serve.decode_step", tick=self.tick,
                      slots=int(active.sum())):
-            logits, self.cache = self._decode(active)
+            logits = self._decode(active)
             _end_on_device(logits)
         self.lengths[active] += 1
         temps = np.array([self.slot_req[s].temperature if active[s] else 0.0

@@ -1149,3 +1149,59 @@ def test_cuda_mamba2_block_matches_the_cpu(cuda_device, dtype):
     scale = float(outs[0].abs().max())
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     assert _max_err(outs[1], outs[0]) <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", QUANT)
+def test_cuda_quantize_kv_equals_the_cpu(cuda_device, dtype):
+    """The quantized KV cache's torch ops on the card (the serving
+    engine's path there, no CPU branch) give the CPU's bits: the scale
+    is a true divide by an f32 tensor on either device, and so is the
+    cast's ``x / scale``.  Dequantizing and requantizing on the card under
+    the same amax gives the cache back."""
+    from repro_torch.serving import kv_cache
+
+    pol = QuantPolicy.parse(dtype)
+    gen = torch.Generator().manual_seed(3)
+    layer = (10.0 ** torch.arange(3.0)).reshape(3, 1, 1, 1, 1)
+    k, v = (torch.randn((3, 4, 48, 4, 128), generator=gen) * layer
+            for _ in "kv")
+    k, v = k.bfloat16(), v.bfloat16()
+    want = kv_cache.quantize_kv(k, v, pol)
+    got = kv_cache.quantize_kv(k.to(cuda_device), v.to(cuda_device), pol)
+    for g, w in ((got.qk, want.qk), (got.qv, want.qv),
+                 (got.k_amax, want.k_amax)):
+        assert torch.equal(_bits(g.cpu()), _bits(w))
+    again = kv_cache.quantize_kv(*kv_cache.dequantize_kv(got, pol), pol,
+                                 prev=got)
+    assert torch.equal(_bits(again.qk), _bits(got.qk))
+    assert torch.equal(again.k_amax, got.k_amax)
+
+
+@pytest.mark.cuda
+def test_cuda_qwen2_prefill_and_decode_match_the_cpu(cuda_device):
+    """``LM.prefill`` of the qwen2_7b smoke LM (GQA 4 / 2, a QKV bias) in
+    f32 through the attention kernel on the card (once a layer), then
+    ``decode_step``, against the CPU's plain versions within 1e-5 of the
+    logits' scale."""
+    from repro_torch.configs import base
+    from repro_torch.launch import steps
+
+    arch = base.get("qwen2_7b")
+    toks = torch.randint(0, 256, (2, 16),
+                         generator=torch.Generator().manual_seed(4))
+    outs = []
+    for device in ("cpu", cuda_device):
+        model, cfg = steps.build_model(arch, arch.tnn_default, smoke=True,
+                                       device=device, backend="cuda",
+                                       compute_dtype=torch.float32)
+        before = fc.LAUNCHES["flash_attention_fwd"]
+        with torch.no_grad():
+            lp, cache = model.prefill(toks[:, :-1], max_len=24)
+            ld, _ = model.decode_step(toks[:, -1], cache)
+        if device != "cpu":
+            assert fc.LAUNCHES["flash_attention_fwd"] == (
+                before + cfg.num_layers)
+        outs.append((lp.cpu(), ld.cpu()))
+    for got, want in zip(outs[1], outs[0]):
+        assert _max_err(got, want) <= 1e-5 * float(want.abs().max())

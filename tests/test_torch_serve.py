@@ -266,14 +266,21 @@ def test_kv_write_past_the_cache_is_refused(reference):
 
 
 def test_engine_refuses_what_is_not_ported(reference):
-    model, _ = _port(reference)
-    with pytest.raises(NotImplementedError, match="quantized KV"):
-        ServeEngine(model, batch_size=2, max_len=24, kv_policy="fp8")
-    with pytest.raises(SystemExit):
-        serve_cli.parse_args(["--arch", "paper_atis_tt",
-                              "--serve-kv-dtype", "fp8"])
+    """A quantized KV cache now runs on an attention model (engine and
+    CLI; ``tests/test_torch_kv_quant.py`` holds it to its properties);
+    an architecture still queued is refused."""
+    model, cfg = _port(reference)
+    engine = ServeEngine(model, batch_size=2, max_len=24, kv_policy="fp8")
+    engine.submit(Request(rid=0, prompt=np.array([3, 1, 4], np.int32),
+                          max_new_tokens=2))
+    assert [len(r.out_tokens) for r in engine.run()] == [2]
+    assert engine.slot_cost == kv_cache.slot_bytes(
+        cfg, 24, engine.kv_policy)
+    assert serve_cli.parse_args(["--arch", "paper_atis_tt",
+                                 "--serve-kv-dtype", "fp8"]
+                                ).serve_kv_dtype == "fp8"
     with pytest.raises(KeyError, match="not ported"):
-        tbase.get("tinyllama_1_1b")
+        tbase.get("olmoe_1b_7b")
 
 
 def test_serve_cli_runs_on_cpu(capsys):

@@ -586,20 +586,24 @@ def test_build_model_cuts_depth_only():
 
 
 def test_unported_blocks_raise_with_their_roadmap_item():
-    """Mamba-2 is ported (``tests/test_torch_zamba2.py``); what is not
-    raises: an unknown block, an architecture of a family still queued
-    (MoE, item 7) and the attention family's prefill (item 10)."""
+    """Mamba-2 is ported (``tests/test_torch_zamba2.py``) and so is the
+    attention family's prefill (``tests/test_torch_dense.py``); what is
+    not raises: an unknown block, and the architectures of the families
+    still queued (MoE and ``encdec``, item 7)."""
     with pytest.raises(ValueError, match="unknown block"):
         LMConfig(name="m", num_layers=1, d_model=8, num_heads=1,
                  num_kv_heads=1, d_ff=8, vocab=8, block="moe").validate()
     LMConfig(name="m", num_layers=1, d_model=8, num_heads=1,
              num_kv_heads=1, d_ff=8, vocab=8, block="mamba2").validate()
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        tbase.get("olmoe_1b_7b")
+    for arch_id in ("olmoe_1b_7b", "qwen3_moe_235b_a22b",
+                    "seamless_m4t_medium"):
+        with pytest.raises(KeyError, match="ROADMAP.md"):
+            tbase.get(arch_id)
     model, _ = steps.build_model(tbase.get("paper_atis_tt"), smoke=True,
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        model.prefill(torch.zeros((1, 4), dtype=torch.long), max_len=8)
+    logits, cache = model.prefill(torch.zeros((1, 4), dtype=torch.long),
+                                  max_len=8)
+    assert logits.shape == (1, model.cfg.vocab) and int(cache.length) == 4
 
 
 def test_train_cli_runs_rwkv6_on_the_cpu(capsys):
@@ -611,17 +615,18 @@ def test_train_cli_runs_rwkv6_on_the_cpu(capsys):
 
 
 def test_serve_cli_refuses_rwkv6_with_its_roadmap_item():
-    """The serve CLI now serves rwkv6_7b (the engine's sequential
-    ``decode_step`` fallback); a quantized KV cache for it is still
-    refused, by the CLI and by the engine, with its ROADMAP.md item."""
+    """The serve CLI serves rwkv6_7b (the engine's sequential
+    ``decode_step`` fallback); a quantized KV cache for it is refused,
+    by the CLI and by the engine, with the reference's ``ValueError``: a
+    quantized cache needs an attention-only model."""
     done = serve_cli.main(["--arch", "rwkv6_7b", "--smoke", "--device",
                            "cpu", "--requests", "1", "--prompt-len", "4",
                            "--max-new", "2"])
     assert [len(r.out_tokens) for r in done] == [2]
-    with pytest.raises(SystemExit):
+    with pytest.raises(ValueError, match="attention-only"):
         serve_cli.main(["--arch", "rwkv6_7b", "--smoke", "--device", "cpu",
                         "--serve-kv-dtype", "fp8"])
     model, _ = steps.build_model(tbase.get("rwkv6_7b"), smoke=True,
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="attention-only"):
         ServeEngine(model, batch_size=1, max_len=8, kv_policy="fp8")

@@ -82,15 +82,18 @@ def _close(got, want, rel, what=""):
                                               1e-30), err_msg=what)
 
 
-def _reference(arch_id, compute_dtype=jnp.float32, perturb=True, seed=0):
+def _reference(arch_id, compute_dtype=jnp.float32, perturb=True, seed=0,
+               num_layers=None):
     """The reference smoke LM with ``TARGETS`` tensorized (rwkv6: its
-    default), and its init as numpy, constants moved by a numpy seed."""
+    default), and its init as numpy, constants moved by a numpy seed;
+    ``num_layers`` cuts (or grows) the depth."""
     jarch = jbase.get(arch_id)
     tnn = jarch.tnn_default
     if arch_id == "zamba2_7b":
         tnn = dataclasses.replace(tnn, targets=TARGETS)
-    jm = JLM(dataclasses.replace(jarch.smoke(tnn),
-                                 compute_dtype=compute_dtype))
+    jcfg = jarch.smoke(tnn)
+    jm = JLM(dataclasses.replace(jcfg, compute_dtype=compute_dtype,
+                                 num_layers=num_layers or jcfg.num_layers))
     tree = jax.tree.map(np.asarray, jm.init(jax.random.key(seed)))
     rng = np.random.default_rng(seed)
 
@@ -108,11 +111,12 @@ def _tnn(arch):
 
 
 def _port(arch_id, tree, backend="cuda", compute_dtype=torch.float32,
-          remat=None):
+          remat=None, num_layers=None):
     arch = tbase.get(arch_id)
     model, cfg = steps.build_model(arch, tnn=_tnn(arch), smoke=True,
                                    device="cpu", backend=backend,
-                                   compute_dtype=compute_dtype)
+                                   compute_dtype=compute_dtype,
+                                   num_layers=num_layers)
     if remat is not None:
         cfg = model.cfg = dataclasses.replace(cfg, remat=remat)
     model.load_state_dict(params_from_numpy(tree, cfg))
@@ -531,6 +535,64 @@ def test_engine_greedy_tokens_match_hand_rolled_decode(arch_id):
     assert got == {rid: _reference_hand_rolled(jm, jparams, p)
                    for rid, p in enumerate(prompts)}
     assert engine.slot_cost["total"] == kv_cache.model_slot_bytes(model, 24)
+
+
+@pytest.mark.parametrize("layers", [2, 4])
+def test_prefill_and_sequential_routes_agree_in_f32(layers):
+    """The two serving routes of the hybrid in f32, the shared block after
+    every 2 layers: ``prefill`` over the prompt (the scan and attention
+    kernels' plain versions) then ``decode_step``, against the engine's
+    sequential route (every prompt token through ``decode_step``).  Both
+    give the same 16 greedy tokens, and each route's logits at every
+    step equal the reference's ``prefill`` / ``decode_step`` on the same
+    tokens within 1e-5 of their scale.  (On the card in bf16 at 81
+    layers the routes part after 4 tokens: ROADMAP.md, queue C.)"""
+    jm, tree = _reference("zamba2_7b", num_layers=layers)
+    model, cfg = _port("zamba2_7b", tree, num_layers=layers)
+    assert cfg.hybrid.shared_every == 2
+    prompt = np.random.default_rng(11).integers(0, cfg.vocab, 12,
+                                                dtype=np.int32)
+    n_new = 16
+    engine = ServeEngine(model, batch_size=1, max_len=32, prefill_chunk=8)
+    engine.submit(Request(rid=0, prompt=prompt, max_new_tokens=n_new))
+    seq_tokens = engine.run()[0].out_tokens
+    max_len = engine.cache_len
+    with torch.no_grad():
+        logits, cache = model.prefill(torch.from_numpy(prompt[None]),
+                                      max_len=max_len)
+        route = [logits[0]]
+        toks = [int(logits[0].argmax())]
+        while len(toks) < n_new:
+            logits, cache = model.decode_step(torch.tensor([toks[-1]]),
+                                              cache)
+            route.append(logits[0])
+            toks.append(int(logits[0].argmax()))
+    assert toks == seq_tokens
+    jparams = jax.tree.map(jnp.asarray, tree)
+    jlogits, jcache = jm.prefill(jparams, jnp.asarray(prompt[None]),
+                                 max_len=max_len)
+    want = [jlogits[0]]
+    step = jax.jit(jm.decode_step)
+    for tok in toks[:-1]:
+        jlogits, jcache = step(jparams, jnp.asarray([tok], jnp.int32),
+                               jcache)
+        want.append(jlogits[0])
+    for i, (got, w) in enumerate(zip(route, want)):
+        _close(got, w, 1e-5, f"prefill route, token {i}")
+    # The sequential route, by hand: the prompt, then the same tokens.
+    seq_cache = model.init_cache(1, max_len)._replace(
+        length=torch.zeros(1, dtype=torch.int32))
+    with torch.no_grad():
+        for tok in prompt:
+            logits, seq_cache = model.decode_step(torch.tensor([int(tok)]),
+                                                  seq_cache)
+        seq = [logits[0]]
+        for tok in toks[:-1]:
+            logits, seq_cache = model.decode_step(torch.tensor([tok]),
+                                                  seq_cache)
+            seq.append(logits[0])
+    for i, (got, w) in enumerate(zip(seq, want)):
+        _close(got, w, 1e-5, f"sequential route, token {i}")
 
 
 # ---------------------------------------------------------------------------
