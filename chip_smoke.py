@@ -53,6 +53,34 @@ and failing the script when it fails:
 7. ``train_parity`` — the same initial parameters on the ``cuda`` and
    ``einsum`` backends for 3 steps on the same batches: loss and grad
    norm within tolerance in f32 and in bf16.
+7a. ``kernel:matmul`` / ``kernel:chain_n`` on the ``phase_paths=False``
+   path (``pp_off_fwd``: the FP plans' GEMMs and chains at the train
+   batch; ``pp_off_bwd``: the GEMMs their autograd backward runs, ``dx``
+   and ``dw`` of each, the chains' link recompute), as phase 2; then
+   ``kernel:autograd``: the GEMM and chain kernels' autograd Functions
+   at those forward GEMMs and at every chain the FP plans fuse (none at
+   the train batch; at the half batch and the serve batches), value and
+   gradients against autograd of the plain version, f32 1e-5 and bf16
+   2e-2 of the scale.
+7b. ``train_phase_paths_off`` — phase 6 with ``phase_paths=False``
+   (autodiff through the FP plans, the paper's ablation): every loss
+   finite, the last 5 below the first, the GEMM kernel on every step in
+   the forward and in the backward (``matmul_bwd``), the chain kernel
+   exactly where the FP plans fuse a chain, step 0's loss and grad norm
+   within 1e-2 / 5e-2 of phase 6's; ``phase_paths_twin_f32``: one f32
+   step's loss and every gradient through ``phase_paths=False`` on
+   ``cuda`` within 1e-4 of ``phase_paths=True`` on ``einsum``;
+   ``phase_paths_compare``: both arms' step ms, device busy ms, device
+   events and launches a step (``train_profile``), reported, not gated.
+7c. ``checkpoint`` — 10 steps saving every 5 through the train entry
+   point, then two runs resumed from step 5 alone: steps 5 and 10
+   restore bit for bit, the resumed losses within three times the
+   resumed runs' own spread of the uninterrupted run's (equal where the
+   card repeats itself); the write time and bytes on disk.  ``memory`` —
+   the probe measured around phase 6's first step beside the modeled
+   stash, and a run with ``tnn_memory_budget`` one byte under the
+   one-microbatch stash: >= 2 microbatches, training, a lower measured
+   peak.
 8. ``kernel:quantize`` / ``kernel:dequantize`` / ``kernel:requantize`` /
    ``kernel:matmul_scaled`` / ``kernel:chain_n_scaled`` — every geometry
    of the fp8 training step's FP/BP/WG plans (the fp8 policy reprices
@@ -110,7 +138,9 @@ and failing the script when it fails:
    finite, the mean of the last 5 below the first, the GEMM kernel and
    the scan kernel launched on every step (the scan twice per layer:
    forward and the checkpoint re-run), no ``EinsumOp`` in the plans and
-   no runtime degrade; its step time, tok/s and peak device memory.
+   no runtime degrade; its step time, tok/s and peak device memory,
+   beside the activation probe (measured around the first step) and
+   ``stash_report``'s modeled stash (so do phases 16 and 21).
 13. ``rwkv6_state`` — full width, 2 layers, bf16: ``prefill`` over 127
    tokens (the scan kernel, whose final states become the decode
    state), then ``decode_step`` on token 128 (the plain recurrence),
@@ -191,9 +221,10 @@ and failing the script when it fails:
 
 It then prints the ``{"kernels": [...]}`` line (every ported kernel with
 its launches in the serve, train, train_fp8, train_rwkv6, train_zamba2,
-serve_zamba2, train_qwen2, serve_qwen2 (bf16 and fp8 KV) and
-prefill_qwen2 runs, for
-the GEMM also its split-K reduce launches, for the requantize its
+serve_zamba2, train_qwen2, serve_qwen2 (bf16 and fp8 KV),
+prefill_qwen2 and train_phase_paths_off runs, for the GEMM also its
+backward launches under autodiff and its split-K reduce launches, the
+``phase_paths=False`` path's timed sums apart, for the requantize its
 partial-amax launches, and its timings at the main paths' shapes), the
 card's ``nvidia-smi`` name and power limit, and,
 last, ``{"ok": true, ...}``.
@@ -310,7 +341,11 @@ ALL_KERNELS = KERNELS + QUANT_KERNELS + ("linear_scan",)
 #: timed shapes it sums)
 RUNS = ("serve", "train", "train_fp8", "train_rwkv6", "train_zamba2",
         "serve_zamba2", "train_qwen2", "serve_qwen2", "serve_qwen2_fp8",
-        "prefill_qwen2")
+        "prefill_qwen2", "train_phase_paths_off")
+#: the phase_paths=False path's timed shapes: its FP plans' GEMMs and
+#: chains, and the GEMMs their autograd backward runs (reported apart;
+#: the FP shapes are timed in the ``train`` path's sums too)
+PP_OFF_PATHS = ("pp_off_fwd", "pp_off_bwd")
 
 
 def emit(phase: str, **fields) -> None:
@@ -1241,8 +1276,12 @@ def train_model_phase(torch, fc, plan_compiler, train_cli, einsum_ops, *,
     the scan kernel twice per recurrent layer (forward and the
     checkpoint re-run), the attention kernel twice per attention layer,
     and for the hybrid once per shared-block application (not
-    checkpointed)."""
+    checkpointed).  Beside the peak device memory it reports the
+    activation probe (measured around the first step) and the planner's
+    modeled stash."""
     import numpy as np
+
+    from repro_torch import memory
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1287,6 +1326,13 @@ def train_model_phase(torch, fc, plan_compiler, train_cli, einsum_ops, *,
                   and s["flash_attention_fwd"] == attn_per_step
                   for s in per_step)
           and einsum_ops == 0 and degrades["runtime"] == 0)
+    stash = memory.stash_report(rcfg, TRAIN_BATCH, TRAIN_SEQ, 1,
+                                rcfg.tnn.stash_policy())
+    probe = {"peak_activation_bytes": out["peak_activation_bytes"],
+             "peak_source": out["peak_source"],
+             "modeled_stash_bytes": stash.peak_bytes,
+             "modeled_stash_layer_bytes": stash.layer_bytes,
+             "stash_policy": stash.stash.tag()}
     del out
     emit(name, ok=bool(ok), arch=arch_id, d_model=rcfg.d_model,
          layers=rcfg.num_layers, heads=rcfg.num_heads,
@@ -1303,7 +1349,8 @@ def train_model_phase(torch, fc, plan_compiler, train_cli, einsum_ops, *,
          launches=launches, launches_per_step=per_step,
          scans_per_step_expected=scans_per_step,
          attention_per_step_expected=attn_per_step, degrades=degrades,
-         einsum_ops_in_plans=einsum_ops, max_memory_allocated=peak)
+         einsum_ops_in_plans=einsum_ops, max_memory_allocated=peak,
+         **probe)
     if not ok:
         raise AssertionError(f"{name} phase failed")
     return launches
@@ -1788,9 +1835,11 @@ def tick_spans_ms(torch, tm, model, vocab, ServeEngine, Request,
 
 def train_phase(torch, fc, plan_compiler, train_cli, einsum_ops, *,
                 name="train", precision=None, loss_scale=1.0,
-                bf16_last5=None) -> tuple[dict, float]:
+                bf16_last5=None) -> tuple[dict, float, dict]:
     """Full-width training through the port's train entry point; returns
-    the kernel launches of the run and the mean of its last 5 losses.
+    the kernel launches of the run, the mean of its last 5 losses and a
+    summary (step ms, step 0's loss and grad norm, launches a step, the
+    activation probe).
     With ``precision`` every tensorized plan runs quantized (``train_fp8``),
     which must launch the precision path's kernels, leave no quantized
     degrade, fill every amax history slot, end within ``FP8_LOSS_TOL`` of
@@ -1874,10 +1923,19 @@ def train_phase(torch, fc, plan_compiler, train_cli, einsum_ops, *,
          launches=launches,
          launches_per_step={k: launches[k] / TRAIN_STEPS for k in kernels},
          degrades=degrades, einsum_ops_in_plans=einsum_ops,
-         max_memory_allocated=peak, **extra)
+         max_memory_allocated=peak,
+         peak_activation_bytes=out["peak_activation_bytes"],
+         peak_source=out["peak_source"],
+         modeled_activation_bytes=out["modeled_activation_bytes"], **extra)
     if not ok:
         raise AssertionError(f"{name} phase failed")
-    return launches, last5
+    summary = {"step_ms": step_ms, "loss0": losses[0],
+               "grad_norm0": out["grad_norms"][0],
+               "launches_per_step": {k: launches[k] / TRAIN_STEPS
+                                     for k in launches},
+               "peak_activation_bytes": out["peak_activation_bytes"],
+               "peak_source": out["peak_source"]}
+    return launches, last5, summary
 
 
 def train_parity_phase(torch, arch, steps_lib, *, name="train_parity",
@@ -1946,20 +2004,24 @@ def train_parity_phase(torch, arch, steps_lib, *, name="train_parity",
         raise AssertionError(f"{name} failed")
 
 
-def backend_twin(model, backend: str):
+def backend_twin(model, backend: str, phase_paths=None):
     """A copy of ``model`` (same weights, on its device) whose tensorized
-    layers run ``backend``: what ``build_model(backend=...)`` gives from
-    the same seed, without drawing the weights on the host again."""
+    layers run ``backend`` (and, when given, ``phase_paths``): what
+    ``build_model`` gives from the same seed with that TNN config,
+    without drawing the weights on the host again."""
     import copy
 
     from repro_torch.core import contraction
     from repro_torch.core.tensorized import TensorizedLinear
     twin = copy.deepcopy(model)
+    if phase_paths is None:
+        phase_paths = twin.cfg.tnn.phase_paths
     for m in twin.modules():
         if isinstance(m, TensorizedLinear):
             m.backend = contraction.canonical_backend(backend)
+            m.phase_paths = phase_paths
     twin.cfg = dataclasses.replace(twin.cfg, tnn=dataclasses.replace(
-        twin.cfg.tnn, backend=backend))
+        twin.cfg.tnn, backend=backend, phase_paths=phase_paths))
     return twin
 
 
@@ -2099,6 +2161,356 @@ def train_fp8_parity_phase(torch, arch, steps_lib, QuantPolicy) -> None:
         raise AssertionError("train fp8 parity failed")
 
 
+def pp_off_geometries(cfg, fc, plan_compiler, profiles, tensorized):
+    """The GEMMs and chains of the ``phase_paths=False`` training path:
+    its FP plans at the train token batch (``fwd``: the forward, run
+    through the autograd Functions) and the GEMMs their backward runs
+    (``bwd``, ``{geometry: roles}``: ``dx``/``dw`` of each forward GEMM;
+    for each chain the link-input recompute, each link's ``dw`` and
+    ``dx``), and the chains the FP plans fuse at the memory phase's
+    microbatch and the serve batches (where the chain Function is
+    checked, the train batch fusing none)."""
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    gemms, chains = main_path_geometries(cfg, plan_compiler, profiles,
+                                         tensorized, token_batches=(tokens,))
+    bwd: dict = {}
+    for m, n, k, trans in gemms:
+        bwd.setdefault((m, k, n, not trans), set()).add("dx")
+        bwd.setdefault((n, k, m, False) if trans else (k, n, m, False),
+                       set()).add("dw")
+    for m0, shapes in chains:
+        rows, _ = fc.chain_plan(m0, shapes)
+        for i, ((k, n), r) in enumerate(zip(shapes, rows)):
+            if i < len(shapes) - 1:
+                bwd.setdefault((r, n, k, False), set()).add("recompute")
+            bwd.setdefault((k, n, r, False), set()).add("dw")
+            bwd.setdefault((r, k, n, True), set()).add("dx")
+    _, other_chains = main_path_geometries(
+        cfg, plan_compiler, profiles, tensorized,
+        token_batches=(tokens // 2, BATCH * CHUNK, BATCH))
+    return gemms, chains, bwd, other_chains
+
+
+def autograd_phase(torch, fc, ops, ref, gemms, chains) -> None:
+    """The GEMM and chain kernels' autograd Functions (``kernels.ops``) at
+    the ``phase_paths=False`` path's forward GEMMs and at the FP plans'
+    chains: value and every input's gradient against torch autograd of
+    the plain version on the same card inputs, f32 within 1e-5 and bf16
+    within 2e-2 of each one's scale (the card tests' GEMM rule: one bf16
+    rounding carried through a link); the backward's GEMMs count under
+    ``matmul_bwd``."""
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    worst, n_cases = {}, 0
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        rel = 1e-5 if dtype == torch.float32 else 2e-2
+        cases = ([("matmul", (m, k), (n, k) if t else (k, n), t)
+                  for m, n, k, t in gemms]
+                 + [("chain_n", (m0, shapes[0][0]), *shapes)
+                    for m0, shapes in chains])
+        for case in cases:
+            kind = case[0]
+            if kind == "matmul":
+                shapes, trans = case[1:3], case[3]
+                fn = lambda t: ops.matmul(t[0], t[1],  # noqa: E731
+                                          transpose_rhs=trans)
+                plain = lambda t: ref.matmul(t[0], t[1],  # noqa: E731
+                                             transpose_rhs=trans)
+            else:
+                shapes = case[1:]
+                fn = lambda t: ops.chain_n(t[0], t[1:])  # noqa: E731
+                plain = lambda t: ref.chain_n(t[0], t[1:])  # noqa: E731
+            host = [torch.randn(s, generator=gen, device=DEVICE).to(dtype)
+                    for s in shapes]
+            outs = []
+            before = fc.LAUNCHES["matmul_bwd"]
+            for f in (fn, plain):
+                ins = [t.clone().requires_grad_() for t in host]
+                y = f(ins)
+                y.backward(torch.ones_like(y))
+                outs.append([y.detach()] + [t.grad for t in ins])
+            torch.cuda.synchronize()
+            errs = [float((a.float() - b.float()).abs().max())
+                    / max(float(b.float().abs().max()), 1e-30)
+                    for a, b in zip(*outs)]
+            ok = (max(errs) <= rel
+                  and fc.LAUNCHES["matmul_bwd"] > before)
+            rec = {"kernel": kind, "dtype": dname,
+                   "shapes": [list(s) for s in shapes],
+                   "rel_err_value_and_grads": errs, "tol_rel": rel,
+                   "backward_launches": fc.LAUNCHES["matmul_bwd"] - before}
+            if not ok:
+                emit("kernel:autograd", ok=False, **rec)
+                raise AssertionError(f"autograd Function disagrees: {rec}")
+            key = (kind, dname)
+            worst[key] = max(worst.get(key, 0.0), max(errs))
+            n_cases += 1
+    emit("kernel:autograd", ok=True, cases=n_cases,
+         forward_gemms=len(gemms), chains=len(chains),
+         worst_rel_err={f"{k}/{d}": v for (k, d), v in worst.items()})
+
+
+def train_phase_paths_off_phase(torch, fc, plan_compiler, train_cli, arch,
+                                fp_chains, per_phase) -> tuple[dict, dict]:
+    """``paper_atis_tt`` at full width through the train entry point with
+    ``phase_paths=False`` (autodiff through the FP plans, the paper's
+    ablation), ``cuda``, bf16, the ``train`` phase's shape, seed and data:
+    every loss finite, the last 5 below the first, on every step the GEMM
+    kernel in the forward and in the backward (``matmul_bwd``), the chain
+    kernel where the FP plans fuse a chain and only there, no runtime
+    degrade; step 0's loss and grad norm within the bf16 ``cuda``-vs-
+    ``einsum`` tolerance (1e-2 / 5e-2 relative) of the per-phase run from
+    the same parameters (``per_phase``, the ``train`` phase).  Returns
+    the run's launches and its summary."""
+    import numpy as np
+    torch.cuda.synchronize()
+    fc.reset_launches()
+    plan_compiler.reset_degrade_counts()
+    seen = [dict(fc.LAUNCHES)]
+    tnn = dataclasses.replace(arch.tnn_default, phase_paths=False)
+    t0 = time.perf_counter()
+    out = train_cli.train(ARCH, smoke=False, tnn=True, steps=TRAIN_STEPS,
+                          global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                          lr=TRAIN_LR, tnn_backend="cuda", device=DEVICE,
+                          log_every=5, tnn_cfg=tnn,
+                          on_step=lambda s, m: seen.append(dict(fc.LAUNCHES)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fc.LAUNCHES)
+    degrades = dict(plan_compiler.DEGRADE_COUNTS)
+    keys = ("matmul", "matmul_reduce", "matmul_bwd", "matmul_bwd_reduce",
+            "chain_n", "flash_attention_fwd")
+    per_step = [{k: b[k] - a[k] for k in keys}
+                for a, b in zip(seen, seen[1:])]
+    losses, gnorms = out["losses"], out["grad_norms"]
+    last5 = statistics.mean(losses[-5:])
+    step_ms = statistics.median(out["step_s"][3:]) * 1e3
+    loss0_rel = abs(losses[0] - per_phase["loss0"]) / abs(per_phase["loss0"])
+    gn0_rel = (abs(gnorms[0] - per_phase["grad_norm0"])
+               / abs(per_phase["grad_norm0"]))
+    ok = (all(np.isfinite(losses)) and len(losses) == TRAIN_STEPS
+          and last5 < losses[0] and len(per_step) == TRAIN_STEPS
+          and all(s["matmul"] > 0 and s["matmul_bwd"] > 0
+                  and (s["chain_n"] > 0) == bool(fp_chains)
+                  for s in per_step)
+          and not out["cfg"].tnn.phase_paths
+          and degrades["runtime"] == 0
+          and loss0_rel <= 1e-2 and gn0_rel <= 5e-2)
+    summary = {"step_ms": step_ms, "loss0": losses[0],
+               "grad_norm0": gnorms[0], "last5": last5,
+               "launches_per_step": {k: launches[k] / TRAIN_STEPS
+                                     for k in keys}}
+    emit("train_phase_paths_off", ok=bool(ok), arch=ARCH,
+         phase_paths=False, dtype="bfloat16", batch=TRAIN_BATCH,
+         seq=TRAIN_SEQ, steps=TRAIN_STEPS, lr=TRAIN_LR, losses=losses,
+         grad_norms=gnorms, first_loss=losses[0], last5_mean_loss=last5,
+         step_ms_median_after_3=step_ms,
+         tok_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+         first_step_s=out["step_s"][0], wall_s=wall, launches=launches,
+         launches_per_step=per_step, fp_plan_chains_at_train_batch=fp_chains,
+         step0_vs_per_phase={"loss_rel": loss0_rel,
+                             "grad_norm_rel": gn0_rel,
+                             "tol_loss_rel": 1e-2,
+                             "tol_grad_norm_rel": 5e-2,
+                             "per_phase": [per_phase["loss0"],
+                                           per_phase["grad_norm0"]]},
+         degrades=degrades,
+         peak_activation_bytes=out["peak_activation_bytes"],
+         peak_source=out["peak_source"])
+    if not ok:
+        raise AssertionError("train_phase_paths_off phase failed")
+    return launches, summary
+
+
+def phase_paths_twin_phase(torch, fc, arch, steps_lib) -> None:
+    """f32: the same weights and batch through ``phase_paths=False`` on
+    ``cuda`` (the GEMM and chain kernels' autograd Functions) and
+    ``phase_paths=True`` on ``einsum`` (the per-phase plans in torch
+    ops): the loss and every parameter's gradient within 1e-4 of its
+    scale (sums in other orders), and the backward's GEMMs launched."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    tnn = dataclasses.replace(arch.tnn_default, phase_paths=False)
+    model, cfg = steps_lib.build_model(arch, tnn, device=DEVICE, seed=0,
+                                       backend="cuda",
+                                       compute_dtype=torch.float32)
+    twin = backend_twin(model, "einsum", phase_paths=True)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH))
+    batch = {k: torch.as_tensor(v).to(DEVICE)
+             for k, v in data.batch(0).items()}
+    runs = []
+    for m in (model, twin):
+        before = fc.LAUNCHES["matmul_bwd"]
+        loss, _ = m.loss(batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs.append((float(loss.detach()),
+                     {n: p.grad for n, p in m.named_parameters()},
+                     fc.LAUNCHES["matmul_bwd"] - before))
+    (la, ga, bwd), (lb, gb, bwd_einsum) = runs
+    rel = {n: float((ga[n] - g).abs().max())
+           / max(float(g.abs().max()), 1e-30) for n, g in gb.items()}
+    loss_rel = abs(la - lb) / abs(lb)
+    ok = (max(rel.values()) <= 1e-4 and loss_rel <= 1e-4 and bwd > 0
+          and bwd_einsum == 0)
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
+    emit("phase_paths_twin_f32", ok=ok, arch=ARCH,
+         off_cuda_vs_on_einsum={"loss_rel": loss_rel,
+                                "max_grad_rel": max(rel.values()),
+                                "worst_leaves": worst, "tol_rel": 1e-4},
+         params=len(rel), backward_gemm_launches=bwd)
+    if not ok:
+        raise AssertionError("phase_paths twin failed")
+
+
+def phase_paths_profile_phase(torch, train_profile, per_phase, pp_off
+                              ) -> None:
+    """The paper's comparison, reported and not gated: the ATIS bf16
+    training step with the per-phase BP/WG plans against autodiff through
+    the FP plans, each arm's step ms (the train entry point's runs),
+    device busy ms and device events a step (``train_profile``), and the
+    port's kernel launches a step."""
+    arms = {}
+    for name, pp, run in (("per_phase", True, per_phase),
+                          ("fp_reuse", False, pp_off)):
+        prof = train_profile.profile("bf16", 1.0, ARCH, phase_paths=pp)
+        arms[name] = {
+            "step_ms": run["step_ms"],
+            "profile_wall_ms": prof["wall_ms_per_step"],
+            "device_busy_ms": prof["device_busy_ms_per_step"],
+            "device_idle_share": prof["device_idle_share"],
+            "device_events_per_step": prof["device_events_per_step"],
+            "device_ms_by_group": prof["device_ms_per_step_by_group"],
+            "device_ms_by_phase": prof["device_ms_per_step_by_phase"],
+            "launches_per_step": run["launches_per_step"]}
+    emit("phase_paths_compare", ok=True, arch=ARCH, dtype="bfloat16",
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, **arms)
+
+
+def checkpoint_phase(torch, train_cli, store, host_copy) -> dict:
+    """Checkpoints through the train entry point (``paper_atis_tt`` at
+    full width, bf16): 10 steps saving every 5, then two fresh runs
+    resumed from step 5 alone.  Gates: step 5 and step 10 restore into a
+    zeroed template bit for bit equal to what was saved (params, both
+    moments, the step); each resumed run starts at 5 and runs 5 steps;
+    the resumed losses sit within the run-to-run envelope, measured
+    here: the two resumed runs start from the same bits, so their gap is
+    the card's own spread (three times it, as the fp8 parity's envelope;
+    exact equality where the card repeats itself bit for bit).  Reports
+    the host snapshot and the write time and the bytes on disk."""
+    import shutil
+    import tempfile
+    saved = {}
+    save = store.save
+
+    def keep(root, step, state, **kw):
+        saved[step] = state
+        return save(root, step, state, **kw)
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    kw = dict(smoke=False, tnn=True, steps=10, global_batch=TRAIN_BATCH,
+              seq_len=TRAIN_SEQ, lr=TRAIN_LR, tnn_backend="cuda",
+              device=DEVICE, log_every=5, ckpt_every=5)
+    try:
+        store.save = keep
+        try:
+            whole = train_cli.train(ARCH, ckpt_dir=os.path.join(root, "a"),
+                                    **kw)
+        finally:
+            store.save = save
+        exact = {}
+        for s_ in (5, 10):
+            template = host_copy(whole["state"])
+            for slot in store.leaf_slots(template):
+                for t in slot:
+                    t.zero_()
+            step, got = store.restore(os.path.join(root, "a"), template,
+                                      step=s_)
+            pairs = [(a, b) for sa, sb in zip(store.leaf_slots(got),
+                                              store.leaf_slots(saved[s_]))
+                     for a, b in zip(sa, sb)]
+            exact[s_] = step == s_ and all(
+                a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs)
+        resumed = []
+        for run in ("b", "c"):
+            d = os.path.join(root, run, "step_00000005")
+            shutil.copytree(os.path.join(root, "a", "step_00000005"), d)
+            resumed.append(train_cli.train(
+                ARCH, ckpt_dir=os.path.join(root, run), **kw))
+        # the write on its own: a host snapshot, then store.save
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = host_copy(whole["state"])
+        snapshot_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        path = store.save(os.path.join(root, "t"), 10, snap)
+        write_s = time.perf_counter() - t0
+        disk = sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    b, c = (r["losses"] for r in resumed)
+    ref_losses = whole["losses"][5:]
+    envelope = max(abs(x - y) for x, y in zip(b, c))
+    gap = max(abs(x - y) for x, y in zip(b, ref_losses))
+    tol = FP8_PARITY_FACTOR * envelope
+    within = gap <= tol if envelope > 0 else gap == 0
+    ok = (all(exact.values()) and within
+          and all(r["start_step"] == 5 and len(r["losses"]) == 5
+                  for r in resumed))
+    emit("checkpoint", ok=ok, arch=ARCH, steps=10, ckpt_every=5,
+         restored_bit_equal={str(k): v for k, v in exact.items()},
+         uninterrupted_losses_5_to_9=ref_losses, resumed_losses=[b, c],
+         run_to_run_envelope=envelope, resumed_vs_uninterrupted=gap,
+         tol=tol, leaves=len(store.leaf_slots(snap)), bytes_on_disk=disk,
+         snapshot_s=snapshot_s, write_s=write_s)
+    if not ok:
+        raise AssertionError("checkpoint phase failed")
+    return {"write_s": write_s, "bytes": disk}
+
+
+def memory_phase(torch, train_cli, memory, arch, per_phase) -> None:
+    """The probe and ``--tnn-memory-budget`` on ``paper_atis_tt`` (full
+    width, bf16): the ``train`` phase's probe, measured around its first
+    step on the card, beside the modeled stash; then the train entry
+    point with a budget one byte below the one-microbatch modeled stash:
+    the planner must pick >= 2 microbatches, the run must train (finite,
+    the last 5 below the first) and its measured peak must be below the
+    one-microbatch run's."""
+    import numpy as np
+    cfg = arch.model(arch.tnn_default)
+    one = memory.stash_report(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    budget = one.peak_bytes - 1
+    out = train_cli.train(ARCH, smoke=False, tnn=True, steps=TRAIN_STEPS,
+                          global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                          lr=TRAIN_LR, tnn_backend="cuda", device=DEVICE,
+                          log_every=5, tnn_memory_budget=budget)
+    losses = out["losses"]
+    last5 = statistics.mean(losses[-5:])
+    measured_one = per_phase["peak_activation_bytes"]
+    ok = (per_phase["peak_source"].startswith("measured:")
+          and out["peak_source"].startswith("measured:")
+          and out["microbatches"] >= 2
+          and all(np.isfinite(losses)) and last5 < losses[0]
+          and out["peak_activation_bytes"] < measured_one)
+    emit("memory", ok=bool(ok), arch=ARCH,
+         one_microbatch={"measured_peak_bytes": measured_one,
+                         "source": per_phase["peak_source"],
+                         "modeled_stash_bytes": one.peak_bytes,
+                         "measured_over_modeled":
+                             measured_one / one.peak_bytes},
+         budget_bytes=budget, planned_microbatches=out["microbatches"],
+         budget_run={"measured_peak_bytes": out["peak_activation_bytes"],
+                     "source": out["peak_source"],
+                     "modeled_stash_bytes": out["modeled_activation_bytes"],
+                     "losses": losses, "first_loss": losses[0],
+                     "last5_mean_loss": last5,
+                     "step_ms_median_after_3":
+                         statistics.median(out["step_s"][3:]) * 1e3})
+    if not ok:
+        raise AssertionError("memory phase failed")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2113,10 +2525,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from repro_torch import memory
     from repro_torch import telemetry as tm
+    from repro_torch.analysis import train_profile
+    from repro_torch.checkpoint import manager as ckpt_manager
+    from repro_torch.checkpoint import store as ckpt_store
     from repro_torch.configs import base as cfgbase
     from repro_torch.core import plan_compiler, tensorized
-    from repro_torch.kernels import build, fused_contraction as fc, ref
+    from repro_torch.kernels import build, fused_contraction as fc, ops, ref
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quantized as qk
     from repro_torch.kernels import ssm_scan as sk
@@ -2251,14 +2667,34 @@ def main() -> int:
         raise AssertionError("serve parity failed")
 
     # -- 6. train at full width through the kernels -----------------------------
-    launches["train"], bf16_last5 = train_phase(
+    launches["train"], bf16_last5, per_phase = train_phase(
         torch, fc, plan_compiler, train_cli, train_einsum_ops)
 
     # -- 7. training parity with the einsum executor ---------------------------
     train_parity_phase(torch, arch, steps_lib)
 
+    # -- 7a. phase_paths=False: the kernels' autograd Functions --------------
+    pp_gemms, pp_chains, pp_bwd, pp_other_chains = pp_off_geometries(
+        cfg, fc, plan_compiler, profiles, tensorized)
+    kernel_phase(torch, fc, ref, pp_gemms, pp_chains, totals,
+                 path="pp_off_fwd", time_dtypes=("bfloat16",))
+    kernel_phase(torch, fc, ref, sorted(pp_bwd), [], totals,
+                 path="pp_off_bwd", phases=pp_bwd, time_dtypes=("bfloat16",))
+    autograd_phase(torch, fc, ops, ref, pp_gemms,
+                   sorted(set(pp_chains) | set(pp_other_chains)))
+
+    # -- 7b. train through the FP plans, its f32 twin, the comparison --------
+    launches["train_phase_paths_off"], pp_off = train_phase_paths_off_phase(
+        torch, fc, plan_compiler, train_cli, arch, len(pp_chains), per_phase)
+    phase_paths_twin_phase(torch, fc, arch, steps_lib)
+    phase_paths_profile_phase(torch, train_profile, per_phase, pp_off)
+
+    # -- 7c. checkpoints and resume; the memory probe and budget -------------
+    checkpoint_phase(torch, train_cli, ckpt_store, ckpt_manager.host_copy)
+    memory_phase(torch, train_cli, memory, arch, per_phase)
+
     # -- 9. fp8 training at full width through the precision kernels -----------
-    launches["train_fp8"], _ = train_phase(
+    launches["train_fp8"], _, _ = train_phase(
         torch, fc, plan_compiler, train_cli, fp8_einsum_ops,
         name="train_fp8", precision=FP8_POLICY, loss_scale=FP8_LOSS_SCALE,
         bf16_last5=bf16_last5)
@@ -2350,11 +2786,26 @@ def main() -> int:
                if s_["library_ms"] is not None]
         unfused = [s_["unfused_ms"] for s_ in sums
                    if s_["unfused_ms"] is not None]
+        bwd = (sum(launches[r]["matmul_bwd"] for r in RUNS)
+               if name == "matmul" else 0)
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": sum(launches[r][name] for r in RUNS),
+            "launches": sum(launches[r][name] for r in RUNS) + bwd,
             **{f"launches_{r}_run": launches[r][name] for r in RUNS},
+            **({"backward_launches": bwd,
+                "backward_reduce_launches": sum(
+                    launches[r]["matmul_bwd_reduce"] for r in RUNS),
+                "backward_launches_per_phase_paths_off_train_step":
+                    launches["train_phase_paths_off"]["matmul_bwd"]
+                    / TRAIN_STEPS}
+               if name == "matmul" else {}),
+            "launches_per_phase_paths_off_train_step":
+                launches["train_phase_paths_off"][name] / TRAIN_STEPS,
+            "phase_paths_off_sums": {
+                p: {k: (sorted(v) if isinstance(v, set) else v)
+                    for k, v in t[p].items()}
+                for p in PP_OFF_PATHS if p in t},
             **({"splitk_reduce_launches": sum(launches[r][name + "_reduce"]
                                               for r in RUNS)}
                if name + "_reduce" in launches["serve"] else {}),

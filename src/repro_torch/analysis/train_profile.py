@@ -85,7 +85,9 @@ def _group(name: str) -> str:
 
 
 def profile(precision: str = "bf16", loss_scale: float = 1.0,
-            arch_id: str = "paper_atis_tt") -> dict:
+            arch_id: str = "paper_atis_tt", phase_paths: bool = True) -> dict:
+    """One precision's profile (the module's docstring); ``phase_paths``
+    False profiles the ablation, autodiff through the FP plans."""
     import dataclasses
 
     from torch.profiler import ProfilerActivity
@@ -102,7 +104,8 @@ def profile(precision: str = "bf16", loss_scale: float = 1.0,
     batch, seq, warmup, steps = BATCH, SEQ, WARMUP, STEPS
     arch = cfgbase.get(arch_id)
     tnn = dataclasses.replace(arch.tnn_one_card or arch.tnn_default,
-                              precision=QuantPolicy.parse(precision))
+                              precision=QuantPolicy.parse(precision),
+                              phase_paths=phase_paths)
     model, cfg = steps_lib.build_model(arch, tnn, device="cuda", seed=0,
                                        backend="cuda")
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
@@ -167,6 +170,7 @@ def profile(precision: str = "bf16", loss_scale: float = 1.0,
     measured = busy_ms > 0
     return {
         "arch": arch_id, "precision": precision, "loss_scale": loss_scale,
+        "phase_paths": phase_paths,
         "batch": batch, "seq": seq,
         "steps_profiled": steps, "device": torch.cuda.get_device_name(0),
         "wall_ms_per_step": wall_ms,

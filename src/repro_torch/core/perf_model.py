@@ -246,6 +246,22 @@ def plan_peak_elems(plan: ContractionPlan) -> int:
     return plan.peak_live_elems(include_inputs=True)
 
 
+def peak_bytes(plan: ContractionPlan, hw: "HardwareModel | None" = None,
+               mesh: MeshSpec | None = None, policy=None) -> int:
+    """Modeled peak memory (bytes) of one plan execution on one device.
+
+    Composes the contraction schedule (live-tensor accounting over
+    steps), the quantization policy (fp8/int8 storage widths via
+    :func:`apply_policy`) and the mesh (per-shard operands,
+    :func:`localize_plan`).  This is the quantity CSSE's
+    ``memory_budget`` constrains and the CPU fallback of the probe
+    (:mod:`repro_torch.memory.probe`) reports.  The default machine is
+    :data:`H100_SXM` (the reference's is its TPU model; both store bf16,
+    2 bytes, so the number is the same)."""
+    hw = apply_policy(hw or H100_SXM, policy)
+    return plan_peak_elems(localize_plan(plan, mesh)) * hw.dtype_bytes
+
+
 @dataclass(frozen=True)
 class StepCost:
     flops: int

@@ -55,7 +55,7 @@ import torch
 from repro_torch import telemetry as tm
 from repro_torch.core.contraction import _einsum_spec, _einsum_step
 from repro_torch.core.tnetwork import AxisId, ContractionPlan, ContractionStep
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fused_contraction import (
     ChainLoweringError, chain_band_rows, chain_n_cuda, chain_plan,
     matmul_cuda,
@@ -451,7 +451,14 @@ def run(compiled: CompiledPlan, tensors: Sequence[torch.Tensor],
     """Execute a compiled plan; semantics match ``contraction.execute``:
     f32 accumulation within a step, storage dtype between steps (the
     policy's dtype when the plan compiled quantized; ``input_scales``
-    then carries optional delayed per-node scales)."""
+    then carries optional delayed per-node scales).
+
+    When autograd records (grad mode on and an input that requires a
+    gradient: ``phase_paths=False`` training), the GEMM and chain ops
+    run through the kernels' autograd Functions (:mod:`repro_torch.
+    kernels.ops`), whose backward runs the GEMM kernel; otherwise through
+    the kernel wrappers as they are.  The layout copies and the einsum
+    fallback are torch ops, differentiable as they stand."""
     plan = compiled.plan
     net = plan.network
     if out_dtype is None:
@@ -462,6 +469,10 @@ def run(compiled: CompiledPlan, tensors: Sequence[torch.Tensor],
     if not plan.steps:
         return tensors[0].to(out_dtype)
 
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        matmul, chain = ops.matmul, ops.chain_n
+    else:
+        matmul, chain = matmul_cuda, chain_n_cuda
     slots: dict[int, torch.Tensor] = dict(enumerate(tensors))
     sizes = net.sizes
     last_use: dict[int, int] = {}
@@ -482,8 +493,8 @@ def run(compiled: CompiledPlan, tensors: Sequence[torch.Tensor],
                 w = _as_2d(slots[op.step.rhs], mat.rhs_perm, mat.n, mat.k)
             else:
                 w = _as_2d(slots[op.step.rhs], mat.rhs_perm, mat.k, mat.n)
-            res = matmul_cuda(x, w, transpose_rhs=mat.transpose_rhs,
-                              out_dtype=out_dtype)
+            res = matmul(x, w, transpose_rhs=mat.transpose_rhs,
+                         out_dtype=out_dtype)
             res = res.reshape(tuple(sizes[a] for a in mat.m_axes + mat.n_axes))
             if mat.out_perm is not None:
                 res = res.permute(mat.out_perm)
@@ -494,15 +505,15 @@ def run(compiled: CompiledPlan, tensors: Sequence[torch.Tensor],
                   for (s, p), (ki, ni) in zip(zip(op.steps, op.w_perms),
                                               op.link_shapes)]
             try:
-                res = chain_n_cuda(x, ws, out_dtype=out_dtype)
+                res = chain(x, ws, out_dtype=out_dtype)
             except ChainLoweringError as err:
                 # Refused before launch: one GEMM kernel per link, storage
                 # dtype between links, the regroup as a reshape.
                 _degrade("runtime", err)
                 res = x
                 for w, (ki, _) in zip(ws, op.link_shapes):
-                    res = matmul_cuda(res.reshape(-1, ki), w,
-                                      out_dtype=out_dtype)
+                    res = matmul(res.reshape(-1, ki), w,
+                                 out_dtype=out_dtype)
             res = res.reshape(tuple(sizes[ax] for ax in op.m_axes + op.n_axes))
             if op.out_perm is not None:
                 res = res.permute(op.out_perm)

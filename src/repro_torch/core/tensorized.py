@@ -24,9 +24,16 @@ scaling (:class:`_TNNApplyQ`): the layer carries an f32 amax history
 (``quant_amax``, one row per tensor role: x, dY, each core), whose
 "gradient" is the state update the optimizer applies.
 
-Not ported yet: ``phase_paths=False`` (plain autodiff through the FP
-plan, the ablation baseline) for training, ROADMAP.md queue A item 10;
-autotuned tiles (item 5); the SPMD mesh path (item 8).
+``phase_paths=False`` is the ablation baseline (§III-A, §IV): the FP
+plan alone, and under grad plain autodiff through it, as the reference's
+``jax.grad`` through its einsum steps; on the ``cuda`` backend the plan's
+GEMMs and chains then run through the kernels' autograd Functions
+(:mod:`repro_torch.kernels.ops`), whose backward runs the GEMM kernel.
+Quantized execution with ``phase_paths=False`` serves but is refused
+under grad (ROADMAP.md, queue A item 12): the reference differentiates
+through its ``round``/``clip`` there.
+
+Not ported yet: autotuned tiles (item 5); the SPMD mesh path (item 8).
 """
 
 from __future__ import annotations
@@ -442,10 +449,6 @@ class TensorizedLinear(nn.Module):
         xt = x.reshape((batch,) + tuple(self.fact.in_dims))
         xt = xt.to(self.compute_dtype)
         cores = [c.to(self.compute_dtype) for c in self.cores]
-        if not self.phase_paths and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "phase_paths=False (autodiff through the FP plan) is not "
-                "ported yet (ROADMAP.md, queue A item 10)")
         quantized = self.precision.quantized
         if quantized and self.phase_paths:
             hist = self._parameters.get(AMAX_KEY)
@@ -457,16 +460,24 @@ class TensorizedLinear(nn.Module):
             y = _TNNApplyQ.apply(self.fact, self.opts, self.backend,
                                  self.precision, self.remat, xt, hist,
                                  *cores)
-        elif quantized:                 # phase_paths=False, no grad
-            fp, _, _ = _plans(self.fact, batch, self.opts)
-            y = contraction.execute(fp.plan, [xt, *cores],
-                                    backend=self.backend,
-                                    fused_chain=self.opts.fused_chain,
-                                    max_chain_len=self.opts.max_chain_len,
-                                    policy=self.precision)
-        else:
+        elif self.phase_paths:
             y = _TNNApply.apply(self.fact, self.opts, self.backend,
                                 self.remat, xt, *cores)
+        else:
+            # The ablation: the FP plan, differentiated by autograd.
+            if quantized and torch.is_grad_enabled() and (
+                    xt.requires_grad or any(c.requires_grad for c in cores)):
+                raise NotImplementedError(
+                    "quantized phase_paths=False under grad (autodiff "
+                    "through round/clip) is not ported yet (ROADMAP.md, "
+                    "queue A item 12)")
+            fp, _, _ = _plans(self.fact, batch, self.opts)
+            with record_function("tnn.fp"):
+                y = contraction.execute(
+                    fp.plan, [xt, *cores], backend=self.backend,
+                    fused_chain=self.opts.fused_chain,
+                    max_chain_len=self.opts.max_chain_len,
+                    policy=self.precision if quantized else None)
         y = y.reshape(tuple(lead) + (self.fact.M,))
         if self.use_bias:
             y = y + self.bias.to(self.compute_dtype)

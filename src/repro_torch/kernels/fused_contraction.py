@@ -97,12 +97,13 @@ CHAIN_RING_BYTES = 64 * 1024
 #: and ``gemm_splitk_reduce``, counted under ``matmul_reduce`` /
 #: ``matmul_scaled_reduce``.  Likewise a requantize too large for one
 #: block: its cast under ``requantize``, its partial-amax kernel under
-#: ``requantize_amax``.
+#: ``requantize_amax``.  The GEMMs an autograd backward runs (:mod:`.ops`)
+#: count apart, under ``matmul_bwd`` / ``matmul_bwd_reduce``.
 LAUNCHES = {"matmul": 0, "chain_n": 0, "flash_attention_fwd": 0,
             "matmul_scaled": 0, "chain_n_scaled": 0, "quantize": 0,
             "dequantize": 0, "linear_scan": 0, "matmul_reduce": 0,
             "matmul_scaled_reduce": 0, "requantize": 0,
-            "requantize_amax": 0}
+            "requantize_amax": 0, "matmul_bwd": 0, "matmul_bwd_reduce": 0}
 
 #: operand dtype codes of the CUDA sources (``csrc/*.cu``)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -546,14 +547,19 @@ def _check_chain_scales(scales, n_w: int, m0: int, n: int) -> tuple:
 
 def matmul_cuda(x: torch.Tensor, w: torch.Tensor, *,
                 transpose_rhs: bool = False, out_dtype=None,
-                scales=None) -> torch.Tensor:
+                scales=None, launch_key: str = "matmul") -> torch.Tensor:
     """``C[M, N] = X[M, K] @ W`` with W stored ``[K, N]`` or, with
     ``transpose_rhs``, ``[N, K]``; f32 accumulation, output in X's dtype.
 
     ``scales=(sl, sr)`` runs the scaled kernel: ``x``/``w`` hold fp8/int8
     values, ``sl`` is the lhs scale per row (``[M, 1]`` f32), ``sr`` the
     rhs scale per column (``[1, N]`` f32), and the f32 output is
-    ``(Xq @ Wq) * sl * sr``."""
+    ``(Xq @ Wq) * sl * sr``.
+
+    ``launch_key`` names the :data:`LAUNCHES` entry a plain launch counts
+    under (``matmul``, or ``matmul_bwd`` for an autograd backward's)."""
+    if launch_key not in ("matmul", "matmul_bwd"):
+        raise ValueError(f"matmul_cuda: unknown launch key {launch_key!r}")
     _require(x.dim() == 2 and w.dim() == 2,
              f"GEMM operands must be 2-D, got {tuple(x.shape)} and "
              f"{tuple(w.shape)}")
@@ -588,7 +594,7 @@ def matmul_cuda(x: torch.Tensor, w: torch.Tensor, *,
         rc = lib.fc_matmul(_DTYPE_CODES[x.dtype], int(transpose_rhs),
                            x.data_ptr(), w.data_ptr(), out.data_ptr(),
                            _ptr(part), *geo)
-        key = "matmul"
+        key = launch_key
     else:
         rc = lib.fc_matmul_scaled(_QUANT_CODES[x.dtype], int(transpose_rhs),
                                   x.data_ptr(), w.data_ptr(),

@@ -1,4 +1,5 @@
-"""End-to-end training driver: data -> train loop, with a step watchdog.
+"""End-to-end training entry point: data -> train loop -> checkpoints,
+with a step watchdog and restarts.
 
 Port of ``src/repro/launch/train.py`` (single device)::
 
@@ -32,12 +33,28 @@ are random from seed 0.
 ``:tile``) trains every tensorized layer quantized with delayed scaling;
 ``--tnn-remat quantized[:dtype]`` stashes activations in fp8/int8.
 
+``--ckpt-dir DIR`` saves every ``--ckpt-every`` steps (and at the end)
+through the asynchronous :class:`~repro_torch.checkpoint.manager.
+CheckpointManager`, in the reference's layout, and a run finding a
+committed step there resumes from it (so does a restart under
+``run_with_restarts``)::
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch paper_atis_tt \
+      --smoke --tnn --device cpu --steps 6 --batch 2 --seq 16 \
+      --ckpt-dir /tmp/ckpt --ckpt-every 3
+
+``--tnn-memory-budget`` (``64MB``, ``1.5GB``, bytes) caps CSSE's plan
+peak and makes the stash planner raise the microbatch count until the
+modeled activation stash fits.  The stash is logged and sampled as
+``train.peak_activation_bytes``: modeled before the loop, then, on a
+card, measured around the first step (:mod:`repro_torch.memory.probe`).
+
 The reference's other flags are refused with the ROADMAP.md item that
-ports them, never ignored: ``--tnn-memory-budget`` (queue A item 4),
-``--tnn-autotune`` and ``--tnn-search joint`` (item 5), ``--tnn-mesh``,
-``--tnn-pipeline`` and ``--production-mesh`` (item 8), ``--ckpt-dir`` /
-``--ckpt-every`` (item 10).  The activation-memory probe the reference
-logs arrives with item 4.
+ports them, never ignored: ``--tnn-autotune`` and ``--tnn-search joint``
+(queue A item 5), ``--tnn-mesh``, ``--tnn-pipeline`` and
+``--production-mesh`` (item 8).  ``phase_paths=False`` (autodiff through
+the FP plan) has no flag in either package; ``train(..., tnn_cfg=...)``
+takes it.
 """
 
 from __future__ import annotations
@@ -48,13 +65,15 @@ import time
 
 import torch
 
+from repro_torch import memory
 from repro_torch import telemetry as tm
+from repro_torch.checkpoint import store
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import base as cfgbase
 from repro_torch.core.tensorized import TNNConfig
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.distributed import fault_tolerance as ft
 from repro_torch.launch import steps as steps_lib
-from repro_torch.memory.stash import StashPolicy
 from repro_torch.optim.adamw import AdamW
 from repro_torch.precision.policy import QuantPolicy
 
@@ -62,30 +81,32 @@ _log = tm.get_logger("train")
 
 #: reference flags this port refuses, with the ROADMAP.md item porting them
 UNPORTED_FLAGS = {
-    "tnn_memory_budget": ("--tnn-memory-budget", "queue A item 4 (memory)"),
     "tnn_autotune": ("--tnn-autotune", "queue A item 5 (autotune)"),
     "tnn_mesh": ("--tnn-mesh", "queue A item 8 (distributed)"),
     "tnn_pipeline": ("--tnn-pipeline", "queue A item 8 (distributed)"),
     "production_mesh": ("--production-mesh", "queue A item 8 (distributed)"),
-    "ckpt_dir": ("--ckpt-dir", "queue A item 10 (checkpoints)"),
-    "ckpt_every": ("--ckpt-every", "queue A item 10 (checkpoints)"),
 }
 
 
 def train(arch_id: str, *, smoke: bool, tnn: bool, steps: int,
           global_batch: int, seq_len: int, lr: float,
+          ckpt_dir: str | None = None, ckpt_every: int = 50,
+          resume: bool = True,
           microbatches: int = 1, log_every: int = 10,
           tnn_backend: str | None = None, tnn_remat: str | None = None,
-          tnn_precision: str | None = None,
+          tnn_precision: str | None = None, tnn_memory_budget=None,
           loss_scale: float = 1.0, trace_path: str | None = None,
           device: str = "cuda", on_step=None,
           tnn_cfg: TNNConfig | None = None) -> dict:
     """Train ``arch_id`` for ``steps`` steps on synthetic data; returns
-    the per-step losses, grad norms and step seconds, and the final
-    state.  ``on_step(step, metrics)``, when given, runs after each
-    step.  ``tnn_cfg``, when given, takes the place of the arch's
-    ``tnn_default`` (the backend, precision and remat overrides still
-    apply on top)."""
+    the per-step losses, grad norms and step seconds of the steps run,
+    the activation-memory probe and the final state.
+    ``on_step(step, metrics)``, when given, runs after each step.
+    ``tnn_cfg``, when given, takes the place of the arch's
+    ``tnn_default`` (the backend, precision, remat and budget overrides
+    still apply on top).  With ``ckpt_dir`` the state is saved every
+    ``ckpt_every`` steps and at the end, and with ``resume`` the run
+    starts from the latest committed step there."""
     owns_trace = bool(trace_path) and not tm.enabled()
     if owns_trace:
         tm.configure(trace_path)
@@ -102,9 +123,38 @@ def train(arch_id: str, *, smoke: bool, tnn: bool, steps: int,
             tnn_cfg, precision=QuantPolicy.parse(tnn_precision))
     if tnn_cfg is not None and tnn_remat:
         tnn_cfg = dataclasses.replace(
-            tnn_cfg, remat=StashPolicy.parse(tnn_remat).tag())
+            tnn_cfg, remat=memory.StashPolicy.parse(tnn_remat).tag())
+    budget = memory.parse_budget(tnn_memory_budget)
+    if tnn_cfg is not None and budget is not None:
+        # One number, two levels: CSSE rejects plans whose modeled
+        # live-tensor peak exceeds it, and the stash planner below fits
+        # the step's activation stash by microbatching.
+        tnn_cfg = dataclasses.replace(tnn_cfg, memory_budget=budget)
     model, cfg = steps_lib.build_model(arch, tnn=tnn_cfg, smoke=smoke,
                                        device=device, seed=0)
+
+    mem_probe = modeled = None
+    if tnn_cfg is not None:
+        stash_policy = tnn_cfg.stash_policy()
+        if budget is not None:
+            planned, report = memory.plan_microbatches(
+                cfg, global_batch, seq_len, budget, stash_policy,
+                at_least=microbatches)
+            if planned != microbatches:
+                _log.info(f"memory planner: budget "
+                          f"{memory.format_bytes(budget)} -> "
+                          f"{planned} microbatches "
+                          f"(stash {memory.format_bytes(report.peak_bytes)})")
+                microbatches = planned
+        mem_probe = modeled = memory.probe_training(
+            cfg, global_batch, seq_len, microbatches, stash_policy)
+        _log.info(f"activation stash [{stash_policy.tag()}]: "
+                  f"{memory.format_bytes(mem_probe.peak_bytes)}/device "
+                  f"({mem_probe.source})")
+        tm.sample("train.peak_activation_bytes", mem_probe.peak_bytes)
+    # On a card the probe is measured around the first step run.
+    probe_first = mem_probe is not None and model.device.type == "cuda"
+
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq_len,
                                   global_batch=global_batch))
     opt = AdamW(lr=lr, total_steps=max(steps, 2), warmup_steps=min(20, steps),
@@ -114,37 +164,73 @@ def train(arch_id: str, *, smoke: bool, tnn: bool, steps: int,
     step_fn = steps_lib.make_train_step(model, opt,
                                         microbatches=microbatches)
 
+    manager = (CheckpointManager(ckpt_dir, every=ckpt_every)
+               if ckpt_dir else None)
+    start = 0
+    if ckpt_dir and resume and store.latest_step(ckpt_dir) is not None:
+        start, state = store.restore(ckpt_dir, state)
+        _log.info(f"resumed from step {start}")
+
     watchdog = ft.StepWatchdog()
     history, gnorms, step_s = [], [], []
+    saved = False
     t_start = time.time()
-    for step in range(steps):
-        with tm.span("train.step", step=step):
-            with tm.span("train.data"):
-                batch = {k: torch.as_tensor(v).to(model.device)
-                         for k, v in data.batch(step).items()}
-            t0 = time.time()
-            with tm.span("train.step_fn"):
-                state, metrics = step_fn(state, batch)
-                loss = float(metrics["loss"])    # waits for the device
-            dur = time.time() - t0
-        watchdog.observe(step, dur)
-        history.append(loss)
-        gnorms.append(float(metrics["grad_norm"]))
-        step_s.append(dur)
-        if on_step is not None:
-            on_step(step, metrics)
-        if step % log_every == 0 or step == steps - 1:
-            tok_s = global_batch * seq_len / max(dur, 1e-9)
-            _log.info(f"step {step:5d} loss {loss:8.4f} "
-                      f"gnorm {gnorms[-1]:7.3f} "
-                      f"lr {float(metrics['lr']):.2e} {dur*1e3:7.1f}ms "
-                      f"({tok_s:,.0f} tok/s)")
+    try:
+        for step in range(start, steps):
+            with tm.span("train.step", step=step):
+                with tm.span("train.data"):
+                    batch = {k: torch.as_tensor(v).to(model.device)
+                             for k, v in data.batch(step).items()}
+                t0 = time.time()
+                with tm.span("train.step_fn"):
+                    if probe_first:
+                        ran = []
+                        mem_probe = memory.probe_training(
+                            cfg, global_batch, seq_len, microbatches,
+                            stash_policy, device=model.device,
+                            run=lambda: ran.append(step_fn(state, batch)))
+                        (state, metrics), probe_first = ran[0], False
+                        peak = memory.format_bytes(mem_probe.peak_bytes)
+                        _log.info(f"activation peak of step {step}: {peak}"
+                                  f" ({mem_probe.source})")
+                        tm.sample("train.peak_activation_bytes",
+                                  mem_probe.peak_bytes)
+                    else:
+                        state, metrics = step_fn(state, batch)
+                    loss = float(metrics["loss"])    # waits for the device
+                dur = time.time() - t0
+            watchdog.observe(step, dur)
+            history.append(loss)
+            gnorms.append(float(metrics["grad_norm"]))
+            step_s.append(dur)
+            if manager:
+                with tm.span("train.checkpoint", step=step):
+                    saved = manager.maybe_save(step + 1, state)
+            if on_step is not None:
+                on_step(step, metrics)
+            if step % log_every == 0 or step == steps - 1:
+                tok_s = global_batch * seq_len / max(dur, 1e-9)
+                _log.info(f"step {step:5d} loss {loss:8.4f} "
+                          f"gnorm {gnorms[-1]:7.3f} "
+                          f"lr {float(metrics['lr']):.2e} {dur*1e3:7.1f}ms "
+                          f"({tok_s:,.0f} tok/s)")
+        if manager and not saved:
+            manager.maybe_save(steps, state, force=True)
+    finally:
+        if manager:
+            manager.close()
     wall = time.time() - t_start
     if owns_trace:
         tm.finalize()
     return {"losses": history, "grad_norms": gnorms, "step_s": step_s,
             "final_loss": history[-1] if history else None, "wall_s": wall,
             "stragglers": len(watchdog.straggler_events),
+            "start_step": start,
+            "peak_activation_bytes": (mem_probe.peak_bytes
+                                      if mem_probe else None),
+            "peak_source": mem_probe.source if mem_probe else None,
+            "modeled_activation_bytes": (modeled.peak_bytes
+                                         if modeled else None),
             "microbatches": microbatches, "cfg": cfg, "state": state}
 
 
@@ -190,17 +276,26 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; the kernels) or cpu (their plain "
                          "versions)")
+    ap.add_argument("--tnn-memory-budget", default=None, metavar="BYTES",
+                    help="peak activation-memory budget ('64MB', '1.5GB', "
+                         "or bytes): CSSE never picks a plan whose "
+                         "modeled live-tensor peak exceeds it, and the "
+                         "stash planner raises the microbatch count "
+                         "(gradient accumulation) until the step's "
+                         "modeled activation stash fits")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="save checkpoints here (the reference's layout) "
+                         "and resume from the latest committed one")
+    ap.add_argument("--ckpt-every", type=int, default=50,
+                    help="steps between checkpoints (with --ckpt-dir)")
     unported = ap.add_argument_group(
         "not ported yet (refused; see ROADMAP.md)")
-    unported.add_argument("--tnn-memory-budget", default=None)
     unported.add_argument("--tnn-autotune", action="store_true")
     unported.add_argument("--tnn-search", choices=["per-axis", "joint"],
                           default="per-axis")
     unported.add_argument("--tnn-mesh", default=None)
     unported.add_argument("--tnn-pipeline", type=int, default=None)
     unported.add_argument("--production-mesh", action="store_true")
-    unported.add_argument("--ckpt-dir", default=None)
-    unported.add_argument("--ckpt-every", type=int, default=None)
     return ap
 
 
@@ -215,17 +310,21 @@ def main(argv=None) -> None:
                  "queue A item 5 (autotune and joint search))")
     for flag, val in (("--tnn-backend", args.tnn_backend),
                       ("--tnn-remat", args.tnn_remat),
-                      ("--tnn-precision", args.tnn_precision)):
+                      ("--tnn-precision", args.tnn_precision),
+                      ("--tnn-memory-budget", args.tnn_memory_budget)):
         if val is not None and not args.tnn:
             ap.error(f"{flag} requires --tnn (no tensorized layers "
                      "without it)")
     try:
         if args.tnn_remat is not None:
-            StashPolicy.parse(args.tnn_remat)
+            memory.StashPolicy.parse(args.tnn_remat)
         if args.tnn_precision is not None:
             QuantPolicy.parse(args.tnn_precision)
+        memory.parse_budget(args.tnn_memory_budget)
     except ValueError as e:
         ap.error(str(e))
+    if args.ckpt_every < 1:
+        ap.error("--ckpt-every must be >= 1")
     if args.device == "cuda" and not torch.cuda.is_available():
         ap.error("--device cuda: no CUDA card visible (use --device cpu "
                  "for the kernels' plain versions)")
@@ -233,10 +332,12 @@ def main(argv=None) -> None:
     def run(start_step: int) -> int:
         out = train(args.arch, smoke=args.smoke, tnn=args.tnn,
                     steps=args.steps, global_batch=args.batch,
-                    seq_len=args.seq, lr=args.lr,
+                    seq_len=args.seq, lr=args.lr, ckpt_dir=args.ckpt_dir,
+                    ckpt_every=args.ckpt_every,
                     microbatches=args.microbatches,
                     tnn_backend=args.tnn_backend, tnn_remat=args.tnn_remat,
                     tnn_precision=args.tnn_precision,
+                    tnn_memory_budget=args.tnn_memory_budget,
                     loss_scale=args.loss_scale, trace_path=args.tnn_trace,
                     device=args.device)
         _log.info(f"done: final loss {out['final_loss']:.4f} "

@@ -10,8 +10,9 @@ reads.  ``store`` and ``recompute`` keep the activation as is
 forward).  ``quantized`` keeps an fp8/int8 payload, its f32 scale and the
 f32 amax of the activation; under a quantized execution policy whose
 delayed scale it pins, it is lossless: the WG phase would have quantized
-the activation with the same scale anyway.  The planner-side accounting
-(``stash_bytes``) arrives with the memory slice (ROADMAP.md, queue A).
+the activation with the same scale anyway.  :meth:`StashPolicy.stash_bytes`
+and :meth:`StashPolicy.meta_bytes` are the byte accounting the planner
+(:mod:`repro_torch.memory.planner`) sums.
 """
 
 from __future__ import annotations
@@ -52,6 +53,22 @@ class StashPolicy:
     def quant_policy(self) -> QuantPolicy:
         """The per-tensor quantization policy backing a quantized stash."""
         return QuantPolicy(dtype=self.dtype, granularity="tensor")
+
+    def stash_bytes(self, elems: int, compute_dtype) -> int:
+        """Activation-payload bytes this policy keeps for an
+        ``elems``-element activation: none under ``recompute`` (the
+        planner counts the layer input at the checkpoint boundary), the
+        stash dtype's width under ``quantized`` (its f32 scale and amax
+        are :meth:`meta_bytes`), the compute dtype's under ``store``."""
+        if self.mode == "recompute":
+            return 0
+        if self.mode == "quantized":
+            return elems * DTYPES[self.dtype][1]
+        return elems * compute_dtype.itemsize
+
+    def meta_bytes(self) -> int:
+        """Per-stash scalar metadata (f32 scale + amax under quantized)."""
+        return 8 if self.mode == "quantized" else 0
 
     def tag(self) -> str:
         return self.mode if not self.quantized else f"quantized:{self.dtype}"

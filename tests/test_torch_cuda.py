@@ -1205,3 +1205,69 @@ def test_cuda_qwen2_prefill_and_decode_match_the_cpu(cuda_device):
         outs.append((lp.cpu(), ld.cpu()))
     for got, want in zip(outs[1], outs[0]):
         assert _max_err(got, want) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    ("matmul", 1024, 768, 8, False), ("matmul", 1024, 8, 768, True),
+    ("chain", 768, ((768, 8), (64, 8))),
+    ("chain", 64, ((8, 4), (16, 6), (12, 5)))])
+def test_cuda_autograd_functions_match_the_cpu(cuda_device, case, dtype):
+    """The GEMM and chain kernels' autograd Functions (``kernels.ops``)
+    on the card against the same Functions on the CPU (their plain
+    versions): the value and the gradient of every input, with the GEMM
+    rule's tolerance (f32 1e-5, bf16 2e-2 of each one's scale); every
+    backward GEMM on the card counts under ``matmul_bwd``."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator().manual_seed(7)
+    if case[0] == "matmul":
+        _, m, n, k, trans = case
+        shapes = [(m, k), (n, k) if trans else (k, n)]
+        fn = lambda t: ops.matmul(t[0], t[1], transpose_rhs=trans)  # noqa
+    else:
+        _, m0, links = case
+        shapes = [(m0, links[0][0]), *links]
+        fn = lambda t: ops.chain_n(t[0], t[1:])  # noqa
+    host = [torch.randn(s, generator=gen).to(dtype) for s in shapes]
+    results = []
+    for device in ("cpu", cuda_device):
+        ins = [t.detach().clone().to(device).requires_grad_()
+               for t in host]
+        before = dict(fc.LAUNCHES)
+        out = fn(ins)
+        dy = torch.ones_like(out)
+        out.backward(dy)
+        if device != "cpu":
+            torch.cuda.synchronize()
+            assert fc.LAUNCHES["matmul_bwd"] > before["matmul_bwd"]
+            key = "matmul" if case[0] == "matmul" else "chain_n"
+            assert fc.LAUNCHES[key] == before[key] + 1
+        results.append([out.detach().cpu()] + [t.grad.cpu() for t in ins])
+    rel = 1e-5 if dtype == torch.float32 else 2e-2
+    for i, (got, want) in enumerate(zip(results[1], results[0])):
+        assert got.dtype == want.dtype, i
+        assert _max_err(got, want) <= rel * float(want.float().abs().max()), i
+
+
+@pytest.mark.cuda
+def test_cuda_measure_reads_the_allocator(cuda_device):
+    """On a card the probe always measures: the peak of the call net of
+    what was allocated before it, named by the card."""
+    from repro_torch import memory
+    from repro_torch.configs import base
+
+    keep = torch.empty(1 << 20, dtype=torch.uint8, device=cuda_device)
+    got = memory.measure(lambda: torch.empty(8 << 20, dtype=torch.uint8,
+                                             device=cuda_device),
+                         device=cuda_device)
+    assert got is not None and got.measured
+    assert got.source == "measured:" + torch.cuda.get_device_name(
+        cuda_device)
+    assert 8 << 20 <= got.peak_bytes < 9 << 20
+    assert got.detail["resident_before"] >= keep.numel()
+    # without a step to run, the probe is the planner's model
+    modeled = memory.probe_training(base.get("paper_atis_tt").smoke(), 2,
+                                    16, device=cuda_device)
+    assert not modeled.measured

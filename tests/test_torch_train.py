@@ -23,7 +23,8 @@
   f32 noise floor, where Adam's sign-like step may go either way, and
   are held to twice the summed learning rates.
 * ``SyntheticLM`` batches are bit-equal; the train CLI runs on the CPU
-  (with ``--tnn-precision`` and a quantized ``--tnn-remat`` too) and
+  (with ``--tnn-precision``, a quantized ``--tnn-remat``,
+  ``--tnn-memory-budget``, ``--ckpt-dir`` and ``--ckpt-every`` too) and
   refuses the flags it has not ported.
 """
 
@@ -163,6 +164,8 @@ def test_layer_grads_match_reference(method, backend, wg, monkeypatch):
 
 
 def test_phase_paths_false_refuses_training_but_serves():
+    """``phase_paths=False`` serves and now trains (autodiff through the
+    FP plan); only its quantized form still refuses a gradient."""
     tnn = tensorized.TNNConfig(enabled=True, rank=3, num_factors=2,
                                phase_paths=False)
     layer = tensorized.make_tensorized_linear(16, 16, tnn,
@@ -171,8 +174,16 @@ def test_phase_paths_false_refuses_training_but_serves():
     x = torch.ones(2, 16)
     with torch.no_grad():
         assert layer(x).shape == (2, 16)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        layer(x)
+    layer(x).square().sum().backward()
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in layer.cores)
+    qlayer = tensorized.make_tensorized_linear(
+        16, 16, dataclasses.replace(tnn, precision=tensorized.QuantPolicy(
+            dtype="int8")), compute_dtype=torch.float32, device="cpu")
+    with torch.no_grad():
+        assert qlayer(x).shape == (2, 16)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        qlayer(x)
 
 
 def test_outer_product_step_reaches_the_gemm():
@@ -510,16 +521,41 @@ def test_train_losses_are_finite_and_backends_agree():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--tnn-memory-budget", "64MB"],
     ["--tnn-autotune"], ["--tnn-search", "joint"], ["--tnn-mesh", "data"],
-    ["--tnn-pipeline", "2"], ["--production-mesh"], ["--ckpt-dir", "x"],
-    ["--ckpt-every", "5"]])
+    ["--tnn-pipeline", "2"], ["--production-mesh"]])
 def test_unported_flags_are_refused(flag, capsys):
     with pytest.raises(SystemExit) as exc:
         train_cli.main(["--arch", "paper_atis_tt", "--smoke", "--tnn",
                         "--device", "cpu", "--steps", "1", *flag])
     assert exc.value.code == 2
     assert "ROADMAP.md" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", ["--tnn-memory-budget", "--ckpt-dir",
+                                  "--ckpt-every"])
+def test_ported_flags_run_on_the_cpu(flag, capsys, tmp_path):
+    """The flags the memory and checkpoint slice ported: a budget below
+    the stash splits the batch (2 samples, 2 microbatches); a checkpoint
+    directory gets the final step (and, with ``--ckpt-every 1``, each
+    step, the oldest pruned to the manager's three)."""
+    ckpt = tmp_path / "ckpt"
+    extra = {"--tnn-memory-budget": ["--tnn-memory-budget", "1KB"],
+             "--ckpt-dir": ["--ckpt-dir", str(ckpt)],
+             "--ckpt-every": ["--ckpt-dir", str(ckpt), "--ckpt-every",
+                              "1"]}[flag]
+    steps_run = 4 if flag == "--ckpt-every" else 2
+    train_cli.main(["--arch", "paper_atis_tt", "--smoke", "--tnn",
+                    "--tnn-backend", "cuda", "--device", "cpu", "--steps",
+                    str(steps_run), "--batch", "2", "--seq", "16", *extra])
+    out = capsys.readouterr().out
+    assert "done: final loss" in out
+    if flag == "--tnn-memory-budget":
+        assert "-> 2 microbatches" in out and "(modeled)" in out
+        return
+    want = (["step_00000002", "step_00000003", "step_00000004"]
+            if flag == "--ckpt-every" else ["step_00000002"])
+    assert sorted(p.name for p in ckpt.iterdir()) == want
+    assert all((ckpt / n / "COMMITTED").exists() for n in want)
 
 
 @pytest.mark.parametrize("flags", [
