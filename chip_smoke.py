@@ -10,9 +10,10 @@ and failing the script when it fails:
 
 1. ``env`` — card name and power limit, torch/CUDA versions, and the
    time to build every CUDA kernel from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, all at once); then ``ptxas``: each kernel's
-   registers, stack and spills as ``nvcc -Xptxas -v`` reported them in
-   that build.
+   (one ``nvcc`` per source, all started at once; the scan's, the slowest,
+   is waited for only at phase 11, which first needs it, and reported
+   there); then ``ptxas``: each kernel's registers, stack and spills as
+   ``nvcc -Xptxas -v`` reported them in that build.
 2. ``kernel:matmul`` / ``kernel:chain_n`` — every GEMM and chain geometry
    the serving path gives the kernels (``paper_atis_tt`` at full width,
    the prefill and decode token batches), in bf16 and f32, then every
@@ -131,8 +132,8 @@ and failing the script when it fails:
    its time.  Then the GEMM and chain kernels at
    every geometry of ``rwkv6_7b``'s FP/BP/WG plans (``cm_k``/``cm_v``,
    TT rank 64), as in phase 2.
-12. ``train_rwkv6`` — ``rwkv6_7b`` at full width and depth (32 layers,
-   d 4096, vocab 65,536, nothing cut) through the train entry point,
+12. ``train_rwkv6`` — ``rwkv6_7b`` at full width (16 of its 32 layers:
+   ``RWKV_TRAIN_LAYERS``; d 4096, vocab 65,536) through the train entry point,
    ``cuda`` backend, bf16, batch 8, seq 128, 12 steps at lr 1e-3 (see
    ``RWKV_LR``): every loss
    finite, the mean of the last 5 below the first, the GEMM kernel and
@@ -219,10 +220,45 @@ and failing the script when it fails:
    and the first wave through ``LM.prefill`` (how many of request 0's
    tokens it shares with the engine, reported).
 
+24. ``olmoe_kernels`` — ``olmoe_1b_7b`` (the MoE family, ``--tnn``'s
+   default: each expert's FFN as TT rank 64 cores stacked over the 64
+   experts): the batched GEMM (``kernel:matmul_batched``, all experts
+   in one launch, bf16 and f32, split-K where ``gemm_config`` splits) at
+   every geometry of the expert layers' training FP/BP/WG plans (an
+   expert's batch: 8 groups x capacity 24) and serving FP plans (4 x
+   8), each expert held to the tolerance at its own scale, timed in
+   bf16 beside the plain version, ``torch.bmm`` and the bound; the
+   batched chain (``kernel:chain_n_batched``) at the chains the expert
+   plans fuse at TT rank 8 (none does at 64); the attention kernel at
+   the training shape (B 8, T 128, H = KV = 16, D 128, causal).
+25. ``train_olmoe`` — full width and depth (16 layers, d 2048, vocab
+   50,304; 1,565,067,264 parameters), ``cuda`` backend, bf16, remat,
+   batch 8, seq 128, 12 steps at lr 1e-3 (``OLMOE_LR``): every loss
+   finite, the last 5 below the first, the router's ``lb_loss`` /
+   ``z_loss`` finite and reported, the attention kernel twice a layer,
+   and on every step the batched launches (GEMM, its reduce, chain)
+   exactly what the compiled expert plans predict (no launch per
+   expert, no 2-D GEMM); ``train_olmoe_rank8``: the same at TT rank 8
+   and 2 layers, where the plans fuse chains (the batched chain on the
+   path).
+26. ``olmoe_parity`` — ``cuda`` against ``einsum`` at 2 layers, f32 and
+   bf16, to the ATIS gates, after the share of the first batch's (token,
+   k) top-k picks that both backends make (>= 99%; the share equal rank
+   for rank is reported); first, in f32, the engine's
+   greedy tokens (``extend``, padded columns routed too) equal
+   ``LM.prefill`` followed by ``decode_step``.
+27. ``serve_olmoe`` — full width and depth through ``ServeEngine`` at
+   the serve CLI's defaults: every request completes, the batched GEMM
+   launched, no 2-D GEMM, no runtime degrade; tok/s and tick times.
+   Then ``olmoe_profile``: ``train_profile`` on that model (device busy
+   and idle share of a training step, by kernel and by phase, the
+   ``moe.*`` ranges among them).
+
 It then prints the ``{"kernels": [...]}`` line (every ported kernel with
 its launches in the serve, train, train_fp8, train_rwkv6, train_zamba2,
 serve_zamba2, train_qwen2, serve_qwen2 (bf16 and fp8 KV),
-prefill_qwen2 and train_phase_paths_off runs, for the GEMM also its
+prefill_qwen2, train_phase_paths_off, train_olmoe, train_olmoe_rank8
+and serve_olmoe runs, the batched GEMM and chain as rows of their own, for the GEMM also its
 backward launches under autodiff and its split-K reduce launches, the
 ``phase_paths=False`` path's timed sums apart, for the requantize its
 partial-amax launches, and its timings at the main paths' shapes), the
@@ -274,6 +310,10 @@ FLASH_SHAPES = [(8, 128, 12, 12, 64, True, None),
 # most gradients under AdamW's eps, and warm-up to 3e-3 sends the loss
 # back up after step 7 (PERF.md, Findings).
 RWKV_ARCH, RWKV_STEPS, RWKV_LR = "rwkv6_7b", 12, 1e-3
+# train_rwkv6 runs 16 of the model's 32 layers (full width): at 32 it took
+# ~59 s of this script's 600, mostly drawing 3.83 B weights on the host,
+# and the olmoe phases need the room (PERF.md, Findings, PR 24).
+RWKV_TRAIN_LAYERS = 16
 # zamba2_7b's ssd scan: (BH = batch 8 x 64 heads, T, dk, dv, chunk).
 SSD_SHAPE = (8 * 64, 128, 64, 112, 128)
 # zamba2_7b training at full width and depth, the train CLI's shape, with
@@ -306,6 +346,24 @@ DENSE_OTHERS = ("tinyllama_1_1b", "internlm2_1_8b", "phi4_mini_3_8b")
 # depth.
 STATE_LAYERS, STATE_BATCH, STATE_T = 2, 2, 128
 STATE_TOL_REL = 0.05
+# olmoe_1b_7b (the MoE family: 64 experts top-8, d_ff_expert 1024) at
+# full width and depth under --tnn's default (each expert's gate/up/down
+# as TT rank 64 cores stacked over the experts; attention, the f32
+# router, embedding and lm_head dense): 1,565,067,264 parameters.  The
+# train CLI's shape and steps as the other models'; its lr is the first
+# of 3e-3, 1e-3, 3e-4 whose run passes the loss-descent gate
+# (tools/olmoe_lr_sweep.py): at 3e-3 the grad norm reaches 137-149 and
+# the last five end at 12.36 over a first 11.44 (PERF.md, Findings).
+OLMOE_ARCH, OLMOE_STEPS, OLMOE_LR = "olmoe_1b_7b", 12, 1e-3
+# The TT rank at which the experts' plans fuse chains (none does at rank
+# 64): the batched chain's check and its 2-layer training run.
+OLMOE_CHAIN_RANK, OLMOE_CHAIN_STEPS = 8, 8
+# olmoe_parity's routing agreement: share of (token, k) picks both make.
+ROUTING_AGREEMENT = 0.99
+# olmoe_profile's warm-up and profiled steps: fewer than train_profile's
+# own (5, 3), whose event count at olmoe's ~20,000 device events a step
+# made the phase take ~49 s of this script's 600.
+OLMOE_PROFILE_STEPS = (2, 1)
 
 DEVICE = "cuda"
 
@@ -321,6 +379,10 @@ REPLACES = {
     # requantizes in jnp: src/repro/core/plan_compiler.py:886)
     "requantize": "src/repro/kernels/quantized.py:47",
     "linear_scan": "src/repro/kernels/ssm_scan.py:86",
+    # the reference vmaps these over a MoE's experts
+    # (src/repro/models/blocks.py:696): a batched pallas_call
+    "matmul_batched": "src/repro/kernels/fused_contraction.py:186",
+    "chain_n_batched": "src/repro/kernels/fused_contraction.py:317",
 }
 SOURCES = {
     "matmul": "src/repro_torch/kernels/csrc/fused_contraction.cu",
@@ -332,16 +394,20 @@ SOURCES = {
     "dequantize": "src/repro_torch/kernels/csrc/quantized.cu",
     "requantize": "src/repro_torch/kernels/csrc/quantized.cu",
     "linear_scan": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+    "matmul_batched": "src/repro_torch/kernels/csrc/fused_contraction.cu",
+    "chain_n_batched": "src/repro_torch/kernels/csrc/fused_contraction.cu",
 }
 KERNELS = ("matmul", "chain_n", "flash_attention_fwd")
 QUANT_KERNELS = ("matmul_scaled", "chain_n_scaled", "quantize", "dequantize",
                  "requantize")
-ALL_KERNELS = KERNELS + QUANT_KERNELS + ("linear_scan",)
+BATCHED_KERNELS = ("matmul_batched", "chain_n_batched")
+ALL_KERNELS = KERNELS + QUANT_KERNELS + ("linear_scan",) + BATCHED_KERNELS
 #: the main-path runs whose launches the kernel line counts (and whose
 #: timed shapes it sums)
 RUNS = ("serve", "train", "train_fp8", "train_rwkv6", "train_zamba2",
         "serve_zamba2", "train_qwen2", "serve_qwen2", "serve_qwen2_fp8",
-        "prefill_qwen2", "train_phase_paths_off")
+        "prefill_qwen2", "train_phase_paths_off", "train_olmoe",
+        "train_olmoe_rank8", "serve_olmoe")
 #: the phase_paths=False path's timed shapes: its FP plans' GEMMs and
 #: chains, and the GEMMs their autograd backward runs (reported apart;
 #: the FP shapes are timed in the ``train`` path's sums too)
@@ -444,10 +510,11 @@ def chain_config_rec(fc, x, ws) -> dict:
 def unfused_chain(fc, x, ws):
     """The chain as one GEMM kernel per link (``plan_compiler.run``'s
     route for a chain it does not fuse): the intermediate rounded to X's
-    type in device memory, the regroup a reshape."""
+    type in device memory, the regroup a reshape (batched operands: one
+    batched GEMM a link)."""
     h = x
     for w in ws:
-        h = fc.matmul_cuda(h.reshape(-1, w.shape[0]), w)
+        h = fc.matmul_cuda(h.reshape(*x.shape[:-2], -1, w.shape[-2]), w)
     return h
 
 
@@ -850,16 +917,33 @@ def add_total(t: dict, ms, plain, lib, b, by, unfused=None) -> None:
 
 
 def kernel_phase(torch, fc, ref, gemms, chains, totals, *, path: str,
-                 phases=None, time_dtypes=("bfloat16", "float32")) -> None:
+                 phases=None, time_dtypes=("bfloat16", "float32"),
+                 batch=None) -> None:
     """Hold each kernel against its plain version at every geometry
     (bf16 and f32); time both (in ``time_dtypes``), and torch.matmul for
     the GEMM.  bf16 times add to ``totals[kernel][path]`` and, for WG
-    geometries, to ``totals[kernel]["wg"]``."""
+    geometries, to ``totals[kernel]["wg"]``.  With ``batch`` (the
+    experts) every operand gets that leading axis: the batched kernels
+    (``matmul_batched``, ``chain_n_batched``), each expert held to the
+    tolerance at its own scale, ``torch.bmm`` the GEMM's library call."""
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     phases = phases or {}
+    lead = () if batch is None else (batch,)
+    sfx = "" if batch is None else "_batched"
+    nb = batch or 1
 
     def rand(shape, dtype):
-        return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+        return torch.randn(lead + tuple(shape), generator=gen,
+                           device=DEVICE).to(dtype)
+
+    def errs(got, want):
+        """Max abs error and scale: the worst expert's, each expert
+        against its own scale."""
+        g, w = got.float().reshape(nb, -1), want.float().reshape(nb, -1)
+        err = (g - w).abs().amax(dim=1)
+        scale = w.abs().amax(dim=1)
+        worst = int(torch.argmax(err / scale.clamp_min(1e-30)))
+        return err[worst].item(), scale[worst].item()
 
     def account(name, geo, dname, err, timed):
         t = totals[name]
@@ -880,8 +964,7 @@ def kernel_phase(torch, fc, ref, gemms, chains, totals, *, path: str,
             got = fc.matmul_cuda(x, w, transpose_rhs=trans)
             want = ref.matmul(x, w, transpose_rhs=trans)
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            scale = want.float().abs().max().item()
+            err, scale = errs(got, want)
             tol = (1e-5 * scale if dtype == torch.float32
                    else bf16_ulp(scale))
             geo = (m, n, k, trans)
@@ -889,9 +972,10 @@ def kernel_phase(torch, fc, ref, gemms, chains, totals, *, path: str,
                    "transpose_rhs": trans, "phases": sorted(phases.get(
                        geo, ())), "dtype": dname, "max_abs_err": err,
                    "max_rel_err": err / max(scale, 1e-30), "scale": scale,
-                   "tol": tol, "config": gemm_config_rec(fc, x, w, trans)}
+                   "tol": tol, "config": gemm_config_rec(fc, x, w, trans),
+                   **({} if batch is None else {"batch": batch})}
             if not err <= tol:
-                emit("kernel:matmul", ok=False, **rec)
+                emit("kernel:matmul" + sfx, ok=False, **rec)
                 raise AssertionError(f"matmul kernel disagrees: {rec}")
             timed = None
             if timing:
@@ -899,23 +983,24 @@ def kernel_phase(torch, fc, ref, gemms, chains, totals, *, path: str,
                     x, w, transpose_rhs=trans))
                 plain = device_ms(torch, lambda: ref.matmul(
                     x, w, transpose_rhs=trans))
-                lib = device_ms(torch, lambda: torch.matmul(
-                    x, w.t() if trans else w))
-                b, by = bound_ms((m * k + k * n + m * n) * size,
-                                 2 * m * n * k, dname)
+                wt = w.transpose(-1, -2) if trans else w
+                lib = device_ms(torch, (lambda: torch.matmul(x, wt))
+                                if batch is None
+                                else (lambda: torch.bmm(x, wt)))
+                b, by = bound_ms(nb * (m * k + k * n + m * n) * size,
+                                 2 * nb * m * n * k, dname)
                 timed = (ms, plain, lib, b, by)
                 rec.update(ms=ms, plain_ms=plain, library_ms=lib,
                            bound_ms=b, bound_by=by)
-            emit("kernel:matmul", ok=True, **rec)
-            account("matmul", geo, dname, err, timed)
+            emit("kernel:matmul" + sfx, ok=True, **rec)
+            account("matmul" + sfx, geo, dname, err, timed)
         for m0, shapes in chains:
             x = rand((m0, shapes[0][0]), dtype)
             ws = [rand(s, dtype) for s in shapes]
             got = fc.chain_n_cuda(x, ws)
             want = ref.chain_n(x, ws)
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            scale = want.float().abs().max().item()
+            err, scale = errs(got, want)
             # f32: sums in another order.  bf16: the same, and a rounding
             # of an intermediate to bf16 can land one ulp apart, which the
             # next link carries into the output: two ulps of its scale.
@@ -927,9 +1012,10 @@ def kernel_phase(torch, fc, ref, gemms, chains, totals, *, path: str,
                    "phases": sorted(phases.get(geo, ())), "dtype": dname,
                    **chain_config_rec(fc, x, ws),
                    "max_abs_err": err, "max_rel_err": err / max(scale, 1e-30),
-                   "scale": scale, "tol": tol}
+                   "scale": scale, "tol": tol,
+                   **({} if batch is None else {"batch": batch})}
             if not err <= tol:
-                emit("kernel:chain_n", ok=False, **rec)
+                emit("kernel:chain_n" + sfx, ok=False, **rec)
                 raise AssertionError(f"chain kernel disagrees: {rec}")
             timed = None
             if timing:
@@ -937,15 +1023,17 @@ def kernel_phase(torch, fc, ref, gemms, chains, totals, *, path: str,
                 plain = device_ms(torch, lambda: ref.chain_n(x, ws))
                 rec["unfused_ms"] = device_ms(torch, lambda: unfused_chain(
                     fc, x, ws))
-                nbytes = (m0 * shapes[0][0] + sum(a * c for a, c in shapes)
-                          + rows[-1] * shapes[-1][1]) * size
-                flops = sum(2 * r * a * c for r, (a, c) in zip(rows, shapes))
+                nbytes = nb * (m0 * shapes[0][0]
+                               + sum(a * c for a, c in shapes)
+                               + rows[-1] * shapes[-1][1]) * size
+                flops = nb * sum(2 * r * a * c
+                                 for r, (a, c) in zip(rows, shapes))
                 b, by = bound_ms(nbytes, flops, dname)
                 timed = (ms, plain, None, b, by, rec["unfused_ms"])
                 rec.update(ms=ms, plain_ms=plain, library_ms=None,
                            bound_ms=b, bound_by=by)
-            emit("kernel:chain_n", ok=True, **rec)
-            account("chain_n", geo, dname, err, timed)
+            emit("kernel:chain_n" + sfx, ok=True, **rec)
+            account("chain_n" + sfx, geo, dname, err, timed)
 
 
 def flash_case(torch, fa, ref, gen, shape, chunks, totals, *, path=None
@@ -1268,11 +1356,15 @@ def broadcast_scan_check(torch, sk, ref, gen, ld_tok, *, check: str,
 
 def train_model_phase(torch, fc, plan_compiler, train_cli, einsum_ops, *,
                       name: str, arch_id: str, steps: int, lr: float,
-                      tnn_cfg=None) -> dict:
-    """``arch_id`` (``rwkv6_7b``, ``zamba2_7b``, ``qwen2_7b``) at full
-    width and depth through the train entry point (``tnn_cfg`` in place
-    of the arch's ``tnn_default`` when given); returns the run's kernel
-    launches.  Each step must launch the GEMM kernel and, under remat,
+                      tnn_cfg=None, batched_per_step=None,
+                      num_layers=None) -> dict:
+    """``arch_id`` (``rwkv6_7b``, ``zamba2_7b``, ``qwen2_7b``,
+    ``olmoe_1b_7b``) at full width and depth (``num_layers`` cuts the
+    depth) through the train entry point (``tnn_cfg`` in place of the
+    arch's ``tnn_default`` when given); returns the run's kernel
+    launches.  Each step must launch the GEMM kernel (a MoE model: the
+    batched kernels exactly ``batched_per_step`` times a step, by
+    launch key, what its compiled expert plans predict) and, under remat,
     the scan kernel twice per recurrent layer (forward and the
     checkpoint re-run), the attention kernel twice per attention layer,
     and for the hybrid once per shared-block application (not
@@ -1296,7 +1388,8 @@ def train_model_phase(torch, fc, plan_compiler, train_cli, einsum_ops, *,
     out = train_cli.train(arch_id, smoke=False, tnn=True, steps=steps,
                           global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
                           lr=lr, tnn_backend="cuda", device=DEVICE,
-                          log_every=4, on_step=on_step, tnn_cfg=tnn_cfg)
+                          log_every=4, on_step=on_step, tnn_cfg=tnn_cfg,
+                          num_layers=num_layers)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(fc.LAUNCHES)
@@ -1304,7 +1397,10 @@ def train_model_phase(torch, fc, plan_compiler, train_cli, einsum_ops, *,
     peak = torch.cuda.max_memory_allocated()
     per_step = [{k: b[k] - a[k] for k in ("matmul", "matmul_reduce",
                                            "chain_n", "linear_scan",
-                                           "flash_attention_fwd")}
+                                           "flash_attention_fwd",
+                                           "matmul_batched",
+                                           "matmul_batched_reduce",
+                                           "chain_n_batched")}
                 for a, b in zip(seen, seen[1:])]
     losses = out["losses"]
     rcfg = out["cfg"]
@@ -1320,11 +1416,19 @@ def train_model_phase(torch, fc, plan_compiler, train_cli, einsum_ops, *,
     n_params = sum(p.numel() for p in out["state"]["params"].values())
     first_step_s = out["step_s"][0]
     out_gnorms = out["grad_norms"]
+    if batched_per_step is None:
+        def gemm_ok(s):
+            return s["matmul"] > 0
+    else:
+        def gemm_ok(s):
+            return all(s[k] == v for k, v in batched_per_step.items())
+    router = {"lb_losses": out["lb_losses"], "z_losses": out["z_losses"]}
     ok = (all(np.isfinite(losses)) and len(losses) == steps
           and last5 < losses[0] and len(per_step) == steps
-          and all(s["matmul"] > 0 and s["linear_scan"] == scans_per_step
+          and all(gemm_ok(s) and s["linear_scan"] == scans_per_step
                   and s["flash_attention_fwd"] == attn_per_step
                   for s in per_step)
+          and all(np.isfinite(router["lb_losses"] + router["z_losses"]))
           and einsum_ops == 0 and degrades["runtime"] == 0)
     stash = memory.stash_report(rcfg, TRAIN_BATCH, TRAIN_SEQ, 1,
                                 rcfg.tnn.stash_policy())
@@ -1347,6 +1451,9 @@ def train_model_phase(torch, fc, plan_compiler, train_cli, einsum_ops, *,
          tok_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
          first_step_s=first_step_s, wall_s=wall,
          launches=launches, launches_per_step=per_step,
+         batched_per_step_expected=batched_per_step,
+         moe=(dataclasses.asdict(rcfg.moe) if rcfg.moe else None),
+         **(router if rcfg.moe else {}),
          scans_per_step_expected=scans_per_step,
          attention_per_step_expected=attn_per_step, degrades=degrades,
          einsum_ops_in_plans=einsum_ops, max_memory_allocated=peak,
@@ -1431,19 +1538,18 @@ def ssm_parity_phase(torch, fc, arch, steps_lib, *, name: str) -> None:
     must not."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.optim.adamw import AdamW
-    base_sd = None
 
     hybrid = arch.model().hybrid is not None
+    # Drawn on the host once; every run trains a copy on the card.
+    base, cfg = steps_lib.build_model(
+        arch, arch.tnn_one_card or arch.tnn_default, device=DEVICE, seed=0,
+        backend="cuda", compute_dtype=torch.float32,
+        num_layers=STATE_LAYERS,
+        shared_every=STATE_LAYERS if hybrid else None)
+    base_sd = {k: v.clone() for k, v in base.state_dict().items()}
 
     def train(backend, nudge=0.0):
-        nonlocal base_sd
-        model, cfg = steps_lib.build_model(
-            arch, arch.tnn_one_card or arch.tnn_default, device=DEVICE,
-            seed=0, backend=backend, compute_dtype=torch.float32,
-            num_layers=STATE_LAYERS,
-            shared_every=STATE_LAYERS if hybrid else None)
-        if base_sd is None:
-            base_sd = {k: v.clone() for k, v in model.state_dict().items()}
+        model = backend_twin(base, backend)
         model.load_state_dict({k: v * (1 + nudge) if v.is_floating_point()
                                else v for k, v in base_sd.items()})
         data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
@@ -1939,14 +2045,18 @@ def train_phase(torch, fc, plan_compiler, train_cli, einsum_ops, *,
 
 
 def train_parity_phase(torch, arch, steps_lib, *, name="train_parity",
-                       tnn=None, num_layers=None, routes=None) -> None:
+                       tnn=None, num_layers=None, routes=None,
+                       routing=False) -> None:
     """The same initial parameters trained on the cuda and einsum
     backends for PARITY_STEPS steps on the same batches (``arch`` with
     ``tnn`` for its TNN config and ``num_layers`` its depth when given).
     With ``routes`` (``(ServeEngine, Request, fc)``) the f32 cuda model,
     before it trains, also serves the serve phase's requests through the
     engine, whose first wave's greedy tokens must equal
-    :func:`prefill_route`'s."""
+    :func:`prefill_route`'s.  With ``routing`` (a MoE model) the first
+    batch's top-k picks on both backends, before training, must agree on
+    at least ``ROUTING_AGREEMENT`` of the (token, k) picks in each
+    dtype (:func:`routing_agreement`)."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.optim.adamw import AdamW
     # f32: the executors sum in other orders; 1e-4 relative holds that
@@ -1962,6 +2072,14 @@ def train_parity_phase(torch, arch, steps_lib, *, name="train_parity",
                                            compute_dtype=dtype,
                                            num_layers=num_layers)
         models = {"cuda": model, "einsum": backend_twin(model, "einsum")}
+        if routing:
+            first = SyntheticLM(DataConfig(
+                vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                global_batch=TRAIN_BATCH)).batch(0)
+            agree = routing_agreement(torch, models, first)
+            agree["tol"] = ROUTING_AGREEMENT
+            report[f"{dname}_routing"] = agree
+            ok = ok and agree["share"] >= ROUTING_AGREEMENT
         if routes and dtype == torch.float32:
             ServeEngine, Request, fc = routes
             done, _, engine = run_engine(torch, model, cfg.vocab,
@@ -2511,6 +2629,232 @@ def memory_phase(torch, train_cli, memory, arch, per_phase) -> None:
         raise AssertionError("memory phase failed")
 
 
+def expert_plan_ops(cfg, plan_compiler, profiles, tensorized, tokens,
+                    phases=("fp", "bp", "wg")):
+    """The compiled plan ops a MoE model's expert layers run at an
+    expert's token batch ``tokens`` (its slots over every group), as
+    ``(runs a layer, phase, op)``: the ``d_model -> d_ff_expert`` plans
+    run twice a layer (gate and up), the ``d_ff_expert -> d_model`` ones
+    once (down)."""
+    m = cfg.moe
+    runs = {}
+    for d_in, d_out in ((cfg.d_model, m.d_ff_expert),
+                        (cfg.d_model, m.d_ff_expert),
+                        (m.d_ff_expert, cfg.d_model)):
+        runs[(d_in, d_out)] = runs.get((d_in, d_out), 0) + 1
+    out = []
+    for _, d_in, d_out in profiles.tensorized_projections(cfg):
+        layer = tensorized.make_tensorized_linear(
+            d_out, d_in, cfg.tnn, compute_dtype=cfg.compute_dtype,
+            device="meta", num_experts=m.num_experts)
+        for phase, results in tensorized.phase_plans(
+                layer.fact, tokens, layer.opts).items():
+            if phase not in phases:
+                continue
+            for r in results:
+                compiled = plan_compiler.compile_cached(
+                    r.plan, fuse=layer.opts.fused_chain,
+                    max_chain_len=layer.opts.max_chain_len)
+                out.extend((runs[(d_in, d_out)], phase, op)
+                           for op in compiled.ops)
+    return out
+
+
+def expert_geometries(plan_compiler, ops):
+    """GEMM ``(m, n, k, transpose_rhs)`` and chain ``(m0, link_shapes)``
+    geometries (``{geometry: phases}``) of :func:`expert_plan_ops`' ops,
+    and how many lower to ``EinsumOp``."""
+    gemms, chains, einsum_ops = {}, {}, 0
+    for _, phase, op in ops:
+        if isinstance(op, plan_compiler.GemmOp):
+            m = op.mat
+            gemms.setdefault((m.m, m.n, m.k, m.transpose_rhs),
+                             set()).add(phase)
+        elif isinstance(op, plan_compiler.ChainOp):
+            chains.setdefault((op.m0, op.link_shapes), set()).add(phase)
+        else:
+            einsum_ops += 1
+    return gemms, chains, einsum_ops
+
+
+def expert_launches_per_step(fc, plan_compiler, ops, cfg) -> dict:
+    """The batched launches one training step of the expert layers makes,
+    by launch key, as the compiled plans predict: each layer's FP plans
+    twice under remat (forward and the checkpoint re-run), BP and WG
+    once; a GEMM whose ``gemm_config`` splits K also launches its
+    reduce."""
+    n = {"matmul_batched": 0, "matmul_batched_reduce": 0,
+         "chain_n_batched": 0}
+    for runs, phase, op in ops:
+        times = runs * (2 if phase == "fp" and cfg.remat else 1)
+        if isinstance(op, plan_compiler.GemmOp):
+            m = op.mat
+            n["matmul_batched"] += times
+            if fc.gemm_config(m.m, m.n, m.k, cfg.compute_dtype,
+                              m.transpose_rhs).splits > 1:
+                n["matmul_batched_reduce"] += times
+        elif isinstance(op, plan_compiler.ChainOp):
+            n["chain_n_batched"] += times
+    return {k: v * cfg.num_layers for k, v in n.items()}
+
+
+def olmoe_kernel_phase(torch, fc, fa, ref, plan_compiler, profiles,
+                       tensorized, cfg, totals) -> dict:
+    """``olmoe_kernels``: the batched GEMM (bf16, f32; split-K where
+    ``gemm_config`` splits) at every geometry of the expert layers'
+    training FP/BP/WG plans (an expert's batch: 8 groups x capacity 24)
+    and of their serving FP plans (decode and prefill chunk alike: 4
+    groups x capacity 8), all 64 experts in one launch, each expert held
+    to the tolerance at its own scale; the batched chain at the rank-8
+    expert plans, where chains fuse (none does at rank 64); the
+    attention kernel at the training shape (B 8, T 128, H = KV = 16, D
+    128, causal, one kv chunk of 128).  Returns the training plans'
+    ``EinsumOp`` count and the per-step launches they predict."""
+    E = cfg.moe.num_experts
+    cap = profiles.expert_tokens
+    t_tok = cap(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    s_tok = {cap(cfg, BATCH, 1), cap(cfg, BATCH, CHUNK),
+             cap(cfg, BATCH, PROMPT)}
+    t_ops = expert_plan_ops(cfg, plan_compiler, profiles, tensorized, t_tok)
+    t_gemms, t_chains, einsum_ops = expert_geometries(plan_compiler,
+                                                      t_ops)
+    kernel_phase(torch, fc, ref, sorted(t_gemms), sorted(t_chains), totals,
+                 path="train_olmoe", phases={**t_gemms, **t_chains},
+                 batch=E, time_dtypes=("bfloat16",))
+    s_gemms, s_chains = {}, {}
+    for tok in sorted(s_tok):
+        g, c, _ = expert_geometries(plan_compiler, expert_plan_ops(
+            cfg, plan_compiler, profiles, tensorized, tok, ("fp",)))
+        s_gemms.update(g)
+        s_chains.update(c)
+    kernel_phase(torch, fc, ref,
+                 sorted(g for g in s_gemms if g not in t_gemms),
+                 sorted(c for c in s_chains if c not in t_chains), totals,
+                 path="serve_olmoe", batch=E, time_dtypes=("bfloat16",))
+    r_cfg = dataclasses.replace(cfg, tnn=dataclasses.replace(
+        cfg.tnn, rank=OLMOE_CHAIN_RANK))
+    r_ops = expert_plan_ops(r_cfg, plan_compiler, profiles, tensorized,
+                            t_tok)
+    _, r_chains, _ = expert_geometries(plan_compiler, r_ops)
+    kernel_phase(torch, fc, ref, [], sorted(r_chains), totals,
+                 path="train_olmoe_rank8", phases=r_chains, batch=E,
+                 time_dtypes=("bfloat16",))
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    flash_case(torch, fa, ref, gen,
+               (TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads,
+                cfg.hd, True),
+               dict(q_chunk=min(cfg.q_chunk, TRAIN_SEQ),
+                    kv_chunk=min(cfg.kv_chunk, TRAIN_SEQ)), totals,
+               path="train_olmoe")
+    per_step = expert_launches_per_step(fc, plan_compiler, t_ops, cfg)
+    r_per_step = expert_launches_per_step(
+        fc, plan_compiler, r_ops,
+        dataclasses.replace(r_cfg, num_layers=STATE_LAYERS))
+    splits = sorted({fc.gemm_config(m, n, k, torch.bfloat16, t).splits
+                     for m, n, k, t in t_gemms})
+    paths = ("train_olmoe", "serve_olmoe", "train_olmoe_rank8")
+    emit("olmoe_kernels", ok=True, arch=OLMOE_ARCH, experts=E,
+         expert_tokens={"train": t_tok, "serve": sorted(s_tok)},
+         tnn_rank=cfg.tnn.rank, chain_rank=OLMOE_CHAIN_RANK,
+         train_geometries={"gemm": len(t_gemms), "chain": len(t_chains),
+                           "einsum_ops": einsum_ops},
+         serve_geometries={"gemm": len(s_gemms), "chain": len(s_chains)},
+         rank8_chains=[[m0, [list(x) for x in sh]]
+                       for m0, sh in sorted(r_chains)],
+         gemm_splits_seen=splits,
+         launches_per_train_step_predicted=per_step,
+         rank8_launches_per_train_step_predicted=r_per_step,
+         sums={name: {path: {k: (sorted(v) if isinstance(v, set) else v)
+                             for k, v in totals[name][path].items()}
+                      for path in paths if path in totals[name]}
+               for name in ALL_KERNELS})
+    if not t_gemms or not r_chains or max(splits) < 2:
+        raise AssertionError("olmoe_kernels: a batched form went unchecked")
+    return {"einsum_ops": einsum_ops, "per_step": per_step,
+            "rank8_per_step": r_per_step}
+
+
+def routing_agreement(torch, models: dict, batch) -> dict:
+    """How far the same batch through ``models`` (``{"cuda": ...,
+    "einsum": ...}``, same weights) routes alike, each MoE layer's top-k
+    picks recorded by a hook on its input: ``share``, the (token, k)
+    picks the other backend also made (the expert is among the token's
+    k there: the routing a token gets), and ``ordered_share``, those
+    naming the same expert at the same rank k (a swap of two near-equal
+    picks within the top k counts twice here, though both still reach
+    their token)."""
+    picks = {}
+    for name, model in models.items():
+        seen, hooks = [], []
+        for layer in model.layers:
+            moe = layer.mlp
+
+            def hook(mod, args, seen=seen):
+                probs = torch.softmax(mod.router(args[0].float()), -1)
+                seen.append(torch.topk(probs, mod.top_k, dim=-1).indices)
+            hooks.append(moe.register_forward_pre_hook(hook))
+        try:
+            with torch.no_grad():
+                model(torch.as_tensor(batch["inputs"]).to(DEVICE))
+        finally:
+            for h in hooks:
+                h.remove()
+        picks[name] = seen
+    a, b = picks["cuda"], picks["einsum"]
+    made = [(x[..., :, None] == y[..., None, :]).any(-1) for x, y in zip(a, b)]
+    count = sum(x.numel() for x in a)
+    return {
+        "share": sum(float(m.sum()) for m in made) / count,
+        "per_layer": [float(m.float().mean()) for m in made],
+        "ordered_share": sum(float((x == y).sum())
+                             for x, y in zip(a, b)) / count,
+        "ordered_per_layer": [float((x == y).float().mean())
+                              for x, y in zip(a, b)]}
+
+
+def serve_olmoe_phase(torch, fc, plan_compiler, tm, steps_lib, profiles,
+                      arch, ServeEngine, Request):
+    """``olmoe_1b_7b`` at full width and depth (``--tnn``'s default,
+    ``cuda`` backend, bf16) through ``ServeEngine`` (its native
+    ``extend``: each slot one token group) at the serve CLI's defaults:
+    every request completes, the batched GEMM launched, no runtime
+    degrade; tok/s and tick times.  Returns the run's launches and the
+    model (for the training profile)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tnn = dataclasses.replace(arch.tnn_default, backend="cuda")
+    model, cfg = steps_lib.build_model(arch, tnn, device=DEVICE, seed=0)
+    prof = profiles.build_profiles(cfg, batch_size=BATCH,
+                                   prefill_chunk=CHUNK)
+    fc.reset_launches()
+    plan_compiler.reset_degrade_counts()
+    done, secs, engine = run_engine(torch, model, cfg.vocab, ServeEngine,
+                                    Request)
+    launches = dict(fc.LAUNCHES)
+    degrades = dict(plan_compiler.DEGRADE_COUNTS)
+    tick_ms = tick_spans_ms(torch, tm, model, cfg.vocab, ServeEngine,
+                            Request)
+    tokens = sum(len(r.out_tokens) for r in done)
+    ok = (len(done) == REQUESTS
+          and all(len(r.out_tokens) == MAX_NEW for r in done)
+          and launches["matmul_batched"] > 0 and launches["matmul"] == 0
+          and degrades["runtime"] == 0 and bool(tick_ms["decode"]))
+    emit("serve_olmoe", ok=bool(ok), arch=OLMOE_ARCH, d_model=cfg.d_model,
+         layers=cfg.num_layers, experts=cfg.moe.num_experts,
+         top_k=cfg.moe.top_k, requests=len(done), tokens=tokens,
+         seconds=secs, tok_per_s=tokens / secs, ticks=engine.tick,
+         expert_tokens={p: v.expert_tokens for p, v in prof.items()},
+         prefill_tick_ms=tick_ms["prefill"],
+         decode_tick_ms_median=statistics.median(tick_ms["decode"] or [0]),
+         decode_ticks=len(tick_ms["decode"]), launches=launches,
+         degrades=degrades,
+         out_tokens_req0=next(r.out_tokens for r in done if r.rid == 0),
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    if not ok:
+        raise AssertionError("serve_olmoe phase failed")
+    return launches, model
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2546,15 +2890,20 @@ def main() -> int:
     # -- 1. env ---------------------------------------------------------------
     smi = nvidia_smi()
     t0 = time.perf_counter()
-    build_s = build.build_all()
+    # Every nvcc starts now; the scan's library, the slowest to build and
+    # first needed in phase 11, finishes behind phases 2-10.
+    build.start_all()
+    build_s = build.build_all(tuple(n for n in build.SOURCES
+                                    if n != "ssm_scan"))
     emit("env", nvidia_smi=smi, device=torch.cuda.get_device_name(0),
          capability=list(torch.cuda.get_device_capability(0)),
          torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], build_s=build_s,
          build_wall_s=time.perf_counter() - t0)
     filt = os.path.join(os.path.dirname(build.nvcc()), "cu++filt")
+    demangler = filt if os.path.exists(filt) else None
     emit("ptxas", ok=True, kernels={
-        name: ptxas_report(log, filt if os.path.exists(filt) else None)
+        name: ptxas_report(log, demangler)
         for name, log in build.BUILD_LOGS.items()})
 
     # -- 2./3. kernels at every main-path geometry ------------------------------
@@ -2703,6 +3052,12 @@ def main() -> int:
     train_fp8_parity_phase(torch, arch, steps_lib, QuantPolicy)
 
     # -- 11. the scan kernel, then GEMM/chain at rwkv6's plan geometries -------
+    t0 = time.perf_counter()
+    scan_build_s = build.build_all(("ssm_scan",))
+    emit("ptxas", ok=True, build_s=scan_build_s,
+         build_wait_s=time.perf_counter() - t0, kernels={
+             "ssm_scan": ptxas_report(build.BUILD_LOGS.get("ssm_scan", ""),
+                                      demangler)})
     r_arch = cfgbase.get(RWKV_ARCH)
     r_cfg = r_arch.model(r_arch.tnn_default)
     scan_phase(torch, sk, ref, ssm, r_cfg, totals)
@@ -2721,7 +3076,8 @@ def main() -> int:
     # -- 12. rwkv6_7b training at full width and depth --------------------------
     launches["train_rwkv6"] = train_model_phase(
         torch, fc, plan_compiler, train_cli, r_einsum_ops,
-        name="train_rwkv6", arch_id=RWKV_ARCH, steps=RWKV_STEPS, lr=RWKV_LR)
+        name="train_rwkv6", arch_id=RWKV_ARCH, steps=RWKV_STEPS, lr=RWKV_LR,
+        num_layers=RWKV_TRAIN_LAYERS)
 
     # -- 13. the scan's final state through prefill -> decode -------------------
     state_phase(torch, fc, lm_mod, cfgbase, name="rwkv6_state",
@@ -2776,6 +3132,43 @@ def main() -> int:
         torch, fc, plan_compiler, tm, steps_lib, profiles, kv_cache,
         QuantPolicy, q_arch, ServeEngine, Request))
 
+    # -- 24. the batched kernels at olmoe_1b_7b's expert geometries -----------
+    o_arch = cfgbase.get(OLMOE_ARCH)
+    o_cfg = o_arch.model(dataclasses.replace(o_arch.tnn_default,
+                                             backend="cuda"))
+    o_plans = olmoe_kernel_phase(torch, fc, fa, ref, plan_compiler,
+                                 profiles, tensorized, o_cfg, totals)
+
+    # -- 25. olmoe_1b_7b training at full width and depth ---------------------
+    launches["train_olmoe"] = train_model_phase(
+        torch, fc, plan_compiler, train_cli, o_plans["einsum_ops"],
+        name="train_olmoe", arch_id=OLMOE_ARCH, steps=OLMOE_STEPS,
+        lr=OLMOE_LR, batched_per_step=o_plans["per_step"])
+    # ... and at the chain rank, 2 layers: the batched chain on the path
+    launches["train_olmoe_rank8"] = train_model_phase(
+        torch, fc, plan_compiler, train_cli, o_plans["einsum_ops"],
+        name="train_olmoe_rank8", arch_id=OLMOE_ARCH,
+        steps=OLMOE_CHAIN_STEPS, lr=OLMOE_LR,
+        tnn_cfg=dataclasses.replace(o_arch.tnn_default,
+                                    rank=OLMOE_CHAIN_RANK),
+        num_layers=STATE_LAYERS, batched_per_step=o_plans["rank8_per_step"])
+
+    # -- 26. cuda against einsum at 2 layers; routing; the f32 prefill route --
+    train_parity_phase(torch, o_arch, steps_lib, name="olmoe_parity",
+                       tnn=o_arch.tnn_default, num_layers=STATE_LAYERS,
+                       routes=(ServeEngine, Request, fc), routing=True)
+
+    # -- 27. olmoe_1b_7b served at full width and depth; its step profile ----
+    launches["serve_olmoe"], o_model = serve_olmoe_phase(
+        torch, fc, plan_compiler, tm, steps_lib, profiles, o_arch,
+        ServeEngine, Request)
+    o_prof = train_profile.profile("bf16", 1.0, OLMOE_ARCH, model=o_model,
+                                   warmup=OLMOE_PROFILE_STEPS[0],
+                                   steps=OLMOE_PROFILE_STEPS[1])
+    del o_model
+    emit("olmoe_profile", ok=o_prof["device_busy_ms_per_step"]
+         != "not measured", **o_prof)
+
     # -- the kernel line ---------------------------------------------------------
     kernels = []
     for name in ALL_KERNELS:
@@ -2821,6 +3214,8 @@ def main() -> int:
                 launches["train_zamba2"][name] / ZAMBA_STEPS,
             "launches_per_qwen2_train_step":
                 launches["train_qwen2"][name] / QWEN_STEPS,
+            "launches_per_olmoe_train_step":
+                launches["train_olmoe"][name] / OLMOE_STEPS,
             "max_abs_err": t["max_abs_err"],
             "ms": sum(s_["ms"] for s_ in sums),
             "plain_ms": sum(s_["plain_ms"] for s_ in sums),

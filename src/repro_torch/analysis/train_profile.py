@@ -7,6 +7,8 @@
         --arch zamba2_7b --precision bf16
     PYTHONPATH=src python -m repro_torch.analysis.train_profile \
         --arch qwen2_7b --precision bf16
+    PYTHONPATH=src python -m repro_torch.analysis.train_profile \
+        --arch olmoe_1b_7b --precision bf16
 
 Trains ``--arch``'s full-width config (default ``paper_atis_tt``;
 ``tnn_one_card`` where the arch has one, as ``zamba2_7b`` does, else
@@ -31,9 +33,12 @@ fp8/int8 template arguments), PyTorch's own matrix products as
 name, and device time by phase: the kernel time inside the tensorized
 layers' ``tnn.fp`` / ``tnn.bp`` / ``tnn.wg`` ranges, attention's
 ``attn.fwd`` / ``attn.bwd``, the scan's ``ssm.scan`` (forward kernel and
-the plain twin's backward) and AdamW's ``optim.update`` (``tnn.fp``
-holds the forward plans twice under remat), beside each range's span on
-the device timeline.  Needs a CUDA card; if the profiler records no
+the plain twin's backward), a MoE layer's ``moe.route`` (router, top-k,
+slot tables, dispatch gather), ``moe.experts`` (the expert FFNs: their
+``tnn.fp`` ranges inside) and ``moe.combine`` (the scatter-add), and
+AdamW's ``optim.update`` (``tnn.fp`` and the ``moe.*`` forward ranges
+hold the forward twice under remat), beside each range's span on the
+device timeline.  Needs a CUDA card; if the profiler records no
 device time, the device figures are reported as not measured.
 """
 
@@ -74,7 +79,7 @@ GROUPS = (("requant_", "requantize"),
           ("gemm", "torch_gemm"))
 #: profiler ranges the training path opens around its phases
 PHASES = ("tnn.fp", "tnn.bp", "tnn.wg", "attn.fwd", "attn.bwd", "ssm.scan",
-          "optim.update")
+          "moe.route", "moe.experts", "moe.combine", "optim.update")
 
 
 def _group(name: str) -> str:
@@ -85,9 +90,13 @@ def _group(name: str) -> str:
 
 
 def profile(precision: str = "bf16", loss_scale: float = 1.0,
-            arch_id: str = "paper_atis_tt", phase_paths: bool = True) -> dict:
+            arch_id: str = "paper_atis_tt", phase_paths: bool = True,
+            model=None, warmup: int = WARMUP, steps: int = STEPS) -> dict:
     """One precision's profile (the module's docstring); ``phase_paths``
-    False profiles the ablation, autodiff through the FP plans."""
+    False profiles the ablation, autodiff through the FP plans.  A
+    ``model`` already built on the card (``arch_id``'s, with its own TNN
+    config) is trained as it is instead of a new one.  ``warmup`` and
+    ``steps`` replace :data:`WARMUP` and :data:`STEPS`."""
     import dataclasses
 
     from torch.profiler import ProfilerActivity
@@ -101,13 +110,16 @@ def profile(precision: str = "bf16", loss_scale: float = 1.0,
 
     if not torch.cuda.is_available():
         raise SystemExit("train_profile: needs a CUDA card")
-    batch, seq, warmup, steps = BATCH, SEQ, WARMUP, STEPS
+    batch, seq = BATCH, SEQ
     arch = cfgbase.get(arch_id)
     tnn = dataclasses.replace(arch.tnn_one_card or arch.tnn_default,
                               precision=QuantPolicy.parse(precision),
                               phase_paths=phase_paths)
-    model, cfg = steps_lib.build_model(arch, tnn, device="cuda", seed=0,
-                                       backend="cuda")
+    if model is None:
+        model, cfg = steps_lib.build_model(arch, tnn, device="cuda", seed=0,
+                                           backend="cuda")
+    else:
+        cfg = model.cfg
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
                                   global_batch=batch))
     total = warmup + 2 * steps

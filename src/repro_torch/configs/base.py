@@ -4,9 +4,10 @@ Port of ``src/repro/configs/base.py``: each architecture module defines an
 :class:`ArchConfig` with its published model config, a reduced smoke
 config of the same family and its TNN variant; ``--arch <id>`` resolves
 through :func:`get`.  Ported so far: the paper's own ``paper_atis_tt``,
-``rwkv6_7b``, ``zamba2_7b`` and the dense GQA family (``tinyllama_1_1b``,
-``internlm2_1_8b``, ``phi4_mini_3_8b``, ``qwen2_7b``); the other
-architectures are queued in ROADMAP.md.  ``tnn_one_card`` (the port's addition) names the TNN config
+``rwkv6_7b``, ``zamba2_7b``, the dense GQA family (``tinyllama_1_1b``,
+``internlm2_1_8b``, ``phi4_mini_3_8b``, ``qwen2_7b``) and the MoE family
+(``olmoe_1b_7b``, ``qwen3_moe_235b_a22b``); the other architectures are
+queued in ROADMAP.md.  ``tnn_one_card`` (the port's addition) names the TNN config
 that fits the full model's training state on one 80 GB card where
 ``tnn_default`` does not.
 """
@@ -21,13 +22,14 @@ from repro_torch.core.tensorized import TNNConfig
 
 #: architectures this package has ported
 ARCH_IDS = ["paper_atis_tt", "rwkv6_7b", "zamba2_7b", "tinyllama_1_1b",
-            "internlm2_1_8b", "phi4_mini_3_8b", "qwen2_7b"]
+            "internlm2_1_8b", "phi4_mini_3_8b", "qwen2_7b", "olmoe_1b_7b",
+            "qwen3_moe_235b_a22b"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     id: str
-    family: str                     # dense | ssm | hybrid
+    family: str                     # dense | moe | ssm | hybrid
     model_kind: str                 # "lm"
     make_model: Callable[..., Any]  # (tnn: TNNConfig|None) -> LMConfig
     make_smoke: Callable[..., Any]  # reduced same-family config

@@ -12,7 +12,9 @@ leaf (``embed``, ``lm_head``, ``ln_f``, the hybrid's ``shared.*``) is
 one tensor in both.
 :func:`reference_ndim` is the rank a port tensor has as a reference leaf
 (one more under ``layers.``), which the optimizer's weight-decay rule
-reads.  Layouts are unchanged (``Dense.w`` stays ``[d_in, d_out]``, cores
+reads: a MoE layer's router ``layers.<l>.mlp.router.w`` and its
+expert-stacked cores ``layers.<l>.mlp.experts.<gate|up|down>.cores.<i>``
+(``[E, ...]``) are slices of ``[L, ...]`` leaves, decayed as there.  Layouts are unchanged (``Dense.w`` stays ``[d_in, d_out]``, cores
 keep their shapes), so both packages compute the same function from the
 same numbers.  This module imports neither JAX nor the reference: it only
 walks dicts, tuples and arrays.

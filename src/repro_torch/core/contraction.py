@@ -12,6 +12,12 @@ the precision subsystem's semantics (the einsum one as separate
 quantize / dequantize-einsum / requantize ops, the parity oracle of the
 kernels' fused scales).
 
+``batch=E`` runs E networks of the same plan at once: every tensor
+carries a leading expert axis (``[E, *node_shape]``), each einsum step
+gets one more letter and the kernel backend launches the batched
+kernels, one launch for all E (the reference's ``jax.vmap`` over the
+experts' stacked cores).  Quantized execution takes no batch axis.
+
 Not ported yet: the SPMD ``mesh`` path (distributed slice, ROADMAP.md
 queue A).
 """
@@ -40,33 +46,49 @@ def canonical_backend(backend: str) -> str:
                          f"{sorted(BACKENDS)}") from None
 
 
-def _einsum_spec(step: ContractionStep) -> str:
+def _einsum_spec(step: ContractionStep, batched: bool = False) -> str:
+    """The step as an einsum spec; ``batched`` prefixes one more letter
+    to every operand (a leading expert axis)."""
     axes = []
     for a in step.lhs_axes + step.rhs_axes + step.out_axes:
         if a not in axes:
             axes.append(a)
-    if len(axes) > len(_LETTERS):
+    if len(axes) + batched > len(_LETTERS):
         raise ValueError(f"too many axes in one step: {len(axes)}")
-    sym = {a: _LETTERS[i] for i, a in enumerate(axes)}
+    sym = {a: _LETTERS[i + batched] for i, a in enumerate(axes)}
+    b = _LETTERS[0] if batched else ""
     lhs = "".join(sym[a] for a in step.lhs_axes)
     rhs = "".join(sym[a] for a in step.rhs_axes)
     out = "".join(sym[a] for a in step.out_axes)
-    return f"{lhs},{rhs}->{out}"
+    return f"{b}{lhs},{b}{rhs}->{b}{out}"
 
 
 def _einsum_step(step: ContractionStep, lhs: torch.Tensor,
-                 rhs: torch.Tensor) -> torch.Tensor:
+                 rhs: torch.Tensor, batched: bool = False) -> torch.Tensor:
     """One reference step: exact products of the operands accumulated in
     f32 (the reference's ``preferred_element_type=f32``).  Shared by the
     einsum backend and the plan compiler's fallback path."""
-    return torch.einsum(_einsum_spec(step), lhs.float(), rhs.float())
+    return torch.einsum(_einsum_spec(step, batched), lhs.float(),
+                        rhs.float())
+
+
+def output_perm(plan: ContractionPlan, lead: int = 0):
+    """The permute taking the last step's output axes to the network's
+    output order (after ``lead`` batch axes), or None."""
+    last_axes = plan.steps[-1].out_axes
+    if last_axes == plan.network.output:
+        return None
+    return tuple(range(lead)) + tuple(
+        lead + last_axes.index(a) for a in plan.network.output)
 
 
 def execute(plan: ContractionPlan, tensors: Sequence[torch.Tensor],
             out_dtype=None, backend: str = "einsum",
             fused_chain: bool = True, max_chain_len: int = 2,
-            policy=None, input_scales=None) -> torch.Tensor:
-    """Run the plan over concrete tensors (one per network node, in order).
+            policy=None, input_scales=None,
+            batch: int | None = None) -> torch.Tensor:
+    """Run the plan over concrete tensors (one per network node, in order;
+    with ``batch`` each ``[batch, *node_shape]``).
 
     ``fused_chain`` / ``max_chain_len`` steer the cuda backend's chain
     fusion (the einsum backend runs step by step either way).
@@ -93,10 +115,16 @@ def execute(plan: ContractionPlan, tensors: Sequence[torch.Tensor],
     if len(tensors) != net.num_nodes:
         raise ValueError(f"plan has {net.num_nodes} nodes, got "
                          f"{len(tensors)} tensors")
+    lead = () if batch is None else (batch,)
     for i, t in enumerate(tensors):
-        if tuple(t.shape) != net.node_shape(i):
+        if tuple(t.shape) != lead + net.node_shape(i):
             raise ValueError(f"node {net.node_names[i]}: expected "
-                             f"{net.node_shape(i)}, got {tuple(t.shape)}")
+                             f"{lead + net.node_shape(i)}, got "
+                             f"{tuple(t.shape)}")
+    if batch is not None and policy is not None:
+        raise NotImplementedError(
+            "quantized execution with an expert batch axis is not ported "
+            "yet (ROADMAP.md, queue A item 13)")
     if out_dtype is None:
         out_dtype = tensors[0].dtype
 
@@ -106,7 +134,8 @@ def execute(plan: ContractionPlan, tensors: Sequence[torch.Tensor],
             plan, fuse=fused_chain, max_chain_len=max_chain_len,
             policy=policy)
         return plan_compiler.run(compiled, tensors, out_dtype=out_dtype,
-                                 input_scales=input_scales)
+                                 input_scales=input_scales,
+                                 batched=batch is not None)
 
     if policy is not None:
         return _execute_einsum_quantized(plan, tensors, policy, input_scales,
@@ -116,16 +145,17 @@ def execute(plan: ContractionPlan, tensors: Sequence[torch.Tensor],
         return tensors[0].to(out_dtype)
     slots: dict[int, torch.Tensor] = dict(enumerate(tensors))
     for step in plan.steps:
-        res = _einsum_step(step, slots[step.lhs], slots[step.rhs])
+        res = _einsum_step(step, slots[step.lhs], slots[step.rhs],
+                           batched=batch is not None)
         # f32 accumulation within a step, storage dtype between steps.
         slots[step.out] = res.to(out_dtype)
         for op in (step.lhs, step.rhs):
             if op in slots and not _used_later(plan, step, op):
                 del slots[op]
     out = slots[plan.steps[-1].out]
-    last_axes = plan.steps[-1].out_axes
-    if last_axes != net.output:
-        out = out.permute(tuple(last_axes.index(a) for a in net.output))
+    perm = output_perm(plan, len(lead))
+    if perm is not None:
+        out = out.permute(perm)
     return out.to(out_dtype)
 
 

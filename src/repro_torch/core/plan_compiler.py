@@ -53,7 +53,9 @@ from typing import Sequence, Union
 import torch
 
 from repro_torch import telemetry as tm
-from repro_torch.core.contraction import _einsum_spec, _einsum_step
+from repro_torch.core.contraction import (
+    _einsum_spec, _einsum_step, output_perm,
+)
 from repro_torch.core.tnetwork import AxisId, ContractionPlan, ContractionStep
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fused_contraction import (
@@ -431,13 +433,22 @@ def _emit_compile(compiled: CompiledPlan, t0: float) -> CompiledPlan:
 # ---------------------------------------------------------------------------
 
 
+def _lead(perm: tuple[int, ...] | None, lead: int
+          ) -> tuple[int, ...] | None:
+    """``perm`` behind ``lead`` untouched batch axes."""
+    if perm is None:
+        return None
+    return tuple(range(lead)) + tuple(p + lead for p in perm)
+
+
 def _as_2d(x: torch.Tensor, perm: tuple[int, ...] | None,
-           rows: int, cols: int) -> torch.Tensor:
-    """Matricize an operand; a permute is the same device-memory
-    transpose the reference's ``jnp.transpose`` does."""
+           rows: int, cols: int, lead: int = 0) -> torch.Tensor:
+    """Matricize an operand (behind ``lead`` batch axes, which stay); a
+    permute is the same device-memory transpose the reference's
+    ``jnp.transpose`` does."""
     if perm is not None:
-        x = x.permute(perm)
-    return x.reshape(rows, cols).contiguous()
+        x = x.permute(_lead(perm, lead))
+    return x.reshape(tuple(x.shape[:lead]) + (rows, cols)).contiguous()
 
 
 def _op_reads(op: LoweredOp) -> tuple[int, ...]:
@@ -447,11 +458,19 @@ def _op_reads(op: LoweredOp) -> tuple[int, ...]:
 
 
 def run(compiled: CompiledPlan, tensors: Sequence[torch.Tensor],
-        out_dtype=None, input_scales=None) -> torch.Tensor:
+        out_dtype=None, input_scales=None, batched: bool = False
+        ) -> torch.Tensor:
     """Execute a compiled plan; semantics match ``contraction.execute``:
     f32 accumulation within a step, storage dtype between steps (the
     policy's dtype when the plan compiled quantized; ``input_scales``
     then carries optional delayed per-node scales).
+
+    ``batched``: every tensor has a leading expert axis, carried through
+    each layout copy; the GEMM and chain ops then launch the batched
+    kernels (3-D operands, one launch for every expert), a refused chain
+    degrades to one batched GEMM launch per link, and the einsum fallback
+    gets the axis as one more letter.  No autograd or quantized route
+    takes the axis.
 
     When autograd records (grad mode on and an input that requires a
     gradient: ``phase_paths=False`` training), the GEMM and chain ops
@@ -463,16 +482,23 @@ def run(compiled: CompiledPlan, tensors: Sequence[torch.Tensor],
     net = plan.network
     if out_dtype is None:
         out_dtype = tensors[0].dtype
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    if batched and (compiled.policy is not None or grad):
+        raise NotImplementedError(
+            "an expert-batched plan runs unquantized and outside autograd "
+            "(ROADMAP.md, queue A items 13 and 14)")
     if compiled.policy is not None:
         return _run_quantized(compiled, tensors, out_dtype=out_dtype,
                               input_scales=input_scales)
     if not plan.steps:
         return tensors[0].to(out_dtype)
 
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    if grad:
         matmul, chain = ops.matmul, ops.chain_n
     else:
         matmul, chain = matmul_cuda, chain_n_cuda
+    lead = int(batched)
+    bshape = tuple(tensors[0].shape[:lead])
     slots: dict[int, torch.Tensor] = dict(enumerate(tensors))
     sizes = net.sizes
     last_use: dict[int, int] = {}
@@ -484,24 +510,27 @@ def run(compiled: CompiledPlan, tensors: Sequence[torch.Tensor],
         t0 = tm.now_us() if trace else 0.0
         if isinstance(op, EinsumOp):
             res = _einsum_step(op.step, slots[op.step.lhs],
-                               slots[op.step.rhs])
+                               slots[op.step.rhs], batched=batched)
             out_slot = op.step.out
         elif isinstance(op, GemmOp):
             mat = op.mat
-            x = _as_2d(slots[op.step.lhs], mat.lhs_perm, mat.m, mat.k)
+            x = _as_2d(slots[op.step.lhs], mat.lhs_perm, mat.m, mat.k, lead)
             if mat.transpose_rhs:
-                w = _as_2d(slots[op.step.rhs], mat.rhs_perm, mat.n, mat.k)
+                w = _as_2d(slots[op.step.rhs], mat.rhs_perm, mat.n, mat.k,
+                           lead)
             else:
-                w = _as_2d(slots[op.step.rhs], mat.rhs_perm, mat.k, mat.n)
+                w = _as_2d(slots[op.step.rhs], mat.rhs_perm, mat.k, mat.n,
+                           lead)
             res = matmul(x, w, transpose_rhs=mat.transpose_rhs,
                          out_dtype=out_dtype)
-            res = res.reshape(tuple(sizes[a] for a in mat.m_axes + mat.n_axes))
+            res = res.reshape(bshape + tuple(sizes[a] for a in
+                                             mat.m_axes + mat.n_axes))
             if mat.out_perm is not None:
-                res = res.permute(mat.out_perm)
+                res = res.permute(_lead(mat.out_perm, lead))
             out_slot = op.step.out
         else:                            # ChainOp
-            x = _as_2d(slots[op.steps[0].lhs], op.x_perm, op.m0, op.k)
-            ws = [_as_2d(slots[s.rhs], p, ki, ni)
+            x = _as_2d(slots[op.steps[0].lhs], op.x_perm, op.m0, op.k, lead)
+            ws = [_as_2d(slots[s.rhs], p, ki, ni, lead)
                   for (s, p), (ki, ni) in zip(zip(op.steps, op.w_perms),
                                               op.link_shapes)]
             try:
@@ -512,11 +541,12 @@ def run(compiled: CompiledPlan, tensors: Sequence[torch.Tensor],
                 _degrade("runtime", err)
                 res = x
                 for w, (ki, _) in zip(ws, op.link_shapes):
-                    res = matmul(res.reshape(-1, ki), w,
+                    res = matmul(res.reshape(bshape + (-1, ki)), w,
                                  out_dtype=out_dtype)
-            res = res.reshape(tuple(sizes[ax] for ax in op.m_axes + op.n_axes))
+            res = res.reshape(bshape + tuple(sizes[ax] for ax in
+                                             op.m_axes + op.n_axes))
             if op.out_perm is not None:
-                res = res.permute(op.out_perm)
+                res = res.permute(_lead(op.out_perm, lead))
             out_slot = op.steps[-1].out
         slots[out_slot] = res.to(out_dtype)
         if trace:
@@ -528,9 +558,9 @@ def run(compiled: CompiledPlan, tensors: Sequence[torch.Tensor],
                 del slots[slot]
 
     out = slots[plan.steps[-1].out]
-    last_axes = plan.steps[-1].out_axes
-    if last_axes != net.output:
-        out = out.permute(tuple(last_axes.index(a) for a in net.output))
+    perm = output_perm(plan, lead)
+    if perm is not None:
+        out = out.permute(perm)
     return out.to(out_dtype)
 
 

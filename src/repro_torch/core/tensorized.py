@@ -33,6 +33,17 @@ Quantized execution with ``phase_paths=False`` serves but is refused
 under grad (ROADMAP.md, queue A item 12): the reference differentiates
 through its ``round``/``clip`` there.
 
+With ``num_experts=E`` the layer is E experts' matrices under one
+factorization (the reference's ``jax.vmap(layer.init)`` over a MoE's
+experts): each core is one ``[E, ...]`` parameter, the input is ``[E,
+T, N]`` (T tokens an expert: the MoE folds its token groups into this
+axis) and every FP, BP and WG plan, searched at batch T, runs once for
+all E through the batched kernels (``contraction.execute(...,
+batch=E)``).  Each expert's WG gradient is then the sum over all its T
+tokens, as the reference's vmap over groups sums its per-group
+gradients.  Expert layers run unquantized and under ``phase_paths``
+only (ROADMAP.md, queue A items 13 and 14).
+
 Not ported yet: autotuned tiles (item 5); the SPMD mesh path (item 8).
 """
 
@@ -255,19 +266,23 @@ def layer_cost(fact: Factorization, batch: int,
 class _TNNApply(torch.autograd.Function):
     """``y = FP(x, cores)``; the backward runs the BP plan for dX and the
     chosen WG strategy for every core gradient.  ``fact`` / ``opts`` /
-    ``backend`` / ``remat`` are static (the reference's nondiff args).
+    ``backend`` / ``remat`` / ``batched`` are static (the reference's
+    nondiff args); ``batched``: x and every core carry a leading expert
+    axis, and each plan runs once for all experts.
     Each phase runs inside a ``torch.profiler`` range (``tnn.fp``,
     ``tnn.bp``, ``tnn.wg``), which ``repro_torch.analysis.train_profile``
     reads to split a step's device time by phase."""
 
     @staticmethod
-    def forward(ctx, fact, opts, backend, remat, x, *cores):
-        fp, _, _ = _plans(fact, x.shape[0], opts)
+    def forward(ctx, fact, opts, backend, remat, batched, x, *cores):
+        batch = x.shape[0] if batched else None
+        fp, _, _ = _plans(fact, x.shape[int(batched)], opts)
         with record_function("tnn.fp"):
             y = contraction.execute(fp.plan, [x, *cores], backend=backend,
                                     fused_chain=opts.fused_chain,
-                                    max_chain_len=opts.max_chain_len)
-        ctx.static = (fact, opts, backend, remat)
+                                    max_chain_len=opts.max_chain_len,
+                                    batch=batch)
+        ctx.static = (fact, opts, backend, remat, batched)
         if any(ctx.needs_input_grad):
             # What survives to the backward is the stash policy's call:
             # x as is (store; recompute drops it at the model level, where
@@ -279,13 +294,15 @@ class _TNNApply(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        fact, opts, backend, remat = ctx.static
+        fact, opts, backend, remat, batched = ctx.static
         payload, scale, amax, *cores = ctx.saved_tensors
         x = unstash((payload, scale, amax), remat,
                     cores[0].dtype if cores else dy.dtype)
-        _, bp, (wg_kind, dw_res, wg) = _plans(fact, x.shape[0], opts)
+        _, bp, (wg_kind, dw_res, wg) = _plans(fact, x.shape[int(batched)],
+                                              opts)
         kw = dict(backend=backend, fused_chain=opts.fused_chain,
-                  max_chain_len=opts.max_chain_len)
+                  max_chain_len=opts.max_chain_len,
+                  batch=x.shape[0] if batched else None)
         dy = dy.to(x.dtype)
         with record_function("tnn.bp"):
             dx = contraction.execute(bp.plan, [dy, *cores], **kw)
@@ -302,7 +319,7 @@ class _TNNApply(torch.autograd.Function):
                     others = [c for j, c in enumerate(cores) if j != i]
                     dcores.append(contraction.execute(
                         w.plan, [x, dy, *others], **kw))
-        return (None, None, None, None, dx, *dcores)
+        return (None, None, None, None, None, dx, *dcores)
 
 
 # Quantized variant: the same per-phase plans, executed under a
@@ -409,6 +426,10 @@ class TensorizedLinear(nn.Module):
     history ``quant_amax`` (f32 ``[2 + num_cores, amax_history_len]``,
     zeros: the first step scales just in time).  A quantized layer whose
     ``quant_amax`` was removed runs with just-in-time scales.
+
+    ``num_experts=E``: E experts' matrices, each core ``[E, *core
+    shape]``, ``x[E, ..., N] -> y[E, ..., M]`` (see the module's
+    docstring); no bias, unquantized, ``phase_paths`` only.
     """
 
     def __init__(self, fact: Factorization, *, use_bias: bool = False,
@@ -417,8 +438,12 @@ class TensorizedLinear(nn.Module):
                  param_dtype=torch.float32, compute_dtype=torch.bfloat16,
                  backend: str = "einsum", remat: StashPolicy = STORE,
                  precision: QuantPolicy = QuantPolicy(),
+                 num_experts: int | None = None,
                  device=None, generator: torch.Generator | None = None):
         super().__init__()
+        if num_experts is not None:
+            _check_experts(use_bias, phase_paths, remat, precision)
+        self.num_experts = num_experts
         self.fact = fact
         self.use_bias = use_bias
         self.phase_paths = phase_paths
@@ -428,8 +453,10 @@ class TensorizedLinear(nn.Module):
         self.remat = remat
         self.precision = precision
         std = fact.init_std(1.0 / math.sqrt(fact.N))
+        lead = () if num_experts is None else (num_experts,)
         self.cores = nn.ParameterList([
-            nn.Parameter((torch.randn(fact.core_shape(i), generator=generator)
+            nn.Parameter((torch.randn(lead + tuple(fact.core_shape(i)),
+                                      generator=generator)
                           * std).to(device=device, dtype=param_dtype))
             for i in range(fact.num_cores)])
         if use_bias:
@@ -442,6 +469,8 @@ class TensorizedLinear(nn.Module):
                 dtype=torch.float32, device=device)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.num_experts is not None:
+            return self._forward_experts(x)
         *lead, n = x.shape
         if n != self.fact.N:
             raise ValueError(f"input dim {n} != {self.fact.N}")
@@ -462,7 +491,7 @@ class TensorizedLinear(nn.Module):
                                  *cores)
         elif self.phase_paths:
             y = _TNNApply.apply(self.fact, self.opts, self.backend,
-                                self.remat, xt, *cores)
+                                self.remat, False, xt, *cores)
         else:
             # The ablation: the FP plan, differentiated by autograd.
             if quantized and torch.is_grad_enabled() and (
@@ -483,12 +512,48 @@ class TensorizedLinear(nn.Module):
             y = y + self.bias.to(self.compute_dtype)
         return y.to(x.dtype)
 
+    def _forward_experts(self, x: torch.Tensor) -> torch.Tensor:
+        """``x[E, ..., N]``: every expert's tokens through its matrix, the
+        FP/BP/WG plans searched at the tokens an expert holds and run once
+        for all E (the batched kernels on the ``cuda`` backend)."""
+        E, *lead, n = x.shape
+        if E != self.num_experts or n != self.fact.N:
+            raise ValueError(f"expert input {tuple(x.shape)} for "
+                             f"{self.num_experts} experts of N "
+                             f"{self.fact.N}")
+        _check_experts(False, self.phase_paths, self.remat, self.precision)
+        tokens = math.prod(lead) if lead else 1
+        xt = x.reshape((E, tokens) + tuple(self.fact.in_dims))
+        xt = xt.to(self.compute_dtype)
+        cores = [c.to(self.compute_dtype) for c in self.cores]
+        y = _TNNApply.apply(self.fact, self.opts, self.backend, self.remat,
+                            True, xt, *cores)
+        return y.reshape((E, *lead, self.fact.M)).to(x.dtype)
+
+
+def _check_experts(use_bias: bool, phase_paths: bool, remat: StashPolicy,
+                   precision: QuantPolicy) -> None:
+    """Refuse what the expert-stacked layer does not run, with the
+    ROADMAP.md item that ports it."""
+    if precision.quantized or remat.quantized:
+        raise NotImplementedError(
+            "quantized MoE experts (the batched scaled GEMM and chain, B3 "
+            "and B4) are not ported yet (ROADMAP.md, queue A item 13)")
+    if not phase_paths:
+        raise NotImplementedError(
+            "MoE experts under phase_paths=False (autodiff through the "
+            "batched FP plan) are not ported yet (ROADMAP.md, queue A item "
+            "14)")
+    if use_bias:
+        raise ValueError("expert-stacked layers carry no bias")
+
 
 def make_tensorized_linear(out_features: int, in_features: int,
                            tnn: TNNConfig, use_bias: bool = False,
                            param_dtype=torch.float32,
                            compute_dtype=torch.bfloat16, device=None,
-                           generator: torch.Generator | None = None
+                           generator: torch.Generator | None = None,
+                           num_experts: int | None = None
                            ) -> TensorizedLinear:
     out_dims = factorizations.factorize_dim(out_features, tnn.num_factors)
     in_dims = factorizations.factorize_dim(in_features, tnn.num_factors)
@@ -500,5 +565,6 @@ def make_tensorized_linear(out_features: int, in_features: int,
                             param_dtype=param_dtype,
                             compute_dtype=compute_dtype,
                             backend=tnn.backend, remat=tnn.stash_policy(),
-                            precision=tnn.precision, device=device,
+                            precision=tnn.precision,
+                            num_experts=num_experts, device=device,
                             generator=generator)

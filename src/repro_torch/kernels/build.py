@@ -7,7 +7,9 @@ use, into ``build/repro_torch/<name>-<hash>.so`` at the repository root,
 keyed by a hash of the source, the shared headers (``csrc/*.cuh``) and
 the flags, so an edited source or header always rebuilds and an
 unchanged one never does.  :func:`build_all` starts one
-``nvcc`` per source at once.  A failed build raises; nothing falls back.
+``nvcc`` per source at once; :func:`start_all` starts them without
+waiting, and a later :func:`load` or :func:`build_all` waits for the
+library it needs.  A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -33,6 +35,9 @@ BUILD_SECONDS: dict[str, float] = {}
 #: nvcc's output for each library built in this process: with ``-Xptxas
 #: -v``, every kernel's registers, stack and spills
 BUILD_LOGS: dict[str, str] = {}
+#: nvcc runs started and not yet waited for: name -> (process, temporary
+#: output, final path, start time)
+_PENDING: dict[str, tuple] = {}
 
 
 def nvcc() -> str:
@@ -69,17 +74,25 @@ def _start(name: str) -> tuple[subprocess.Popen, Path, Path]:
     return proc, tmp, out
 
 
-def build_all(names=SOURCES) -> dict[str, float]:
-    """Compile every library not built yet, all ``nvcc`` runs at once;
-    returns the seconds each took (0.0 for one already built)."""
-    t0 = time.perf_counter()
-    running = []
+def start_all(names=SOURCES) -> None:
+    """Start ``nvcc`` for every library not built yet and not building,
+    all at once, without waiting for them."""
     for name in names:
-        if library_path(name).exists():
+        if name not in _PENDING and not library_path(name).exists():
+            _PENDING[name] = (*_start(name), time.perf_counter())
+
+
+def build_all(names=SOURCES) -> dict[str, float]:
+    """Compile every library not built yet, all ``nvcc`` runs at once (or
+    wait for those :func:`start_all` started); returns the seconds each
+    took (0.0 for one already built)."""
+    start_all(names)
+    for name in names:
+        pending = _PENDING.pop(name, None)
+        if pending is None:
             BUILD_SECONDS.setdefault(name, 0.0)
-        else:
-            running.append((name, *_start(name)))
-    for name, proc, tmp, out in running:
+            continue
+        proc, tmp, out, t0 = pending
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu "

@@ -75,6 +75,15 @@
 //   Which chains fuse is fused_contraction.chain_band_rows' rule (the f32
 //   kernel's footprint), so both kernels fuse the same chains.
 //
+// * Both take a batch axis (fc_matmul's and the chains' `batch`): the
+//   reference vmaps matmul_pallas and chain_n_pallas over a MoE's experts,
+//   a batched pallas_call.  Here one launch runs every expert: the GEMM's
+//   batch shares blockIdx.z with the K slices (z = b * splits + slice;
+//   the partials grow by the batch and the reduce sums each expert's own
+//   slices), the chains' batch is blockIdx.y; each expert's operands sit
+//   a fixed stride apart.  The same computation as one entry, indexed by
+//   expert, with one entry's configuration.
+//
 // Plain C interface (loaded with ctypes): every launch goes to the caller's
 // stream, allocates nothing, and returns cudaGetLastError().
 
@@ -355,9 +364,12 @@ __device__ __forceinline__ void gemm_write_tile(const float* tile, int tp,
   }
 }
 
-// Tensor-core GEMM, one BM x BN output tile and one K slice per block
-// (blockIdx.z; gridDim.z == 1 writes C, more write f32 partials to
-// part[z] for gemm_splitk_reduce).  bf16: m16n8k16 with f32 accumulators.
+// Tensor-core GEMM, one BM x BN output tile and one K slice of one batch
+// entry per block (blockIdx.z = b * splits + slice; one split writes C,
+// more write f32 partials to part[z] for gemm_splitk_reduce).  Batch entry
+// b reads X at x + b * sx and W at w + b * sw (elements) and writes the
+// b-th [M, N] of C: the expert axis of a vmapped matmul_pallas.
+// bf16: m16n8k16 with f32 accumulators.
 // fp8: each m16n8k32 step as two f16 m16n8k16 steps on the bytes widened
 // exactly to f16 in registers, the tensor-core sums promoted into f32
 // registers once per stage (64 elements of K).  int8: m16n8k32 with s32
@@ -369,7 +381,8 @@ __global__ void __launch_bounds__(kGemmThreads, kGemmMinBlocks)
     gemm_tc_kernel(const T* __restrict__ x, const T* __restrict__ w,
                    const float* __restrict__ sl, const float* __restrict__ sr,
                    TOut* __restrict__ out, float* __restrict__ part, int M,
-                   int N, int K, int k_slice, int cw) {
+                   int N, int K, int k_slice, int cw, int splits,
+                   long long sx, long long sw) {
   using Tiles = GemmTiles<T, kTransRhs, BM, BN>;
   constexpr int kSize = sizeof(T);
   constexpr bool kInt8 = std::is_same<T, int8_t>::value;
@@ -385,9 +398,13 @@ __global__ void __launch_bounds__(kGemmThreads, kGemmMinBlocks)
   const int g = lane >> 2, q = lane & 3;
   const int wm0 = (warp / kWarpsN) * kWTM, wn0 = (warp % kWarpsN) * kWTN;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int k_begin = blockIdx.z * k_slice;
+  const int bz = blockIdx.z / splits;  // batch entry
+  const int k_begin = (blockIdx.z - bz * splits) * k_slice;
   const int k_end = min(K, k_begin + k_slice);
   const int nk = (k_end - k_begin + Tiles::BK - 1) / Tiles::BK;
+  x += bz * sx;
+  w += bz * sw;
+  out += (size_t)bz * M * N;
 
   float acc[MI][NI][4];
 #pragma unroll
@@ -546,7 +563,7 @@ __global__ void __launch_bounds__(kGemmThreads, kGemmMinBlocks)
   };
   gemm_pipeline(nk, load, compute);
 
-  float* p = gridDim.z > 1 ? part + (size_t)blockIdx.z * M * N : nullptr;
+  float* p = splits > 1 ? part + (size_t)blockIdx.z * M * N : nullptr;
   cp_async_wait<0>();
   __syncthreads();  // the ring is drained: reuse it for the output tile
   constexpr int kTP = BN + 4;  // gemm_out_tile_bytes' pitch
@@ -574,14 +591,15 @@ __global__ void __launch_bounds__(kGemmThreads, kGemmMinBlocks)
 }
 
 // f32 GEMM on the FMA units (no TF32: it keeps ~3 decimal digits), the
-// same tiles, ring and split-K as gemm_tc_kernel; each thread owns a
+// same tiles, ring, split-K and batch axis as gemm_tc_kernel; each thread owns a
 // TM x TN register tile with stride-TY rows and stride-TX columns, so a
 // warp writes contiguous runs of C.  K is summed with fmaf in order.
 template <bool kTransRhs, int BM, int BN>
 __global__ void __launch_bounds__(kGemmThreads, kGemmMinBlocks)
     gemm_simt_kernel(const float* __restrict__ x, const float* __restrict__ w,
                      float* __restrict__ out, float* __restrict__ part, int M,
-                     int N, int K, int k_slice, int cw) {
+                     int N, int K, int k_slice, int cw, int splits,
+                     long long sx, long long sw) {
   using Tiles = GemmTiles<float, kTransRhs, BM, BN>;
   constexpr int TX = BN < 16 ? BN : 16, TY = kGemmThreads / TX;
   constexpr int TM = BM / TY, TN = BN / TX;
@@ -590,9 +608,13 @@ __global__ void __launch_bounds__(kGemmThreads, kGemmMinBlocks)
 
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int k_begin = blockIdx.z * k_slice;
+  const int bz = blockIdx.z / splits;  // batch entry
+  const int k_begin = (blockIdx.z - bz * splits) * k_slice;
   const int k_end = min(K, k_begin + k_slice);
   const int nk = (k_end - k_begin + Tiles::BK - 1) / Tiles::BK;
+  x += bz * sx;
+  w += bz * sw;
+  out += (size_t)bz * M * N;
   float acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
@@ -624,7 +646,7 @@ __global__ void __launch_bounds__(kGemmThreads, kGemmMinBlocks)
   };
   gemm_pipeline(nk, load, compute);
 
-  float* p = gridDim.z > 1 ? part + (size_t)blockIdx.z * M * N : out;
+  float* p = splits > 1 ? part + (size_t)blockIdx.z * M * N : out;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int row = m0 + ty + TY * i;
@@ -639,42 +661,48 @@ __global__ void __launch_bounds__(kGemmThreads, kGemmMinBlocks)
 
 // Split-K's second pass: C = epilogue(part[0] + part[1] + ... +
 // part[S-1]), summed in that fixed order (no atomics: the same inputs
-// give the same bits on every run).
+// give the same bits on every run); batch entry b sums its own slices
+// part[b * S .. b * S + S - 1].
 template <typename T, typename TOut>
 __global__ void __launch_bounds__(256)
     gemm_splitk_reduce(const float* __restrict__ part, int splits,
                        const float* __restrict__ sl,
                        const float* __restrict__ sr, TOut* __restrict__ out,
-                       int M, int N) {
-  const size_t total = (size_t)M * N;
+                       int M, int N, int batch) {
+  const size_t mn = (size_t)M * N, total = mn * batch;
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
        i += (size_t)gridDim.x * blockDim.x) {
-    float v = part[i];
-    for (int z = 1; z < splits; ++z) v += part[(size_t)z * total + i];
-    const int row = static_cast<int>(i / N), col = static_cast<int>(i % N);
+    const size_t b = i / mn, j = i - b * mn;
+    const float* pb = part + b * splits * mn + j;
+    float v = pb[0];
+    for (int z = 1; z < splits; ++z) v += pb[(size_t)z * mn];
+    const int row = static_cast<int>(j / N), col = static_cast<int>(j % N);
     out[i] = gemm_epilogue<T, TOut>(v, sl, sr, row, col);
   }
 }
 
 // Whether (tile, splits, cw) is a configuration the kernels take for
-// these operands (the rule fused_contraction.gemm_config follows); sets
-// k_slice, the elements of K each split walks.
+// these operands (the rule fused_contraction.gemm_config follows), with
+// `batch` entries sx and sw elements apart; sets k_slice, the elements of
+// K each split walks.
 template <typename T>
 bool gemm_config_ok(int trans, int tile, int splits, int cw, const void* x,
                     const void* w, const void* part, int M, int N, int K,
-                    int* k_slice) {
+                    int batch, long long sx, long long sw, int* k_slice) {
   constexpr int kSize = sizeof(T);
   if (tile < 0 || tile >= kGemmTiles) return false;
-  if (M <= 0 || N <= 0 || K < 0) return false;
+  if (M <= 0 || N <= 0 || K < 0 || batch < 1 || sx < 0 || sw < 0)
+    return false;
   if (cw != 1 && cw != 2 && cw != 4 && cw != 8 && cw != 16) return false;
   if (reinterpret_cast<uintptr_t>(x) % cw ||
-      reinterpret_cast<uintptr_t>(w) % cw || ((size_t)K * kSize) % cw)
+      reinterpret_cast<uintptr_t>(w) % cw || ((size_t)K * kSize) % cw ||
+      (sx * kSize) % cw || (sw * kSize) % cw)
     return false;
   if (!trans && (((size_t)N * kSize) % cw || cw > kTileBN[tile] * kSize))
     return false;
   const int bk = kStageBytes / kSize;
   const int steps = (K + bk - 1) / bk;
-  if (splits < 1 || splits > 65535) return false;
+  if (splits < 1 || (long long)splits * batch > 65535) return false;
   if (steps == 0) {
     *k_slice = bk;
     return splits == 1;
@@ -690,8 +718,8 @@ template <typename T, typename TOut, bool kTrans, int BM, int BN, int kWM,
           int kWN>
 int launch_gemm_tile(const void* x, const void* w, const float* sl,
                      const float* sr, void* out, float* part, int M, int N,
-                     int K, int splits, int k_slice, int cw,
-                     cudaStream_t stream) {
+                     int K, int splits, int k_slice, int cw, int batch,
+                     long long sx, long long sw, cudaStream_t stream) {
   constexpr int kRing = gemm_smem_bytes(sizeof(T), kTrans, BM, BN);
   static_assert(kRing <= kSmemLimit, "GEMM tile over the shared-memory budget");
   static_assert(gemm_out_tile_bytes(BM, BN) <= kRing, "output tile over the ring");
@@ -701,7 +729,7 @@ int launch_gemm_tile(const void* x, const void* w, const float* sl,
   int smem = kRing / kGemmStages * std::max(1, std::min(stages, kGemmStages));
   if constexpr (!std::is_same<T, float>::value)  // the staged output tile
     smem = std::max(smem, gemm_out_tile_bytes(BM, BN));
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits * batch);
   const T* xp = static_cast<const T*>(x);
   const T* wp = static_cast<const T*>(w);
   TOut* op = static_cast<TOut*>(out);
@@ -715,7 +743,7 @@ int launch_gemm_tile(const void* x, const void* w, const float* sl,
       attr_set = true;
     }
     kern<<<grid, kGemmThreads, smem, stream>>>(xp, wp, op, part, M, N, K,
-                                               k_slice, cw);
+                                               k_slice, cw, splits, sx, sw);
   } else {
     auto kern = gemm_tc_kernel<T, TOut, kTrans, BM, BN, kWM, kWN>;
     if (!attr_set) {
@@ -725,36 +753,41 @@ int launch_gemm_tile(const void* x, const void* w, const float* sl,
       attr_set = true;
     }
     kern<<<grid, kGemmThreads, smem, stream>>>(xp, wp, sl, sr, op, part, M,
-                                               N, K, k_slice, cw);
+                                               N, K, k_slice, cw, splits, sx,
+                                               sw);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const size_t total = (size_t)M * N;
+  const size_t total = (size_t)M * N * batch;
   const int blocks = static_cast<int>(
       std::min<size_t>((total + 255) / 256, (size_t)132 * 8));
   gemm_splitk_reduce<T, TOut>
-      <<<blocks, 256, 0, stream>>>(part, splits, sl, sr, op, M, N);
+      <<<blocks, 256, 0, stream>>>(part, splits, sl, sr, op, M, N, batch);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, typename TOut, bool kTrans>
 int launch_gemm_trans(int tile, const void* x, const void* w, const float* sl,
                       const float* sr, void* out, float* part, int M, int N,
-                      int K, int splits, int k_slice, int cw,
-                      cudaStream_t s) {
+                      int K, int splits, int k_slice, int cw, int batch,
+                      long long sx, long long sw, cudaStream_t s) {
   switch (tile) {
     case 0:
       return launch_gemm_tile<T, TOut, kTrans, 128, 64, 2, 2>(
-          x, w, sl, sr, out, part, M, N, K, splits, k_slice, cw, s);
+          x, w, sl, sr, out, part, M, N, K, splits, k_slice, cw, batch, sx,
+          sw, s);
     case 1:
       return launch_gemm_tile<T, TOut, kTrans, 64, 64, 2, 2>(
-          x, w, sl, sr, out, part, M, N, K, splits, k_slice, cw, s);
+          x, w, sl, sr, out, part, M, N, K, splits, k_slice, cw, batch, sx,
+          sw, s);
     case 2:
       return launch_gemm_tile<T, TOut, kTrans, 128, 16, 4, 1>(
-          x, w, sl, sr, out, part, M, N, K, splits, k_slice, cw, s);
+          x, w, sl, sr, out, part, M, N, K, splits, k_slice, cw, batch, sx,
+          sw, s);
     case 3:
       return launch_gemm_tile<T, TOut, kTrans, 128, 8, 4, 1>(
-          x, w, sl, sr, out, part, M, N, K, splits, k_slice, cw, s);
+          x, w, sl, sr, out, part, M, N, K, splits, k_slice, cw, batch, sx,
+          sw, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -762,17 +795,20 @@ int launch_gemm_trans(int tile, const void* x, const void* w, const float* sl,
 template <typename T, typename TOut>
 int launch_gemm(int trans, int tile, int splits, int cw, const void* x,
                 const void* w, const float* sl, const float* sr, void* out,
-                void* part, int M, int N, int K, cudaStream_t s) {
+                void* part, int M, int N, int K, int batch, long long sx,
+                long long sw, cudaStream_t s) {
   int k_slice = 0;
-  if (!gemm_config_ok<T>(trans, tile, splits, cw, x, w, part, M, N, K,
-                         &k_slice))
+  if (!gemm_config_ok<T>(trans, tile, splits, cw, x, w, part, M, N, K, batch,
+                         sx, sw, &k_slice))
     return static_cast<int>(cudaErrorInvalidValue);
   float* pp = static_cast<float*>(part);
   if (trans)
     return launch_gemm_trans<T, TOut, true>(tile, x, w, sl, sr, out, pp, M, N,
-                                            K, splits, k_slice, cw, s);
+                                            K, splits, k_slice, cw, batch, sx,
+                                            sw, s);
   return launch_gemm_trans<T, TOut, false>(tile, x, w, sl, sr, out, pp, M, N,
-                                           K, splits, k_slice, cw, s);
+                                           K, splits, k_slice, cw, batch, sx,
+                                           sw, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -789,6 +825,9 @@ struct ChainArgs {
   int links;
   int m_final;  // final output rows
   int band;     // final output rows per block
+  // Batch entry blockIdx.y reads X, W_i and writes Y these many elements
+  // past entry 0 (a vmapped chain_n_pallas: one chain per expert).
+  long long x_stride, out_stride, w_stride[kMaxLinks];
 };
 
 // One thread per output element of a link, K walked serially with fmaf;
@@ -797,8 +836,10 @@ struct ChainArgs {
 __global__ void chain_kernel(const float* __restrict__ x,
                              float* __restrict__ out, ChainArgs a) {
   extern __shared__ float smem[];
+  x += blockIdx.y * a.x_stride;
+  out += blockIdx.y * a.out_stride;
   for (int i = 0; i < a.links; ++i) {
-    const float* w = a.w[i];
+    const float* w = a.w[i] + blockIdx.y * a.w_stride[i];
     float* dst = smem + a.w_off[i];
     const int cnt = a.k[i] * a.n[i];
     for (int e = threadIdx.x; e < cnt; e += blockDim.x) dst[e] = w[e];
@@ -839,7 +880,10 @@ __global__ void chain_kernel(const float* __restrict__ x,
 
 int launch_chain(const void* x, const void* const* ws, const int* ks,
                  const int* ns, const int* mults, int links, int m_final,
-                 int band, int threads, void* out, cudaStream_t stream) {
+                 int band, int threads, void* out, int batch,
+                 long long x_stride, const long long* w_strides,
+                 long long out_stride, cudaStream_t stream) {
+  if (batch < 1 || batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -856,6 +900,7 @@ int launch_chain(const void* x, const void* const* ws, const int* ks,
     a.n[i] = ns[i];
     a.mult[i] = mults[i];
     a.w_off[i] = off;
+    a.w_stride[i] = w_strides[i];
     off += ks[i] * ns[i];
     if (i < links - 1 && mults[i] * ns[i] > max_mid) max_mid = mults[i] * ns[i];
   }
@@ -869,9 +914,11 @@ int launch_chain(const void* x, const void* const* ws, const int* ks,
   a.links = links;
   a.m_final = m_final;
   a.band = band;
+  a.x_stride = x_stride;
+  a.out_stride = out_stride;
   const size_t smem = (size_t)off * sizeof(float);
   if (smem > (size_t)kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  const int grid = (m_final + band - 1) / band;
+  const dim3 grid((m_final + band - 1) / band, batch);
   chain_kernel<<<grid, threads, smem, stream>>>(static_cast<const float*>(x),
                                                 static_cast<float*>(out), a);
   return static_cast<int>(cudaGetLastError());
@@ -913,6 +960,9 @@ struct ChainTcArgs {
   int warp_steps;          // k-steps each warp takes of a stage
   int stages;              // stages of K0 a pass walks
   int links, m_final, band, cw;
+  // Batch entry blockIdx.y (one chain per expert): X, W_i and Y this many
+  // bytes past entry 0.
+  long long x_stride, out_stride, w_stride[kMaxLinks];
 };
 
 // The shared-memory layout of one chain block (mirrored by
@@ -1100,6 +1150,7 @@ __global__ void __launch_bounds__(kChainThreads)
   const int row_bytes = k0 * kSize;
   const int rows0 = rows_final * a.mult[0];  // this block's link-0 rows
   const unsigned char* xb = reinterpret_cast<const unsigned char*>(x) +
+                            blockIdx.y * a.x_stride +
                             (size_t)f0 * a.mult[0] * row_bytes;
 
   // Every weight in X's type, and the scaled chain's scales of this block,
@@ -1107,7 +1158,10 @@ __global__ void __launch_bounds__(kChainThreads)
   // the block before its X is in flight.  The A operands are zeroed: their
   // pad columns meet the zero rows of W past K.
   for (int i = 0; i < a.links; ++i)
-    copy_flat(smem + a.w_off[i], a.w[i], a.k[i] * a.n[i] * kSize);
+    copy_flat(smem + a.w_off[i],
+              static_cast<const unsigned char*>(a.w[i]) +
+                  blockIdx.y * a.w_stride[i],
+              a.k[i] * a.n[i] * kSize);
   if constexpr (kScaled) {
     copy_flat(smem + a.s_off[0], a.s[0] + (size_t)f0 * a.mult[0], rows0 * 4);
     for (int i = 1; i < a.links; ++i)
@@ -1311,7 +1365,8 @@ __global__ void __launch_bounds__(kChainThreads)
   const int ybytes =
       rows_final * a.n[a.links - 1] * static_cast<int>(sizeof(TOut));
   unsigned char* yd = reinterpret_cast<unsigned char*>(
-      out + (size_t)f0 * a.n[a.links - 1]);
+                          out + (size_t)f0 * a.n[a.links - 1]) +
+                      blockIdx.y * a.out_stride;
   const unsigned char* yb = smem + a.y_off;
   const uintptr_t ya = reinterpret_cast<uintptr_t>(yd);
   if (ya % 16 == 0 && ybytes % 16 == 0) {
@@ -1328,23 +1383,30 @@ __global__ void __launch_bounds__(kChainThreads)
   }
 }
 
-// Whether the kernel takes cw for this X (alignment of its base and row
-// pitch).
-bool chain_cw_ok(int cw, const void* x, int row_bytes) {
+// Whether the kernel takes cw for this X (alignment of its base, its row
+// pitch and the bytes between batch entries).
+bool chain_cw_ok(int cw, const void* x, int row_bytes, long long x_stride) {
   return (cw == 1 || cw == 2 || cw == 4 || cw == 8 || cw == 16) &&
-         reinterpret_cast<uintptr_t>(x) % cw == 0 && row_bytes % cw == 0;
+         reinterpret_cast<uintptr_t>(x) % cw == 0 && row_bytes % cw == 0 &&
+         x_stride % cw == 0;
 }
 
 template <typename T, typename TOut, bool kScaled>
 int launch_chain_tc(const void* x, const void* const* ws,
                     const float* const* scales, const int* ks, const int* ns,
                     const int* mults, int links, int m_final, int band,
-                    int warp_k, int cw, void* out, cudaStream_t stream) {
+                    int warp_k, int cw, void* out, int batch,
+                    long long x_stride, const long long* w_strides,
+                    long long out_stride, cudaStream_t stream) {
   ChainTcArgs a{};
   const long long smem = chain_tc_layout(sizeof(T), sizeof(TOut), ks, ns,
                                          mults, links, band, warp_k, &a);
-  if (smem < 0 || smem > kSmemLimit || m_final < 1 ||
-      !chain_cw_ok(cw, x, ks[0] * static_cast<int>(sizeof(T))))
+  const long long sz = sizeof(T);
+  // The scaled chain's scales have no batch axis: it runs one chain.
+  if (smem < 0 || smem > kSmemLimit || m_final < 1 || batch < 1 ||
+      batch > 65535 || (kScaled && batch != 1) ||
+      !chain_cw_ok(cw, x, ks[0] * static_cast<int>(sizeof(T)),
+                   x_stride * sz))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kern = chain_tc_kernel<T, TOut, kScaled>;
   static bool attr_set = false;
@@ -1356,6 +1418,7 @@ int launch_chain_tc(const void* x, const void* const* ws,
   }
   for (int i = 0; i < links; ++i) {
     a.w[i] = ws[i];
+    a.w_stride[i] = w_strides[i] * sz;
     a.s[i] = kScaled ? scales[i] : nullptr;
     a.k[i] = ks[i];
     a.n[i] = ns[i];
@@ -1365,7 +1428,9 @@ int launch_chain_tc(const void* x, const void* const* ws,
   a.m_final = m_final;
   a.band = band;
   a.cw = cw;
-  const int grid = (m_final + band - 1) / band;
+  a.x_stride = x_stride * sz;
+  a.out_stride = out_stride * static_cast<long long>(sizeof(TOut));
+  const dim3 grid((m_final + band - 1) / band, batch);
   kern<<<grid, kChainThreads, static_cast<size_t>(smem), stream>>>(
       static_cast<const T*>(x), static_cast<TOut*>(out), a);
   return static_cast<int>(cudaGetLastError());
@@ -1383,17 +1448,21 @@ extern "C" {
 // per output tile; above 1, part is an f32 workspace [splits, M, N]) and
 // cw (bytes per copy: 16, 8, 4 by cp.async, 2 or 1 by plain loads).  A
 // configuration the kernels do not take returns cudaErrorInvalidValue.
+// fc_matmul runs `batch` products at once (one launch): X entries sx
+// elements apart, W entries sw apart, C entries M * N apart (contiguous);
+// part is then [batch, splits, M, N].  batch 1 is the plain GEMM.
 int fc_matmul(int dtype, int trans, const void* x, const void* w, void* out,
-              void* part, int M, int N, int K, int tile, int splits, int cw,
-              void* stream) {
+              void* part, int batch, long long sx, long long sw, int M, int N,
+              int K, int tile, int splits, int cw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_gemm<float, float>(trans, tile, splits, cw, x, w, nullptr,
-                                     nullptr, out, part, M, N, K, s);
+                                     nullptr, out, part, M, N, K, batch, sx,
+                                     sw, s);
   if (dtype == 1)
     return launch_gemm<__nv_bfloat16, __nv_bfloat16>(
         trans, tile, splits, cw, x, w, nullptr, nullptr, out, part, M, N, K,
-        s);
+        batch, sx, sw, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1407,13 +1476,13 @@ int fc_matmul_scaled(int dtype, int trans, const void* x, const void* w,
   const float* r = static_cast<const float*>(sr);
   if (dtype == 2)
     return launch_gemm<__nv_fp8_e4m3, float>(trans, tile, splits, cw, x, w, l,
-                                             r, out, part, M, N, K, s);
+                                             r, out, part, M, N, K, 1, 0, 0, s);
   if (dtype == 3)
     return launch_gemm<__nv_fp8_e5m2, float>(trans, tile, splits, cw, x, w, l,
-                                             r, out, part, M, N, K, s);
+                                             r, out, part, M, N, K, 1, 0, 0, s);
   if (dtype == 4)
     return launch_gemm<int8_t, float>(trans, tile, splits, cw, x, w, l, r,
-                                      out, part, M, N, K, s);
+                                      out, part, M, N, K, 1, 0, 0, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1433,25 +1502,31 @@ int fc_gemm_k_slice(int dtype, int trans, int tile, int splits, int cw,
   bool ok = false;
   if (dtype == 0)
     ok = gemm_config_ok<float>(trans, tile, splits, cw, x, w, part, M, N, K,
-                               &k_slice);
+                               1, 0, 0, &k_slice);
   else if (dtype == 1)
     ok = gemm_config_ok<__nv_bfloat16>(trans, tile, splits, cw, x, w, part, M,
-                                       N, K, &k_slice);
+                                       N, K, 1, 0, 0, &k_slice);
   else if (dtype >= 2 && dtype <= 4)
     ok = gemm_config_ok<int8_t>(trans, tile, splits, cw, x, w, part, M, N, K,
-                                &k_slice);
+                                1, 0, 0, &k_slice);
   return ok ? k_slice : -1;
 }
 
+// The chains run `batch` chains at once (one launch, batch entries along
+// blockIdx.y): X entries x_stride elements apart, W_i entries
+// w_strides[i] apart, Y entries out_stride apart.  batch 1 is one chain.
+//
 // The f32 chain (dtype 0) on the FMA units.
 int fc_chain(int dtype, const void* x, const void* const* ws, const int* ks,
              const int* ns, const int* mults, int links, int m_final, int band,
-             int threads, void* out, void* stream) {
+             int threads, void* out, int batch, long long x_stride,
+             const long long* w_strides, long long out_stride, void* stream) {
   if (dtype != 0 || links < 2 || links > kMaxLinks || band < 1 ||
       threads < 32 || threads > 1024)
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_chain(x, ws, ks, ns, mults, links, m_final, band, threads,
-                      out, static_cast<cudaStream_t>(stream));
+                      out, batch, x_stride, w_strides, out_stride,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // The tensor-core chain: dtype 1 (bf16 X, W and Y) or, with scales (as
@@ -1461,23 +1536,30 @@ int fc_chain(int dtype, const void* x, const void* const* ws, const int* ks,
 int fc_chain_tc(int dtype, const void* x, const void* const* ws,
                 const void* const* scales, const int* ks, const int* ns,
                 const int* mults, int links, int m_final, int band,
-                int warp_k, int cw, void* out, void* stream) {
+                int warp_k, int cw, void* out, int batch, long long x_stride,
+                const long long* w_strides, long long out_stride,
+                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* const* sc = reinterpret_cast<const float* const*>(scales);
+  if (links < 2 || links > kMaxLinks)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1)
     return launch_chain_tc<__nv_bfloat16, __nv_bfloat16, false>(
         x, ws, nullptr, ks, ns, mults, links, m_final, band, warp_k, cw, out,
-        s);
+        batch, x_stride, w_strides, out_stride, s);
   if (sc == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 2)
     return launch_chain_tc<__nv_fp8_e4m3, float, true>(
-        x, ws, sc, ks, ns, mults, links, m_final, band, warp_k, cw, out, s);
+        x, ws, sc, ks, ns, mults, links, m_final, band, warp_k, cw, out,
+        batch, x_stride, w_strides, out_stride, s);
   if (dtype == 3)
     return launch_chain_tc<__nv_fp8_e5m2, float, true>(
-        x, ws, sc, ks, ns, mults, links, m_final, band, warp_k, cw, out, s);
+        x, ws, sc, ks, ns, mults, links, m_final, band, warp_k, cw, out,
+        batch, x_stride, w_strides, out_stride, s);
   if (dtype == 4)
     return launch_chain_tc<int8_t, float, true>(
-        x, ws, sc, ks, ns, mults, links, m_final, band, warp_k, cw, out, s);
+        x, ws, sc, ks, ns, mults, links, m_final, band, warp_k, cw, out,
+        batch, x_stride, w_strides, out_stride, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -98,12 +98,17 @@ CHAIN_RING_BYTES = 64 * 1024
 #: ``matmul_scaled_reduce``.  Likewise a requantize too large for one
 #: block: its cast under ``requantize``, its partial-amax kernel under
 #: ``requantize_amax``.  The GEMMs an autograd backward runs (:mod:`.ops`)
-#: count apart, under ``matmul_bwd`` / ``matmul_bwd_reduce``.
+#: count apart, under ``matmul_bwd`` / ``matmul_bwd_reduce``, and so do
+#: the expert-batched launches (3-D operands, every expert in one
+#: launch): ``matmul_batched`` / ``matmul_batched_reduce`` and
+#: ``chain_n_batched``.
 LAUNCHES = {"matmul": 0, "chain_n": 0, "flash_attention_fwd": 0,
             "matmul_scaled": 0, "chain_n_scaled": 0, "quantize": 0,
             "dequantize": 0, "linear_scan": 0, "matmul_reduce": 0,
             "matmul_scaled_reduce": 0, "requantize": 0,
-            "requantize_amax": 0, "matmul_bwd": 0, "matmul_bwd_reduce": 0}
+            "requantize_amax": 0, "matmul_bwd": 0, "matmul_bwd_reduce": 0,
+            "matmul_batched": 0, "matmul_batched_reduce": 0,
+            "chain_n_batched": 0}
 
 #: operand dtype codes of the CUDA sources (``csrc/*.cu``)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -327,9 +332,10 @@ def chain_config(m0: int, shapes: tuple, dtype: torch.dtype,
 
 def chain_config_for(x: torch.Tensor, weights) -> ChainConfig:
     """:func:`chain_config` for these operands (their shapes, dtype and
-    X's base address): what :func:`chain_n_cuda` launches with."""
-    shapes = tuple(tuple(w.shape) for w in weights)
-    return chain_config(x.shape[0], shapes, x.dtype, _alignment(x))
+    X's base address): what :func:`chain_n_cuda` launches with; for
+    batched (3-D) operands, one expert's."""
+    shapes = tuple(tuple(w.shape[-2:]) for w in weights)
+    return chain_config(x.shape[-2], shapes, x.dtype, _alignment(x))
 
 
 class GemmConfig(NamedTuple):
@@ -418,10 +424,12 @@ def gemm_config(m: int, n: int, k: int, dtype: torch.dtype,
 
 
 def _alignment(*tensors: torch.Tensor) -> int:
-    """The largest power of two up to 16 dividing every base address."""
+    """The largest power of two up to 16 dividing every base address and,
+    for a batched (3-D) operand, the bytes between its batch entries."""
     a = 16
     for t in tensors:
-        while t.data_ptr() % a:
+        while t.data_ptr() % a or (
+                t.dim() == 3 and t.stride(0) * t.element_size() % a):
             a //= 2
     return a
 
@@ -429,9 +437,11 @@ def _alignment(*tensors: torch.Tensor) -> int:
 def gemm_config_for(x: torch.Tensor, w: torch.Tensor,
                     transpose_rhs: bool = False) -> GemmConfig:
     """:func:`gemm_config` for these operands (their shapes, dtype and
-    base addresses): what :func:`matmul_cuda` launches with."""
-    m, k = x.shape
-    n = w.shape[0] if transpose_rhs else w.shape[1]
+    base addresses): what :func:`matmul_cuda` launches with.  Batched
+    (3-D) operands get one expert's configuration: the launch runs it
+    for every expert."""
+    m, k = x.shape[-2:]
+    n = w.shape[-2] if transpose_rhs else w.shape[-1]
     return gemm_config(m, n, k, x.dtype, transpose_rhs,
                        _alignment(x, w))
 
@@ -448,13 +458,14 @@ def _lib() -> ctypes.CDLL:
     from repro_torch.kernels import build
     lib = build.load("fused_contraction")
     if not getattr(lib, "_typed", False):
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.fc_matmul.argtypes = [ci, ci, vp, vp, vp, vp, ci, ci, ci, ci,
-                                  ci, ci, vp]
+        vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.fc_matmul.argtypes = [ci, ci, vp, vp, vp, vp, ci, cll, cll, ci,
+                                  ci, ci, ci, ci, ci, vp]
         lib.fc_matmul.restype = ci
         lib.fc_chain.argtypes = [ci, vp, ctypes.POINTER(vp),
                                  ctypes.POINTER(ci), ctypes.POINTER(ci),
-                                 ctypes.POINTER(ci), ci, ci, ci, ci, vp, vp]
+                                 ctypes.POINTER(ci), ci, ci, ci, ci, vp, ci,
+                                 cll, ctypes.POINTER(cll), cll, vp]
         lib.fc_chain.restype = ci
         lib.fc_matmul_scaled.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, ci,
                                          ci, ci, ci, ci, ci, vp]
@@ -467,7 +478,8 @@ def _lib() -> ctypes.CDLL:
         lib.fc_chain_tc.argtypes = [ci, vp, ctypes.POINTER(vp),
                                     ctypes.POINTER(vp), ctypes.POINTER(ci),
                                     ctypes.POINTER(ci), ctypes.POINTER(ci),
-                                    ci, ci, ci, ci, ci, vp, vp]
+                                    ci, ci, ci, ci, ci, vp, ci, cll,
+                                    ctypes.POINTER(cll), cll, vp]
         lib.fc_chain_tc.restype = ci
         lib.fc_chain_tc_smem_bytes.argtypes = [
             ci, ctypes.POINTER(ci), ctypes.POINTER(ci), ctypes.POINTER(ci),
@@ -551,20 +563,32 @@ def matmul_cuda(x: torch.Tensor, w: torch.Tensor, *,
     """``C[M, N] = X[M, K] @ W`` with W stored ``[K, N]`` or, with
     ``transpose_rhs``, ``[N, K]``; f32 accumulation, output in X's dtype.
 
-    ``scales=(sl, sr)`` runs the scaled kernel: ``x``/``w`` hold fp8/int8
-    values, ``sl`` is the lhs scale per row (``[M, 1]`` f32), ``sr`` the
-    rhs scale per column (``[1, N]`` f32), and the f32 output is
-    ``(Xq @ Wq) * sl * sr``.
+    Batched: ``X[E, M, K]`` and ``W[E, K, N]`` (or ``[E, N, K]``) give
+    ``C[E, M, N]``, every entry in one launch (the expert axis of the
+    reference's vmapped ``matmul_pallas``), each with one entry's
+    :func:`gemm_config`; counted under ``matmul_batched``.
 
-    ``launch_key`` names the :data:`LAUNCHES` entry a plain launch counts
-    under (``matmul``, or ``matmul_bwd`` for an autograd backward's)."""
+    ``scales=(sl, sr)`` runs the scaled kernel (2-D operands only):
+    ``x``/``w`` hold fp8/int8 values, ``sl`` is the lhs scale per row
+    (``[M, 1]`` f32), ``sr`` the rhs scale per column (``[1, N]`` f32),
+    and the f32 output is ``(Xq @ Wq) * sl * sr``.
+
+    ``launch_key`` names the :data:`LAUNCHES` entry a plain 2-D launch
+    counts under (``matmul``, or ``matmul_bwd`` for an autograd
+    backward's)."""
     if launch_key not in ("matmul", "matmul_bwd"):
         raise ValueError(f"matmul_cuda: unknown launch key {launch_key!r}")
-    _require(x.dim() == 2 and w.dim() == 2,
-             f"GEMM operands must be 2-D, got {tuple(x.shape)} and "
-             f"{tuple(w.shape)}")
-    m, k = x.shape
-    n, k2 = w.shape if transpose_rhs else (w.shape[1], w.shape[0])
+    batched = x.dim() == 3
+    _require(x.dim() == w.dim() and x.dim() in (2, 3),
+             f"GEMM operands must be 2-D or both 3-D, got {tuple(x.shape)} "
+             f"and {tuple(w.shape)}")
+    _require(not batched or x.shape[0] == w.shape[0],
+             f"GEMM batch mismatch {x.shape[0]} vs {w.shape[0]}")
+    _require(not (batched and scales is not None),
+             "the scaled GEMM takes 2-D operands")
+    m, k = x.shape[-2:]
+    n, k2 = (w.shape[-2:] if transpose_rhs
+             else (w.shape[-1], w.shape[-2]))
     _require(k == k2, f"contraction mismatch {k} vs {k2}")
     if scales is not None:
         scales = _check_gemm_scales(scales, m, n, k)
@@ -579,22 +603,25 @@ def matmul_cuda(x: torch.Tensor, w: torch.Tensor, *,
     if x.device.type != "cuda":
         raise ValueError(f"matmul_cuda: no kernel for device {x.device}")
     _check_cuda_operands("matmul_cuda", (x, w), out_dtype, scales or ())
-    out = torch.empty((m, n), device=x.device,
+    batch = x.shape[0] if batched else 1
+    out = torch.empty(((batch,) if batched else ()) + (m, n), device=x.device,
                       dtype=x.dtype if scales is None else torch.float32)
-    if m == 0 or n == 0:
+    if m == 0 or n == 0 or batch == 0:
         return out
     cfg = gemm_config_for(x, w, transpose_rhs)
-    # split-K's partials, on the caller's stream (no buffer outlives the
-    # call, so a CUDA graph can capture it)
-    part = (torch.empty((cfg.splits, m, n), device=x.device,
+    # split-K's partials [batch, splits, M, N], on the caller's stream (no
+    # buffer outlives the call, so a CUDA graph can capture it)
+    part = (torch.empty((batch * cfg.splits, m, n), device=x.device,
                         dtype=torch.float32) if cfg.splits > 1 else None)
     geo = (m, n, k, cfg.tile, cfg.splits, cfg.copy_bytes, _stream())
     lib = _lib()
     if scales is None:
+        strides = ((batch, x.stride(0), w.stride(0)) if batched
+                   else (1, 0, 0))
         rc = lib.fc_matmul(_DTYPE_CODES[x.dtype], int(transpose_rhs),
                            x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                           _ptr(part), *geo)
-        key = launch_key
+                           _ptr(part), *strides, *geo)
+        key = "matmul_batched" if batched else launch_key
     else:
         rc = lib.fc_matmul_scaled(_QUANT_CODES[x.dtype], int(transpose_rhs),
                                   x.data_ptr(), w.data_ptr(),
@@ -617,25 +644,37 @@ def chain_n_cuda(x: torch.Tensor, weights, *, out_dtype=None,
     regrouped row-major (:func:`chain_plan`).  The output is
     ``[m0 / prod(g), n_last]`` in X's dtype.
 
-    ``scales`` runs the quantized chain: operands hold fp8/int8 values
-    and ``scales`` is ``(s_first [m0, 1], c_2 [1, 1], ..., s_last [1,
-    n_last])``: the lhs row scales times W1's scale, each interior
-    weight's scale, W_n's scale per output column.  Each link multiplies
-    its f32 sum by its factor; intermediates are rounded to bf16; the
-    output is f32.
+    Batched: ``x[E, m0, k_1]`` and ``W_i[E, k_i, n_i]`` run one chain per
+    entry in one launch (the expert axis of the reference's vmapped
+    ``chain_n_pallas``), with one entry's :func:`chain_config`; the
+    output is ``[E, m_final, n_last]``, counted under
+    ``chain_n_batched``.
+
+    ``scales`` (2-D operands only) runs the quantized chain: operands
+    hold fp8/int8 values and ``scales`` is ``(s_first [m0, 1], c_2 [1,
+    1], ..., s_last [1, n_last])``: the lhs row scales times W1's scale,
+    each interior weight's scale, W_n's scale per output column.  Each
+    link multiplies its f32 sum by its factor; intermediates are rounded
+    to bf16; the output is f32.
     """
     weights = tuple(weights)
     _require(len(weights) >= 2,
              f"chain needs >= 2 weights, got {len(weights)}")
-    _require(x.dim() == 2, f"chain lhs must be 2-D, got {tuple(x.shape)}")
+    _require(x.dim() in (2, 3),
+             f"chain lhs must be 2-D or 3-D, got {tuple(x.shape)}")
+    batched = x.dim() == 3
     for i, w in enumerate(weights):
-        _require(w.dim() == 2,
-                 f"chain weight {i} must be 2-D, got {tuple(w.shape)}")
-    m0 = x.shape[0]
-    shapes = tuple(tuple(w.shape) for w in weights)
-    _require(shapes[0][0] == x.shape[1],
+        _require(w.dim() == x.dim() and (not batched
+                                         or w.shape[0] == x.shape[0]),
+                 f"chain weight {i} of shape {tuple(w.shape)} does not "
+                 f"match the lhs {tuple(x.shape)}")
+    _require(not (batched and scales is not None),
+             "the scaled chain takes 2-D operands")
+    m0 = x.shape[-2]
+    shapes = tuple(tuple(w.shape[-2:]) for w in weights)
+    _require(shapes[0][0] == x.shape[-1],
              f"chain link 0: contraction mismatch {shapes[0][0]} vs "
-             f"{x.shape[1]}")
+             f"{x.shape[-1]}")
     rows, _ = chain_plan(m0, shapes)
     cfg = chain_config_for(x, weights)
     m_final, n_last = rows[-1], shapes[-1][1]
@@ -651,28 +690,36 @@ def chain_n_cuda(x: torch.Tensor, weights, *, out_dtype=None,
         raise ValueError(f"chain_n_cuda: no kernel for device {x.device}")
     _check_cuda_operands("chain_n_cuda", (x, *weights), out_dtype,
                          scales or ())
-    out = torch.empty((m_final, n_last), device=x.device,
+    batch = x.shape[0] if batched else 1
+    out = torch.empty(((batch,) if batched else ()) + (m_final, n_last),
+                      device=x.device,
                       dtype=x.dtype if scales is None else torch.float32)
-    if m_final == 0:
+    if m_final == 0 or batch == 0:
         return out
     links = len(weights)
     geo = ((ctypes.c_void_p * links)(*(w.data_ptr() for w in weights)),
            (ctypes.c_int * links)(*(k for k, _ in shapes)),
            (ctypes.c_int * links)(*(n for _, n in shapes)),
            (ctypes.c_int * links)(*(r // m_final for r in rows)))
+    strides = (batch, x.stride(0) if batched else 0,
+               (ctypes.c_longlong * links)(
+                   *(w.stride(0) if batched else 0 for w in weights)),
+               out.stride(0) if batched else 0)
     lib = _lib()
     if cfg.kernel == "simt":
         rc = lib.fc_chain(_DTYPE_CODES[x.dtype], x.data_ptr(), *geo, links,
                           m_final, cfg.band, cfg.warps * 32, out.data_ptr(),
-                          _stream())
+                          *strides, _stream())
     else:
         code = (_DTYPE_CODES if scales is None else _QUANT_CODES)[x.dtype]
         sptrs = (None if scales is None else (ctypes.c_void_p * links)(
             *(s_.data_ptr() for s_ in scales)))
         rc = lib.fc_chain_tc(code, x.data_ptr(), geo[0], sptrs, *geo[1:],
                              links, m_final, cfg.band, cfg.warp_k,
-                             cfg.copy_bytes, out.data_ptr(), _stream())
-    key = "chain_n" if scales is None else "chain_n_scaled"
+                             cfg.copy_bytes, out.data_ptr(), *strides,
+                             _stream())
+    key = ("chain_n_batched" if batched
+           else "chain_n" if scales is None else "chain_n_scaled")
     _check_rc(lib, rc, "chain_n_cuda")
     LAUNCHES[key] += 1
     return out

@@ -34,9 +34,11 @@ from repro_torch.precision.policy import QuantPolicy
 
 def matmul(x: torch.Tensor, w: torch.Tensor, *, transpose_rhs: bool = False,
            out_dtype=None) -> torch.Tensor:
-    """C = X @ W (or X @ W.T) with f32 accumulation."""
+    """C = X @ W (or X @ W.T) with f32 accumulation; batched, with a
+    leading expert axis on both (``[E, M, K] @ [E, K, N]``), one product
+    per entry (the batched GEMM's plain version)."""
     if transpose_rhs:
-        w = w.t()
+        w = w.transpose(-1, -2)
     out = torch.matmul(x.float(), w.float())
     return out.to(out_dtype or x.dtype)
 
@@ -45,12 +47,15 @@ def chain_n(x: torch.Tensor, weights, *, out_dtype=None) -> torch.Tensor:
     """Y = (((X @ W1) -> regroup -> @ W2) ... @ Wn).
 
     Link ``i`` reads the previous result regrouped row-major to
-    ``[-1, k_i]`` (``k_i = W_i.shape[0]``), accumulates in f32 and, before
-    the next link, rounds to ``x.dtype`` — the reference kernel's
-    intermediate semantics."""
+    ``[-1, k_i]`` (``k_i = W_i.shape[-2]``), accumulates in f32 and,
+    before the next link, rounds to ``x.dtype`` — the reference kernel's
+    intermediate semantics.  With a leading expert axis on X and every
+    W_i (3-D), one chain per entry (the batched chain's plain version)."""
+    lead = x.shape[:-2]
     h = x
     for i, w in enumerate(weights):
-        acc = torch.matmul(h.reshape(-1, w.shape[0]).float(), w.float())
+        acc = torch.matmul(h.reshape(*lead, -1, w.shape[-2]).float(),
+                           w.float())
         h = acc if i == len(weights) - 1 else acc.to(x.dtype)
     return h.to(out_dtype or x.dtype)
 

@@ -16,6 +16,8 @@ Port of ``src/repro/launch/train.py`` (single device)::
       --smoke --tnn --device cpu --steps 3 --batch 2 --seq 16
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_7b \
       --tnn --tnn-backend cuda --steps 12 --batch 8 --seq 128 --lr 3e-4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe_1b_7b \
+      --tnn --tnn-backend cuda --steps 12 --batch 8 --seq 128
 
 The default lr (3e-3) suits the small models; at ``qwen2_7b``'s and
 ``zamba2_7b``'s width the loss climbs at it, and both train at 3e-4.
@@ -23,6 +25,12 @@ The default lr (3e-3) suits the small models; at ``qwen2_7b``'s and
 ``--arch zamba2_7b --tnn`` builds ``tnn_default`` (the MLP only), whose
 training state does not fit one 80 GB card; the full model trains there
 through ``train(..., tnn_cfg=arch.tnn_one_card)`` (``chip_smoke.py``).
+
+A MoE model (``olmoe_1b_7b``, ``qwen3_moe_235b_a22b``) logs its router's
+load-balance and z losses (``lb``, ``z``) beside the loss; its experts
+train unquantized only, so ``--tnn-precision`` other than bf16 (and a
+quantized ``--tnn-remat``) raises ``NotImplementedError`` there (ROADMAP.md,
+queue A item 13).
 
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs the kernels'
 plain versions.  The loop, its ``train.step`` / ``train.data`` /
@@ -97,14 +105,15 @@ def train(arch_id: str, *, smoke: bool, tnn: bool, steps: int,
           tnn_precision: str | None = None, tnn_memory_budget=None,
           loss_scale: float = 1.0, trace_path: str | None = None,
           device: str = "cuda", on_step=None,
-          tnn_cfg: TNNConfig | None = None) -> dict:
+          tnn_cfg: TNNConfig | None = None,
+          num_layers: int | None = None) -> dict:
     """Train ``arch_id`` for ``steps`` steps on synthetic data; returns
     the per-step losses, grad norms and step seconds of the steps run,
     the activation-memory probe and the final state.
     ``on_step(step, metrics)``, when given, runs after each step.
     ``tnn_cfg``, when given, takes the place of the arch's
     ``tnn_default`` (the backend, precision, remat and budget overrides
-    still apply on top).  With ``ckpt_dir`` the state is saved every
+    still apply on top); ``num_layers`` cuts the depth.  With ``ckpt_dir`` the state is saved every
     ``ckpt_every`` steps and at the end, and with ``resume`` the run
     starts from the latest committed step there."""
     owns_trace = bool(trace_path) and not tm.enabled()
@@ -131,7 +140,8 @@ def train(arch_id: str, *, smoke: bool, tnn: bool, steps: int,
         # the step's activation stash by microbatching.
         tnn_cfg = dataclasses.replace(tnn_cfg, memory_budget=budget)
     model, cfg = steps_lib.build_model(arch, tnn=tnn_cfg, smoke=smoke,
-                                       device=device, seed=0)
+                                       device=device, seed=0,
+                                       num_layers=num_layers)
 
     mem_probe = modeled = None
     if tnn_cfg is not None:
@@ -172,7 +182,7 @@ def train(arch_id: str, *, smoke: bool, tnn: bool, steps: int,
         _log.info(f"resumed from step {start}")
 
     watchdog = ft.StepWatchdog()
-    history, gnorms, step_s = [], [], []
+    history, gnorms, step_s, router = [], [], [], []
     saved = False
     t_start = time.time()
     try:
@@ -203,6 +213,9 @@ def train(arch_id: str, *, smoke: bool, tnn: bool, steps: int,
             history.append(loss)
             gnorms.append(float(metrics["grad_norm"]))
             step_s.append(dur)
+            if "lb_loss" in metrics:
+                router.append((float(metrics["lb_loss"]),
+                               float(metrics["z_loss"])))
             if manager:
                 with tm.span("train.checkpoint", step=step):
                     saved = manager.maybe_save(step + 1, state)
@@ -210,7 +223,9 @@ def train(arch_id: str, *, smoke: bool, tnn: bool, steps: int,
                 on_step(step, metrics)
             if step % log_every == 0 or step == steps - 1:
                 tok_s = global_batch * seq_len / max(dur, 1e-9)
-                _log.info(f"step {step:5d} loss {loss:8.4f} "
+                aux = (f"lb {router[-1][0]:.4f} z {router[-1][1]:.3f} "
+                       if "lb_loss" in metrics else "")
+                _log.info(f"step {step:5d} loss {loss:8.4f} {aux}"
                           f"gnorm {gnorms[-1]:7.3f} "
                           f"lr {float(metrics['lr']):.2e} {dur*1e3:7.1f}ms "
                           f"({tok_s:,.0f} tok/s)")
@@ -223,6 +238,8 @@ def train(arch_id: str, *, smoke: bool, tnn: bool, steps: int,
     if owns_trace:
         tm.finalize()
     return {"losses": history, "grad_norms": gnorms, "step_s": step_s,
+            "lb_losses": [lb for lb, _ in router],
+            "z_losses": [z for _, z in router],
             "final_loss": history[-1] if history else None, "wall_s": wall,
             "stragglers": len(watchdog.straggler_events),
             "start_step": start,

@@ -9,7 +9,10 @@ training forward and its serving paths (``prefill``, which
 ``LM.prefill`` runs for the attention layers and the hybrid's shared
 block, ``extend`` — chunked prefill at per-slot depths — and
 ``decode_step``), :func:`blockwise_attention` with the flash
-backward, and :class:`SwiGLU`.
+backward, :class:`SwiGLU`, and the top-k routed :class:`MoE` (router,
+capacity-dropped dispatch per token group, the experts' SwiGLU as
+stacked dense matrices or as expert-stacked TT cores, the combine as a
+scatter-add).
 
 Parameter names and layouts are the reference's (``Dense.w`` is
 ``[d_in, d_out]``, TT cores keep their shapes), so
@@ -24,8 +27,6 @@ is the reference's plain-array code (f32 scores, softmax, f32 context).
 GQA takes any ``H`` that is a multiple of ``KV`` (``qwen2_7b``'s 28 / 4);
 a QKV bias (``qkv_bias``) is the q/k/v projections' own bias, as in the
 reference.
-
-Not ported yet: :class:`MoE` (ROADMAP.md, queue A item 7).
 """
 
 from __future__ import annotations
@@ -391,3 +392,179 @@ class SwiGLU(nn.Module):
         u = self.up(x)
         h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
         return self.down(h)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (top-k, capacity-dropped, gather/scatter dispatch)
+# ---------------------------------------------------------------------------
+
+
+class StackedDense(nn.Module):
+    """E experts' dense matrices ``w[E, d_in, d_out]``."""
+
+    def __init__(self, num_experts: int, d_in: int, d_out: int, std: float,
+                 *, param_dtype=torch.float32, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.w = nn.Parameter(
+            (torch.randn(num_experts, d_in, d_out, generator=generator)
+             * std).to(device=device, dtype=param_dtype))
+
+
+def moe_capacity(tokens_per_group: int, top_k: int, num_experts: int,
+                 capacity_factor: float) -> int:
+    """Slots an expert has in one token group: ``ceil(Ts * K * cf / E)``,
+    at least 8 and rounded up to a multiple of 8 (the reference's
+    ``MoE._capacity``)."""
+    c = math.ceil(tokens_per_group * top_k * capacity_factor / num_experts)
+    return max(8, -(-c // 8) * 8)
+
+
+def moe_route(eidx: torch.Tensor, gates: torch.Tensor, num_experts: int,
+              capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Slot tables of each group: ``slot_tok[G, E, C]`` (the token in the
+    slot) and ``slot_gate[G, E, C]`` (its f32 gate) from the top-k picks
+    ``eidx`` / ``gates`` ``[G, Ts, K]``.
+
+    A pick's slot is its rank among the picks of its expert in the
+    group's flat ``[Ts * K]`` order (token-major, then k in descending
+    probability): the reference's cumsum over the one-hot picks.  Picks
+    ranked ``>= C`` are dropped; an empty slot holds token 0 with gate 0.
+    """
+    G, Ts, K = eidx.shape
+    flat_e = eidx.reshape(G, Ts * K)
+    flat_g = gates.reshape(G, Ts * K).float()
+    onehot = torch.nn.functional.one_hot(flat_e, num_experts)
+    pos = (torch.cumsum(onehot, dim=1) - 1).gather(2, flat_e[..., None])[
+        ..., 0]                                           # [G, Ts*K]
+    keep = pos < capacity
+    grp = torch.arange(G, device=eidx.device)[:, None].expand(G, Ts * K)
+    tok = (torch.arange(Ts * K, device=eidx.device) // K).expand(G, Ts * K)
+    slot_tok = torch.zeros((G, num_experts, capacity), dtype=torch.long,
+                           device=eidx.device)
+    slot_gate = torch.zeros((G, num_experts, capacity), dtype=torch.float32,
+                            device=eidx.device)
+    where = (grp[keep], flat_e[keep], pos[keep])
+    slot_tok[where] = tok[keep]
+    slot_gate[where] = flat_g[keep]
+    return slot_tok, slot_gate
+
+
+def moe_combine(ye: torch.Tensor, slot_tok: torch.Tensor,
+                slot_gate: torch.Tensor, tokens_per_group: int
+                ) -> torch.Tensor:
+    """``y[G, Ts, D]``: every slot's expert output ``ye[G, E, C, D]``
+    times its gate, summed into its token (a scatter-add in ye's dtype,
+    in slot order: expert-major, then slot)."""
+    G, E, C, D = ye.shape
+    weighted = ye * slot_gate[..., None].to(ye.dtype)
+    base = torch.arange(G, device=ye.device)[:, None, None] * tokens_per_group
+    idx = (slot_tok + base).reshape(-1)
+    y = torch.zeros((G * tokens_per_group, D), dtype=ye.dtype,
+                    device=ye.device)
+    return y.index_add(0, idx, weighted.reshape(-1, D)).reshape(
+        G, tokens_per_group, D)
+
+
+class MoE(nn.Module):
+    """Top-k routed expert SwiGLU FFN (the reference's ``MoE``).
+
+    ``forward(x [G, Ts, D]) -> (y, aux)`` per token group (the LM's groups
+    are batch rows): the f32 router and softmax, top-k with the gates
+    renormalised to sum to one, the Switch load-balance loss
+    (``lb_loss``) and the router z-loss (``z_loss``) in ``aux``, the
+    capacity-dropped dispatch of :func:`moe_route` (a gather), the
+    experts, and the combine of :func:`moe_combine`.  Each part runs in
+    a ``torch.profiler`` range: ``moe.route``, ``moe.experts``,
+    ``moe.combine``.
+
+    Experts: with a TNN config targeting ``"mlp"``, ``gate``/``up``/
+    ``down`` are expert-stacked :class:`TensorizedLinear` layers (cores
+    ``[E, ...]``, one factorization), fed ``[E, G * C, D]``: the groups
+    fold into the tokens an expert holds, so each plan op launches one
+    batched kernel for all experts.  Otherwise they are stacked dense
+    matrices ``w[E, d_in, d_out]``, products of compute-dtype operands
+    summed in f32 (the reference's ``einsum_f32``).
+    """
+
+    def __init__(self, d_model: int, d_ff: int, num_experts: int,
+                 top_k: int, capacity_factor: float = 1.25, *,
+                 tnn: TNNConfig | None = None, param_dtype=torch.float32,
+                 compute_dtype=torch.bfloat16, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        E, D, F = num_experts, d_model, d_ff
+        self.num_experts, self.top_k = E, top_k
+        self.capacity_factor = capacity_factor
+        self.compute_dtype = compute_dtype
+        self.router = Dense(D, E, param_dtype=torch.float32,
+                            compute_dtype=torch.float32, device=device,
+                            generator=generator)
+        self.tnn_on = tnn is not None and tnn.enabled and "mlp" in tnn.targets
+        if self.tnn_on:
+            def proj(d_in, d_out):
+                return make_tensorized_linear(
+                    d_out, d_in, tnn, param_dtype=param_dtype,
+                    compute_dtype=compute_dtype, device=device,
+                    generator=generator, num_experts=E)
+        else:
+            def proj(d_in, d_out):
+                return StackedDense(E, d_in, d_out, 1.0 / math.sqrt(d_in),
+                                    param_dtype=param_dtype, device=device,
+                                    generator=generator)
+        self.experts = nn.ModuleDict({"gate": proj(D, F), "up": proj(D, F),
+                                      "down": proj(F, D)})
+
+    def capacity(self, tokens_per_group: int) -> int:
+        return moe_capacity(tokens_per_group, self.top_k, self.num_experts,
+                            self.capacity_factor)
+
+    def route(self, x: torch.Tensor):
+        """Router, top-k and aux losses of ``x [G, Ts, D]``: returns
+        ``(slot_tok, slot_gate, aux)``."""
+        E, K = self.num_experts, self.top_k
+        logits = self.router(x.float())                      # [G, Ts, E]
+        probs = torch.softmax(logits, dim=-1)
+        gates, eidx = torch.topk(probs, K, dim=-1, sorted=True)
+        gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+        me = probs.mean(dim=(0, 1))
+        ce = (torch.nn.functional.one_hot(eidx, E).sum(2) > 0).float().mean(
+            dim=(0, 1))
+        aux = {"lb_loss": E * torch.sum(me * ce),
+               "z_loss": torch.mean(torch.logsumexp(logits, dim=-1) ** 2)}
+        slot_tok, slot_gate = moe_route(eidx, gates, E,
+                                        self.capacity(x.shape[1]))
+        return slot_tok, slot_gate, aux
+
+    def expert_ffn(self, xe: torch.Tensor) -> torch.Tensor:
+        """The experts' SwiGLU on the dispatched ``xe [G, E, C, D]``."""
+        cd = self.compute_dtype
+        ex = self.experts
+        if self.tnn_on:
+            G, E, C, D = xe.shape
+            xf = xe.to(cd).transpose(0, 1).reshape(E, G * C, D)
+            g = ex["gate"](xf)
+            u = ex["up"](xf)
+            h = torch.nn.functional.silu(g.float()).to(cd) * u.to(cd)
+            ye = ex["down"](h)
+            return ye.reshape(E, G, C, -1).transpose(0, 1)
+
+        def mm(spec, a, w):
+            return torch.einsum(spec, a.to(cd).float(), w.to(cd).float())
+
+        g = mm("gecd,edf->gecf", xe, ex["gate"].w)
+        u = mm("gecd,edf->gecf", xe, ex["up"].w)
+        h = (torch.nn.functional.silu(g) * u).to(cd)
+        return mm("gecf,efd->gecd", h, ex["down"].w)
+
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
+        G, Ts, D = x.shape
+        with record_function("moe.route"):
+            slot_tok, slot_gate, aux = self.route(x)
+            grp = torch.arange(G, device=x.device)[:, None, None]
+            xe = x[grp, slot_tok]                            # [G, E, C, D]
+        with record_function("moe.experts"):
+            ye = self.expert_ffn(xe).to(x.dtype)
+        with record_function("moe.combine"):
+            y = moe_combine(ye, slot_tok, slot_gate, Ts)
+        return y, aux

@@ -1,7 +1,7 @@
-"""Decoder-only language model: the dense-attention, RWKV-6, Mamba-2 and
-hybrid (Mamba-2 with a shared attention block) families.
+"""Decoder-only language model: the dense-attention, MoE, RWKV-6, Mamba-2
+and hybrid (Mamba-2 with a shared attention block) families.
 
-Port of ``src/repro/models/lm.py``: :class:`HybridSpec`,
+Port of ``src/repro/models/lm.py``: :class:`MoESpec`, :class:`HybridSpec`,
 :class:`LMConfig`, and :class:`LM` with the training forward (``forward``
 — the reference's ``__call__`` — over :meth:`LM.apply_layers`, and the
 masked next-token loss ``token_loss`` / ``loss``) and the serving entry
@@ -30,13 +30,20 @@ hybrid's shared block is not checkpointed.  The reference's
 an eager loop over per-layer modules has nothing to choose, so they are
 left out.
 
+With a :class:`MoESpec` each attention layer's MLP is a
+:class:`~repro_torch.models.blocks.MoE` whose token groups are the batch
+rows (in training, ``prefill``, ``extend`` and ``decode_step`` alike);
+its per-layer ``lb_loss`` / ``z_loss``, meaned over the layers, reach
+:meth:`LM.loss` through ``forward(..., aux=...)``, which adds
+``0.01 * lb + 1e-3 * z`` and reports both.
+
 Parameter names follow the reference's tree with the stacked ``[L, ...]``
 layer leaves split per layer (``layers.<l>.attn.q.cores.<i>``,
-``layers.<l>.rwkv.mix.r``, ``layers.<l>.mamba.in.cores.<i>``) and the
-shared block unstacked (``shared.attn.o.cores.<i>``), so
+``layers.<l>.rwkv.mix.r``, ``layers.<l>.mamba.in.cores.<i>``,
+``layers.<l>.mlp.router.w``, ``layers.<l>.mlp.experts.gate.cores.<i>``
+of shape ``[E, ...]``) and the shared block unstacked
+(``shared.attn.o.cores.<i>``), so
 :func:`repro_torch.convert.params_from_numpy` loads reference parameters.
-
-Not ported yet: MoE and its auxiliary loss (ROADMAP.md, queue A item 7).
 """
 
 from __future__ import annotations
@@ -52,8 +59,16 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.tensorized import TNNConfig
 from repro_torch.models import ssm
 from repro_torch.models.blocks import (
-    Attention, Dense, KVCache, RMSNorm, SwiGLU,
+    Attention, Dense, KVCache, MoE, RMSNorm, SwiGLU,
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class MoESpec:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +90,7 @@ class LMConfig:
     vocab: int
     head_dim: int | None = None            # default d_model // num_heads
     block: str = "attn"                    # attn | rwkv6 | mamba2
+    moe: MoESpec | None = None
     hybrid: HybridSpec | None = None
     ssm_state: int = 64
     qkv_bias: bool = False
@@ -95,6 +111,8 @@ class LMConfig:
     def validate(self):
         if self.block not in ("attn", "rwkv6", "mamba2"):
             raise ValueError(f"unknown block {self.block!r}")
+        if self.moe and self.block != "attn":
+            raise ValueError("MoE layers have an attention block")
         if self.hybrid:
             if self.block != "mamba2":
                 raise ValueError("a hybrid stack has a mamba2 backbone")
@@ -144,7 +162,12 @@ class DecoderLayer(nn.Module):
                               q_chunk=c.q_chunk, kv_chunk=c.kv_chunk,
                               tnn=tnn, **common)
         self.ln2 = RMSNorm(c.d_model, device=device)
-        self.mlp = SwiGLU(c.d_model, c.d_ff, tnn=tnn, **common)
+        if c.moe:
+            m = c.moe
+            self.mlp = MoE(c.d_model, m.d_ff_expert, m.num_experts, m.top_k,
+                           m.capacity_factor, tnn=tnn, **common)
+        else:
+            self.mlp = SwiGLU(c.d_model, c.d_ff, tnn=tnn, **common)
 
 
 class RWKVLayer(nn.Module):
@@ -237,10 +260,21 @@ class LM(nn.Module):
     # -- full-sequence forward (training) --------------------------------------
 
     def _attn_layer(self, layer: DecoderLayer, x: torch.Tensor,
-                    positions: torch.Tensor) -> torch.Tensor:
+                    positions: torch.Tensor):
+        """One attention layer; a MoE layer also returns its ``lb_loss``
+        and ``z_loss`` (``(x, lb, z)``)."""
         c = self.cfg
         x = x + layer.attn(layer.ln1(x, c.norm_eps), positions)
+        if c.moe:
+            ym, aux = layer.mlp(layer.ln2(x, c.norm_eps))
+            return x + ym, aux["lb_loss"], aux["z_loss"]
         return x + layer.mlp(layer.ln2(x, c.norm_eps))
+
+    def _ffn(self, mlp, y: torch.Tensor) -> torch.Tensor:
+        """The MLP's output alone: a MoE layer's aux losses are dropped
+        outside training."""
+        out = mlp(y)
+        return out[0] if self.cfg.moe else out
 
     def _rwkv_layer(self, layer: RWKVLayer, x: torch.Tensor,
                     want_state: bool = False):
@@ -278,11 +312,13 @@ class LM(nn.Module):
         h = self.cfg.hybrid
         return h is not None and (li + 1) % h.shared_every == 0
 
-    def apply_layers(self, x: torch.Tensor, positions: torch.Tensor
-                     ) -> torch.Tensor:
+    def apply_layers(self, x: torch.Tensor, positions: torch.Tensor,
+                     aux: dict | None = None) -> torch.Tensor:
         """Run the layer stack (the hybrid's shared block after every
         ``shared_every`` layers); with ``cfg.remat`` and grad enabled,
-        each layer's activations are recomputed in the backward."""
+        each layer's activations are recomputed in the backward.  A MoE
+        stack appends each layer's ``lb_loss`` and ``z_loss`` to the
+        lists ``aux`` holds under those keys, when given."""
         block = self.cfg.block
         if block == "rwkv6":
             fn, extra = self._rwkv_layer, ()
@@ -295,15 +331,27 @@ class LM(nn.Module):
                 x = checkpoint(fn, layer, x, *extra, use_reentrant=False)
             else:
                 x = fn(layer, x, *extra)
+            if self.cfg.moe:
+                x, lb, z = x
+                if aux is not None:
+                    aux.setdefault("lb_loss", []).append(lb)
+                    aux.setdefault("z_loss", []).append(z)
             if self._shared_after(li):
                 x = self._shared_block(x, positions)
         return x
 
-    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
-        """inputs: ``[B, T]`` token ids -> logits ``[B, T, V]``."""
+    def forward(self, inputs: torch.Tensor, aux: dict | None = None
+                ) -> torch.Tensor:
+        """inputs: ``[B, T]`` token ids -> logits ``[B, T, V]``; a MoE
+        model fills ``aux`` (when given) with ``lb_loss`` and ``z_loss``,
+        each the mean over the layers."""
         B, T = inputs.shape[:2]
         positions = torch.arange(T, device=self.device)[None].expand(B, T)
-        x = self.apply_layers(self._embed(inputs), positions)
+        per_layer: dict = {}
+        x = self.apply_layers(self._embed(inputs), positions, per_layer)
+        if aux is not None:
+            aux.update({k: torch.stack(v).mean()
+                        for k, v in per_layer.items()})
         return self._logits(self.ln_f(x, self.cfg.norm_eps))
 
     # -- loss -------------------------------------------------------------------
@@ -325,9 +373,17 @@ class LM(nn.Module):
         return loss, {"nll": loss, "tokens": mask.sum()}
 
     def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
-        """batch: ``{"inputs": [B, T], "targets": [B, T], "mask"?}``."""
+        """batch: ``{"inputs": [B, T], "targets": [B, T], "mask"?}``.  A
+        MoE model adds ``0.01 * lb_loss + 1e-3 * z_loss`` and reports
+        both."""
         inputs = torch.as_tensor(batch["inputs"]).to(self.device)
-        return self.token_loss(self(inputs), batch)
+        aux: dict = {}
+        loss, metrics = self.token_loss(self(inputs, aux=aux), batch)
+        if "lb_loss" in aux:
+            lb, zl = aux["lb_loss"], aux["z_loss"]
+            loss = loss + 0.01 * lb + 1e-3 * zl
+            metrics.update(lb_loss=lb, z_loss=zl)
+        return loss, metrics
 
     # -- caches ---------------------------------------------------------------
 
@@ -383,7 +439,7 @@ class LM(nn.Module):
             h, new_kv = layer.attn.extend(layer.ln1(x, c.norm_eps), lkv,
                                           valid=valid)
             x = x + h
-            x = x + layer.mlp(layer.ln2(x, c.norm_eps))
+            x = x + self._ffn(layer.mlp, layer.ln2(x, c.norm_eps))
             ks.append(new_kv.k)
             vs.append(new_kv.v)
         adv = tokens.shape[1] if valid is None else valid.cpu().to(
@@ -465,7 +521,7 @@ class LM(nn.Module):
             x = x + h
             ks.append(kv.k)
             vs.append(kv.v)
-            return x + mlp(ln2(x, c.norm_eps))
+            return x + self._ffn(mlp, ln2(x, c.norm_eps))
 
         for li, layer in enumerate(self.layers):
             if c.block == "attn":

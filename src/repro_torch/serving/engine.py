@@ -21,6 +21,11 @@ of ``batch_size`` slots and advances in **ticks**.  Each tick:
    one ``model.decode_step`` call; EOS or ``max_new_tokens`` frees the
    slot at end of tick.
 
+A MoE model (``olmoe_1b_7b``) takes the native ``extend``: each slot's
+chunk is one token group, its padded columns routed too, as in the
+reference; they follow the slot's real tokens in the dispatch order, so
+they only take capacity that no real token of the chunk asked for.
+
 Slots are right-aligned (every slot's KV history starts at offset 0 and
 rope positions are per-slot), so a request's outputs do not depend on
 its slot or its neighbours.  Host-side numpy arrays are the authoritative

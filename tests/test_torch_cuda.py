@@ -1271,3 +1271,92 @@ def test_cuda_measure_reads_the_allocator(cuda_device):
     modeled = memory.probe_training(base.get("paper_atis_tt").smoke(), 2,
                                     16, device=cuda_device)
     assert not modeled.measured
+
+
+# ---------------------------------------------------------------------------
+# The expert-batched GEMM and chain (3-D operands, one launch for every
+# expert): each entry against its plain version, the launches counted
+# under their own keys.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("e,m,n,k", [
+    (64, 192, 1024, 64),      # an olmoe FP product, one split
+    (64, 64, 192, 2048),      # split-K (16 slices an expert)
+    (64, 32, 64, 4096),       # split-K (32 slices), the decode batch
+    (3, 100, 20, 36),         # ragged tiles, an unaligned K
+])
+def test_cuda_batched_gemm_matches_plain_version(cuda_device, dtype, trans,
+                                                 e, m, n, k):
+    gen = torch.Generator(device=cuda_device).manual_seed(e + m + n + k)
+    x = torch.randn(e, m, k, generator=gen, device=cuda_device).to(dtype)
+    w = torch.randn(e, *((n, k) if trans else (k, n)), generator=gen,
+                    device=cuda_device).to(dtype)
+    before = dict(fc.LAUNCHES)
+    got = fc.matmul_cuda(x, w, transpose_rhs=trans)
+    want = ref.matmul(x, w, transpose_rhs=trans)
+    assert tuple(got.shape) == (e, m, n) and got.dtype == dtype
+    for i in range(e):           # each expert at its own scale
+        scale = want[i].float().abs().max().item()
+        tol = 1e-5 * scale if dtype == torch.float32 else 2e-2 * scale
+        assert _max_err(got[i], want[i]) <= tol, i
+    cfg = fc.gemm_config_for(x, w, trans)
+    assert fc.LAUNCHES["matmul_batched"] == before["matmul_batched"] + 1
+    assert fc.LAUNCHES["matmul_batched_reduce"] == (
+        before["matmul_batched_reduce"] + (cfg.splits > 1))
+    assert fc.LAUNCHES["matmul"] == before["matmul"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,m0,links", [
+    (64, 6144, ((32, 8), (256, 8))),      # olmoe's rank-8 FP chain
+    (64, 2048, ((1024, 8), (256, 8))),    # its WG chain
+    (5, 96, ((12, 8), (16, 4), (8, 6))),  # three links, an unaligned K
+])
+def test_cuda_batched_chain_matches_plain_version(cuda_device, dtype, e, m0,
+                                                  links):
+    gen = torch.Generator(device=cuda_device).manual_seed(m0)
+    x = torch.randn(e, m0, links[0][0], generator=gen,
+                    device=cuda_device).to(dtype)
+    ws = [torch.randn(e, *s, generator=gen, device=cuda_device).to(dtype)
+          for s in links]
+    before = dict(fc.LAUNCHES)
+    got = fc.chain_n_cuda(x, ws)
+    want = ref.chain_n(x, ws)
+    assert got.shape == want.shape
+    for i in range(e):
+        scale = want[i].float().abs().max().item()
+        tol = 1e-5 * scale if dtype == torch.float32 else 2 * _bf16_ulp(
+            scale)
+        assert _max_err(got[i], want[i]) <= tol, i
+    assert fc.LAUNCHES["chain_n_batched"] == before["chain_n_batched"] + 1
+    assert fc.LAUNCHES["chain_n"] == before["chain_n"]
+
+
+@pytest.mark.cuda
+def test_cuda_batched_plan_equals_a_loop_over_experts(cuda_device):
+    """A TT layer's FP plan with a leading expert axis (the batched
+    kernels) against the same plan run expert by expert (the 2-D ones)."""
+    import dataclasses
+
+    from repro_torch.core import tensorized
+    tnn = tensorized.TNNConfig(enabled=True, rank=8, num_factors=2,
+                               backend="cuda")
+    layer = tensorized.make_tensorized_linear(
+        1024, 2048, dataclasses.replace(tnn), compute_dtype=torch.float32,
+        device=cuda_device, num_experts=4)
+    x = torch.randn(4, 192, 2048, device=cuda_device)
+    with torch.no_grad():
+        got = layer(x)
+        plan = tensorized.fp_plan(layer.fact, 192, layer.opts).plan
+        want = torch.stack([
+            contraction.execute(
+                plan, [x[e].reshape((192,) + tuple(layer.fact.in_dims)),
+                       *(c[e] for c in layer.cores)], backend="cuda")
+            .reshape(192, 1024) for e in range(4)])
+    scale = want.abs().max().item()
+    assert _max_err(got, want) <= 1e-5 * scale

@@ -279,8 +279,9 @@ def test_engine_refuses_what_is_not_ported(reference):
     assert serve_cli.parse_args(["--arch", "paper_atis_tt",
                                  "--serve-kv-dtype", "fp8"]
                                 ).serve_kv_dtype == "fp8"
-    with pytest.raises(KeyError, match="not ported"):
-        tbase.get("olmoe_1b_7b")
+    for arch_id in ("seamless_m4t_medium", "llava_next_34b"):
+        with pytest.raises(KeyError, match="not ported"):
+            tbase.get(arch_id)
 
 
 def test_serve_cli_runs_on_cpu(capsys):

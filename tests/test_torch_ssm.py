@@ -589,14 +589,13 @@ def test_unported_blocks_raise_with_their_roadmap_item():
     """Mamba-2 is ported (``tests/test_torch_zamba2.py``) and so is the
     attention family's prefill (``tests/test_torch_dense.py``); what is
     not raises: an unknown block, and the architectures of the families
-    still queued (MoE and ``encdec``, item 7)."""
+    still queued (``encdec`` and ``modality``, item 7)."""
     with pytest.raises(ValueError, match="unknown block"):
         LMConfig(name="m", num_layers=1, d_model=8, num_heads=1,
                  num_kv_heads=1, d_ff=8, vocab=8, block="moe").validate()
     LMConfig(name="m", num_layers=1, d_model=8, num_heads=1,
              num_kv_heads=1, d_ff=8, vocab=8, block="mamba2").validate()
-    for arch_id in ("olmoe_1b_7b", "qwen3_moe_235b_a22b",
-                    "seamless_m4t_medium"):
+    for arch_id in ("seamless_m4t_medium", "llava_next_34b"):
         with pytest.raises(KeyError, match="ROADMAP.md"):
             tbase.get(arch_id)
     model, _ = steps.build_model(tbase.get("paper_atis_tt"), smoke=True,
