@@ -180,7 +180,8 @@ and failing the script when it fails:
 18. ``zamba2_parity`` — as ``rwkv6_parity`` for that 2-layer
    ``zamba2_7b`` (the GEMM at its rank-64 geometries against
    ``einsum``).
-19. ``serve_zamba2`` — ``zamba2_7b`` at full width and depth through
+19. ``serve_zamba2`` — ``zamba2_7b`` at full width, 27 of its 81 layers
+   since PR 25 (``ZAMBA_SERVE_LAYERS``: one shared-block period), through
    ``ServeEngine`` (the sequential ``decode_step`` fallback) at the
    serve CLI's defaults, as phase 4: every request completes, the first
    wave's greedy tokens equal a hand-rolled ``decode_step`` loop at the
@@ -197,8 +198,9 @@ and failing the script when it fails:
    ``LM.prefill``'s (B 4, T 16, chunks of 16), and at the other dense
    configs' training shapes (``tinyllama_1_1b``, ``internlm2_1_8b``,
    ``phi4_mini_3_8b``: rows off the main path), as in phase 3.
-21. ``train_qwen2`` — ``qwen2_7b`` at full width and depth (28 layers,
-   d 3584, vocab 152,064, nothing cut; 1,980,923,392 parameters) through
+21. ``train_qwen2`` — ``qwen2_7b`` at full width, 14 of its 28 layers
+   since PR 25 (``QWEN_TRAIN_LAYERS``; d 3584, vocab 152,064; at full
+   depth 1,980,923,392 parameters) through
    the train entry point, ``cuda`` backend, bf16, remat, batch 8, seq
    128, 12 steps at the CLI's lr 3e-3: every loss finite, the mean of
    the last 5 below the first, on every step the GEMM kernel and the
@@ -254,11 +256,56 @@ and failing the script when it fails:
    and idle share of a training step, by kernel and by phase, the
    ``moe.*`` ranges among them).
 
-It then prints the ``{"kernels": [...]}`` line (every ported kernel with
+28. ``kernel:seamless`` — ``seamless_m4t_medium`` (the encoder-decoder
+   family, ``--tnn``'s default: TT rank 64 on both stacks' SwiGLU): the
+   GEMM (and chain, where a plan fuses one) at every geometry of its
+   training FP/BP/WG plans (both stacks at 8 x 128 tokens) and of its
+   serving FP plans (the encoder at 4 x 1024 frames, the decoder's
+   prefill at 4 x 16 and decode at 4), as in phase 2; the attention
+   kernel, as in phase 3, at each of its main-path shapes (H = KV = 16,
+   D 64): training's encoder (non-causal), decoder (causal) and
+   cross-attention (non-causal), B 8, T 128; serving's encoder (B 4, T
+   1024, non-causal, q chunk 512, kv chunk 1024), decoder prefill (B 4,
+   T 16, causal), cross prefill (16 queries against 1,024 keys) and
+   cross decode (1 query against 1,024 keys); and off the main path at
+   ``llava_next_34b``'s training shape (B 8, T 128, H 56, KV 8, D 128,
+   causal).
+29. ``train_seamless`` — full width and depth (12 + 12 layers, d 1024,
+   vocab 256,256; 704,624,640 parameters, asserted on the card) through
+   ``steps.make_train_step``, ``cuda`` backend, bf16, remat, batch 8 of
+   128 encoder frames (``modality.frame_embeddings``, a generator seeded
+   per step) and 128 decoder tokens (the synthetic data, seed 0), 12
+   steps at ``SEAMLESS_LR`` (``tools/seamless_lr_sweep.py``): every loss
+   finite, the mean of the last 5 below the first, on every step the
+   GEMM kernel and the attention kernel exactly 72 times (12 encoder, 12
+   decoder and 12 cross-attentions, forward and the checkpoint re-run),
+   no ``EinsumOp`` in the plans, no runtime degrade; its step time,
+   decoder tok/s, peak device memory and step 0's measured activation
+   peak.
+30. ``serve_seamless`` — the trained model (its weights drawn once for
+   the three phases) served through ``make_prefill_step`` /
+   ``make_decode_step``: two waves of 4 requests, each 1,024 encoder
+   frames and a 16-token prompt, then 16 greedy tokens: every request
+   completes, the attention kernel launched per wave as the layers
+   predict (12 encoder, 12 decoder-prefill, 12 cross-prefill, 15 x 12
+   cross-decode), no runtime degrade; tok/s and the median decode step.
+   Then ``seamless_profile``: ``train_profile`` on that model (device
+   busy and idle share of a training step, by kernel and by phase).
+31. ``seamless_parity`` — phase 7 for ``seamless_m4t_medium`` at full
+   width, 2 + 2 layers: ``cuda`` against ``einsum`` for 3 steps, f32 and
+   bf16, to the ATIS gates; first, in f32, the first serve wave through
+   ``prefill`` and 15 ``decode_step`` calls, whose greedy tokens must
+   equal teacher-forced ``forward``'s argmax over the same tokens, and
+   whose last logits must lie within 1e-4 of ``forward``'s last row.
+
+Every record carries ``elapsed_s`` (seconds since the script started);
+``phase_seconds`` then sums the seconds each phase name took (the time
+since the record before each of its records).  It then prints the
+``{"kernels": [...]}`` line (every ported kernel with
 its launches in the serve, train, train_fp8, train_rwkv6, train_zamba2,
 serve_zamba2, train_qwen2, serve_qwen2 (bf16 and fp8 KV),
-prefill_qwen2, train_phase_paths_off, train_olmoe, train_olmoe_rank8
-and serve_olmoe runs, the batched GEMM and chain as rows of their own, for the GEMM also its
+prefill_qwen2, train_phase_paths_off, train_olmoe, train_olmoe_rank8,
+serve_olmoe, train_seamless and serve_seamless runs, the batched GEMM and chain as rows of their own, for the GEMM also its
 backward launches under autodiff and its split-K reduce launches, the
 ``phase_paths=False`` path's timed sums apart, for the requantize its
 partial-amax launches, and its timings at the main paths' shapes), the
@@ -364,6 +411,46 @@ ROUTING_AGREEMENT = 0.99
 # own (5, 3), whose event count at olmoe's ~20,000 device events a step
 # made the phase take ~49 s of this script's 600.
 OLMOE_PROFILE_STEPS = (2, 1)
+# serve_zamba2 at 27 of the model's 81 layers (full width, one shared-block
+# period) and train_qwen2 at 14 of its 28: at full depth they took ~52 s
+# and ~32 s of this script's 600, and the seamless phases need the room
+# (PERF.md, Findings, PR 25).
+ZAMBA_SERVE_LAYERS, QWEN_TRAIN_LAYERS = 27, 14
+# seamless_m4t_medium (the encoder-decoder family: 12 + 12 layers, d 1024,
+# 16 heads of 64, vocab 256,256) at full width and depth under --tnn's
+# default (TT rank 64 on both stacks' SwiGLU; attention, embed and
+# lm_head dense): 704,624,640 parameters, ~11.3 GB of training state.
+# Trained through the step builders (its batches carry encoder frames,
+# which the train loop's data does not make) on 8 x 128 frames and 8 x
+# 128 decoder tokens, 12 steps; its lr is the first of 3e-3, 1e-3, 3e-4
+# whose run passes the loss-descent gate (tools/seamless_lr_sweep.py): at
+# 3e-3 the grad norm spikes to 23.7 and 32.1 and the last five end at
+# 13.08 over a first 12.95 (PERF.md, Findings, PR 25).
+SEAMLESS_ARCH, SEAMLESS_STEPS, SEAMLESS_LR = "seamless_m4t_medium", 12, 1e-3
+SEAMLESS_PARAMS = 704_624_640
+# serve_seamless: waves of BATCH requests, each ENC_FRAMES encoder frames
+# (the reference's enc-dec decode stub length, steps.ENC_FRAMES_DECODE)
+# and a PROMPT-token decoder prompt, then MAX_NEW greedy tokens.
+SEAMLESS_WAVES, ENC_FRAMES = 2, 1024
+# The attention shapes of seamless's main paths (path, B, Tq, Tk, causal,
+# q_chunk, kv_chunk; H = KV = 16, D 64), and llava_next_34b's training
+# shape, a row off the main path.
+SEAMLESS_FLASH = [
+    ("train_seamless", "encoder", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, False,
+     TRAIN_SEQ, TRAIN_SEQ),
+    ("train_seamless", "decoder", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, True,
+     TRAIN_SEQ, TRAIN_SEQ),
+    ("train_seamless", "cross", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, False,
+     TRAIN_SEQ, TRAIN_SEQ),
+    ("serve_seamless", "encoder", BATCH, ENC_FRAMES, ENC_FRAMES, False, 512,
+     1024),
+    ("serve_seamless", "decoder prefill", BATCH, PROMPT, PROMPT, True,
+     PROMPT, PROMPT),
+    ("serve_seamless", "cross prefill", BATCH, PROMPT, ENC_FRAMES, False,
+     PROMPT, 1024),
+    ("serve_seamless", "cross decode", BATCH, 1, ENC_FRAMES, False, 1, 1024),
+]
+LLAVA_ARCH = "llava_next_34b"
 
 DEVICE = "cuda"
 
@@ -407,15 +494,28 @@ ALL_KERNELS = KERNELS + QUANT_KERNELS + ("linear_scan",) + BATCHED_KERNELS
 RUNS = ("serve", "train", "train_fp8", "train_rwkv6", "train_zamba2",
         "serve_zamba2", "train_qwen2", "serve_qwen2", "serve_qwen2_fp8",
         "prefill_qwen2", "train_phase_paths_off", "train_olmoe",
-        "train_olmoe_rank8", "serve_olmoe")
+        "train_olmoe_rank8", "serve_olmoe", "train_seamless",
+        "serve_seamless")
 #: the phase_paths=False path's timed shapes: its FP plans' GEMMs and
 #: chains, and the GEMMs their autograd backward runs (reported apart;
 #: the FP shapes are timed in the ``train`` path's sums too)
 PP_OFF_PATHS = ("pp_off_fwd", "pp_off_bwd")
 
 
+#: the script's start, the last record's time, and the seconds between
+#: records summed by phase name (each record closes the time since the
+#: one before it)
+_CLOCK = {"start": time.perf_counter(), "last": None}
+PHASE_SECONDS: dict[str, float] = {}
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    now = time.perf_counter()
+    PHASE_SECONDS[phase] = (PHASE_SECONDS.get(phase, 0.0) + now
+                            - (_CLOCK["last"] or _CLOCK["start"]))
+    _CLOCK["last"] = now
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": now - _CLOCK["start"]}), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -1036,19 +1136,21 @@ def kernel_phase(torch, fc, ref, gemms, chains, totals, *, path: str,
             account("chain_n" + sfx, geo, dname, err, timed)
 
 
-def flash_case(torch, fa, ref, gen, shape, chunks, totals, *, path=None
-               ) -> None:
+def flash_case(torch, fa, ref, gen, shape, chunks, totals, *, path=None,
+               tk=None, role=None) -> None:
     """The attention kernel against its plain version (out and lse) at
     ``shape = (B, T, H, KV, D, causal)`` and ``chunks`` in bf16 and f32,
     timed beside the plain version, scaled_dot_product_attention and the
-    bound; with ``path`` the bf16 time adds to
-    ``totals["flash_attention_fwd"][path]``."""
+    bound; ``tk`` keys from another sequence (``T`` queries against
+    ``tk`` keys: a cross-attention), ``role`` a label for the record; with
+    ``path`` the bf16 time adds to ``totals["flash_attention_fwd"][path]``."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     B, T, H, KV, D, causal = shape
+    tk = tk or T
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
         q, k, v = (torch.randn(s, generator=gen, device=DEVICE).to(dtype)
-                   for s in ((B, T, H, D), (B, T, KV, D), (B, T, KV, D)))
+                   for s in ((B, T, H, D), (B, tk, KV, D), (B, tk, KV, D)))
         out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, **chunks)
 
         def plain():
@@ -1065,8 +1167,9 @@ def flash_case(torch, fa, ref, gen, shape, chunks, totals, *, path=None
         # score in another order: one ulp of the scale.
         tol = 1e-5 * scale if dtype == torch.float32 else bf16_ulp(scale)
         ok = err <= tol and lse_err <= 1e-5 * lse_scale
-        rec = {"path": path, "B": B, "T": T, "H": H, "KV": KV, "D": D,
-               "causal": causal, **chunks, "dtype": dname,
+        rec = {"path": path, "role": role, "B": B, "T": T, "Tk": tk,
+               "H": H, "KV": KV, "D": D, "causal": causal, **chunks,
+               "dtype": dname,
                "kernel": fa.kernel_for(q, k, v), "max_abs_err": err,
                "max_rel_err": err / max(scale, 1e-30), "scale": scale,
                "tol": tol, "lse_max_rel_err": lse_err / lse_scale}
@@ -1081,7 +1184,7 @@ def flash_case(torch, fa, ref, gen, shape, chunks, totals, *, path=None
                                             enable_gqa=H != KV))
         nbytes = ((q.numel() + k.numel() + v.numel() + out.numel())
                   * dtype.itemsize + lse.numel() * 4)
-        flops = 4 * B * H * T * T * D // (2 if causal else 1)
+        flops = 4 * B * H * T * tk * D // (2 if causal else 1)
         b, by = bound_ms(nbytes, flops, dname)
         emit("kernel:flash_attention_fwd", ok=True, ms=ms, plain_ms=plain_ms,
              library_ms=lib, bound_ms=b, bound_by=by, **rec)
@@ -1646,8 +1749,9 @@ def zamba2_kernel_phase(torch, fc, fa, sk, ref, plan_compiler, profiles,
 def serve_zamba2_phase(torch, fc, plan_compiler, tm, steps_lib, profiles,
                        arch, ServeEngine, Request, *, name="serve_zamba2",
                        compute_dtype=None) -> dict:
-    """``zamba2_7b`` at full width and depth (one-card TNN config,
-    ``cuda`` backend, bf16 or ``compute_dtype``) through ``ServeEngine``
+    """``zamba2_7b`` at full width and ZAMBA_SERVE_LAYERS of its 81
+    layers (one shared-block period; one-card TNN config, ``cuda``
+    backend, bf16 or ``compute_dtype``) through ``ServeEngine``
     at the serve CLI's defaults; the engine serves it through the
     reference's sequential fallback (each prompt token through
     ``decode_step``).  Every request must complete; the first wave's tokens (requests 0 to BATCH - 1,
@@ -1660,7 +1764,8 @@ def serve_zamba2_phase(torch, fc, plan_compiler, tm, steps_lib, profiles,
     torch.cuda.empty_cache()
     tnn = dataclasses.replace(arch.tnn_one_card, backend="cuda")
     model, cfg = steps_lib.build_model(arch, tnn, device=DEVICE, seed=0,
-                                       compute_dtype=compute_dtype)
+                                       compute_dtype=compute_dtype,
+                                       num_layers=ZAMBA_SERVE_LAYERS)
     profiles.build_profiles(cfg, batch_size=BATCH, prefill_chunk=CHUNK)
     fc.reset_launches()
     plan_compiler.reset_degrade_counts()
@@ -2046,7 +2151,8 @@ def train_phase(torch, fc, plan_compiler, train_cli, einsum_ops, *,
 
 def train_parity_phase(torch, arch, steps_lib, *, name="train_parity",
                        tnn=None, num_layers=None, routes=None,
-                       routing=False) -> None:
+                       routing=False, make_batch=None,
+                       route_check=None) -> None:
     """The same initial parameters trained on the cuda and einsum
     backends for PARITY_STEPS steps on the same batches (``arch`` with
     ``tnn`` for its TNN config and ``num_layers`` its depth when given).
@@ -2056,7 +2162,11 @@ def train_parity_phase(torch, arch, steps_lib, *, name="train_parity",
     :func:`prefill_route`'s.  With ``routing`` (a MoE model) the first
     batch's top-k picks on both backends, before training, must agree on
     at least ``ROUTING_AGREEMENT`` of the (token, k) picks in each
-    dtype (:func:`routing_agreement`)."""
+    dtype (:func:`routing_agreement`).  ``make_batch(cfg, step)``, when
+    given, makes each step's batch (an encoder-decoder's); the train
+    CLI's synthetic data otherwise.  ``route_check(model, cfg)``, when
+    given, runs on the f32 cuda model before it trains and must return
+    ``{"equal": True, ...}``."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.optim.adamw import AdamW
     # f32: the executors sum in other orders; 1e-4 relative holds that
@@ -2088,11 +2198,19 @@ def train_parity_phase(torch, arch, steps_lib, *, name="train_parity",
                 torch, fc, model, cfg.vocab, Request,
                 {r.rid: r.out_tokens for r in done}, engine.cache_len)
             ok = ok and report["routes_f32"]["equal"]
+        if route_check and dtype == torch.float32:
+            report["routes_f32"] = route_check(model, cfg)
+            ok = ok and report["routes_f32"]["equal"]
         del model
-        for backend in ("cuda", "einsum"):
-            model = models.pop(backend)
+        if make_batch is None:
             data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                                           global_batch=TRAIN_BATCH))
+
+            def make_batch(cfg, s):
+                return {k: torch.as_tensor(v).to(DEVICE)
+                        for k, v in data.batch(s).items()}
+        for backend in ("cuda", "einsum"):
+            model = models.pop(backend)
             opt = AdamW(lr=TRAIN_LR, total_steps=TRAIN_STEPS,
                         warmup_steps=TRAIN_STEPS)
             params = dict(model.named_parameters())
@@ -2100,9 +2218,7 @@ def train_parity_phase(torch, arch, steps_lib, *, name="train_parity",
             step = steps_lib.make_train_step(model, opt)
             hist = []
             for s in range(PARITY_STEPS):
-                batch = {k: torch.as_tensor(v).to(DEVICE)
-                         for k, v in data.batch(s).items()}
-                state, m = step(state, batch)
+                state, m = step(state, make_batch(cfg, s))
                 hist.append((float(m["loss"]), float(m["grad_norm"])))
             runs[backend] = hist
         loss_rel = [abs(a[0] - b[0]) / abs(b[0])
@@ -2116,8 +2232,9 @@ def train_parity_phase(torch, arch, steps_lib, *, name="train_parity",
                          "einsum": runs["einsum"], "loss_rel": loss_rel,
                          "grad_norm_rel": gn_rel, "tol_loss_rel": tl,
                          "tol_grad_norm_rel": tg}
-    emit(name, ok=ok, arch=arch.id, layers=cfg.num_layers,
-         steps=PARITY_STEPS, **report)
+    emit(name, ok=ok, arch=arch.id, layers=getattr(
+        cfg, "num_layers", None) or [cfg.num_enc_layers, cfg.num_dec_layers],
+        steps=PARITY_STEPS, **report)
     if not ok:
         raise AssertionError(f"{name} failed")
 
@@ -2855,6 +2972,292 @@ def serve_olmoe_phase(torch, fc, plan_compiler, tm, steps_lib, profiles,
     return launches, model
 
 
+def seamless_kernel_phase(torch, fc, fa, ref, plan_compiler, profiles,
+                          tensorized, cfgbase, cfg, totals) -> int:
+    """``kernel:seamless``: the kernels at ``seamless_m4t_medium``'s
+    main-path shapes (``--tnn``'s default: TT rank 64 on both stacks'
+    SwiGLU).  The GEMM (and the chain, where a plan fuses one) at every
+    geometry of the training step's FP/BP/WG plans (both stacks at 8 x 128
+    tokens) and of the serving FP plans (the encoder at 4 x 1024 frames,
+    the decoder's prefill at 4 x 16 tokens and decode at 4), checked in
+    bf16 and f32 and timed in bf16, as in phase 2; the attention kernel at
+    every ``SEAMLESS_FLASH`` shape (non-causal in the encoder and the
+    cross-attention, whose queries and keys come from two sequences, down
+    to one query against 1,024 keys a decode step), as in phase 3, and
+    off the main path at ``llava_next_34b``'s training shape.  Returns the
+    training plans' ``EinsumOp`` count."""
+    gemms, chains, einsum_ops = train_path_geometries(
+        cfg, plan_compiler, profiles, tensorized)
+    kernel_phase(torch, fc, ref, sorted(gemms), sorted(chains), totals,
+                 path="train_seamless", phases={**gemms, **chains},
+                 time_dtypes=("bfloat16",))
+    s_gemms, s_chains = main_path_geometries(
+        cfg, plan_compiler, profiles, tensorized,
+        token_batches=(BATCH * ENC_FRAMES, BATCH * PROMPT, BATCH))
+    kernel_phase(torch, fc, ref, s_gemms, s_chains, totals,
+                 path="serve_seamless", time_dtypes=("bfloat16",))
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    heads = (cfg.num_heads, cfg.num_kv_heads, cfg.hd)
+    for path, role, b, tq, tk, causal, qc, kc in SEAMLESS_FLASH:
+        flash_case(torch, fa, ref, gen, (b, tq, *heads, causal),
+                   dict(q_chunk=qc, kv_chunk=kc), totals, path=path, tk=tk,
+                   role=role)
+    c = cfgbase.get(LLAVA_ARCH).model()
+    t = TRAIN_SEQ
+    flash_case(torch, fa, ref, gen,
+               (TRAIN_BATCH, t, c.num_heads, c.num_kv_heads, c.hd, True),
+               dict(q_chunk=min(c.q_chunk, t), kv_chunk=min(c.kv_chunk, t)),
+               totals, role=f"{LLAVA_ARCH} train (off the main path)")
+    paths = ("train_seamless", "serve_seamless")
+    emit("kernel:seamless", ok=True, arch=SEAMLESS_ARCH,
+         tnn_targets=list(cfg.tnn.targets), tnn_rank=cfg.tnn.rank,
+         train_geometries={"gemm": len(gemms), "chain": len(chains),
+                           "einsum_ops": einsum_ops},
+         serve_geometries={"gemm": len(s_gemms), "chain": len(s_chains)},
+         sums={name: {path: {k: (sorted(v) if isinstance(v, set) else v)
+                             for k, v in totals[name][path].items()}
+                      for path in paths if path in totals[name]}
+               for name in ALL_KERNELS})
+    return einsum_ops
+
+
+def seamless_batches(torch, modality, vocab: int):
+    """``make_batch(cfg, step)`` for the encoder-decoder: decoder inputs
+    and targets from the train CLI's synthetic data (seed 0, step n),
+    encoder frames (in ``cfg``'s compute dtype) from
+    ``modality.frame_embeddings`` with a generator seeded by the step,
+    TRAIN_BATCH x TRAIN_SEQ of each, on the card."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    data = SyntheticLM(DataConfig(vocab=vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH))
+
+    def make_batch(cfg, step):
+        b = data.batch(step)
+        gen = torch.Generator().manual_seed(step)
+        return {"enc_embeds": modality.frame_embeddings(
+                    gen, TRAIN_BATCH, TRAIN_SEQ, cfg.d_model,
+                    cfg.compute_dtype, DEVICE),
+                "dec_inputs": torch.as_tensor(b["inputs"]).to(DEVICE),
+                "dec_targets": torch.as_tensor(b["targets"]).to(DEVICE)}
+    return make_batch
+
+
+def seamless_train_run(torch, fc, memory, modality, steps_lib, model, cfg,
+                       lr: float, steps: int) -> dict:
+    """``steps`` AdamW steps of the encoder-decoder ``model`` through
+    ``steps.make_train_step``; the activation peak of step 0 measured
+    around it (``memory.measure``).  Returns the losses, grad norms,
+    step seconds, the kernels' launches a step and that peak."""
+    from repro_torch.optim.adamw import AdamW
+    opt = AdamW(lr=lr, total_steps=max(steps, 2), warmup_steps=min(20, steps))
+    params = dict(model.named_parameters())
+    state = {"params": params, "opt": opt.init(params)}
+    step_fn = steps_lib.make_train_step(model, opt)
+    make_batch = seamless_batches(torch, modality, cfg.vocab)
+    losses, gnorms, step_s, per_step, probe = [], [], [], [], None
+    for i in range(steps):
+        batch = make_batch(cfg, i)
+        before = dict(fc.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            ran = []
+            probe = memory.measure(lambda: ran.append(step_fn(state, batch)))
+            state, metrics = ran[0] if ran else step_fn(state, batch)
+        else:
+            state, metrics = step_fn(state, batch)
+        loss = float(metrics["loss"])          # waits for the device
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss)
+        gnorms.append(float(metrics["grad_norm"]))
+        per_step.append({k: fc.LAUNCHES[k] - before[k]
+                         for k in ("matmul", "matmul_reduce", "chain_n",
+                                   "flash_attention_fwd")})
+    del state, opt
+    for p in params.values():
+        p.grad = None
+    return {"losses": losses, "grad_norms": gnorms, "step_s": step_s,
+            "per_step": per_step, "probe": probe}
+
+
+def train_seamless_phase(torch, fc, plan_compiler, memory, modality,
+                         steps_lib, arch, einsum_ops):
+    """``seamless_m4t_medium`` at full width and depth (``--tnn``'s
+    default, ``cuda`` backend, bf16, remat; SEAMLESS_PARAMS parameters,
+    asserted on the card) through ``steps.make_train_step``, SEAMLESS_STEPS
+    steps at SEAMLESS_LR on :func:`seamless_batches`: every loss finite,
+    the mean of the last 5 below the first, on every step the GEMM kernel
+    and the attention kernel twice per attention (12 encoder, 12 decoder
+    and 12 cross-attentions, forward and the checkpoint re-run), no
+    ``EinsumOp`` in the plans, no runtime degrade; its step time, decoder
+    tok/s, peak device memory and step 0's measured activation peak.
+    Returns the run's launches and the trained model (served next)."""
+    import numpy as np
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tnn = dataclasses.replace(arch.tnn_default, backend="cuda")
+    t0 = time.perf_counter()
+    model, cfg = steps_lib.build_model(arch, tnn, device=DEVICE, seed=0)
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    fc.reset_launches()
+    plan_compiler.reset_degrade_counts()
+    run = seamless_train_run(torch, fc, memory, modality, steps_lib, model,
+                             cfg, SEAMLESS_LR, SEAMLESS_STEPS)
+    torch.cuda.synchronize()
+    launches = dict(fc.LAUNCHES)
+    degrades = dict(plan_compiler.DEGRADE_COUNTS)
+    losses = run["losses"]
+    attentions = cfg.num_enc_layers + 2 * cfg.num_dec_layers
+    attn_per_step = (2 if cfg.remat else 1) * attentions
+    step_ms = statistics.median(run["step_s"][3:]) * 1e3
+    last5 = statistics.mean(losses[-5:])
+    ok = (n_params == SEAMLESS_PARAMS and all(np.isfinite(losses))
+          and len(losses) == SEAMLESS_STEPS and last5 < losses[0]
+          and all(s["matmul"] > 0
+                  and s["flash_attention_fwd"] == attn_per_step
+                  for s in run["per_step"])
+          and einsum_ops == 0 and degrades["runtime"] == 0)
+    probe = run["probe"]
+    emit("train_seamless", ok=bool(ok), arch=SEAMLESS_ARCH,
+         d_model=cfg.d_model, enc_layers=cfg.num_enc_layers,
+         dec_layers=cfg.num_dec_layers, heads=cfg.num_heads,
+         head_dim=cfg.hd, d_ff=cfg.d_ff, vocab=cfg.vocab, params=n_params,
+         params_expected=SEAMLESS_PARAMS, remat=cfg.remat,
+         tnn_targets=list(cfg.tnn.targets), tnn_rank=cfg.tnn.rank,
+         dtype=str(cfg.compute_dtype).split(".")[-1], batch=TRAIN_BATCH,
+         enc_frames=TRAIN_SEQ, dec_tokens=TRAIN_SEQ, steps=SEAMLESS_STEPS,
+         lr=SEAMLESS_LR, losses=losses, grad_norms=run["grad_norms"],
+         first_loss=losses[0], last5_mean_loss=last5,
+         step_ms_median_after_3=step_ms,
+         dec_tok_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+         first_step_s=run["step_s"][0], build_s=build_s,
+         launches=launches, launches_per_step=run["per_step"],
+         attention_per_step_expected=attn_per_step, degrades=degrades,
+         einsum_ops_in_plans=einsum_ops,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         peak_activation_bytes=probe.peak_bytes if probe else None,
+         peak_source=probe.source if probe else None)
+    if not ok:
+        raise AssertionError("train_seamless phase failed")
+    return launches, model, cfg
+
+
+def seamless_route_check(torch, fc, modality, steps_lib):
+    """``route_check`` of ``seamless_parity``: in f32, the serve waves'
+    first wave (BATCH requests of ENC_FRAMES frames and a PROMPT-token
+    prompt) through ``make_prefill_step`` and MAX_NEW - 1 greedy
+    ``make_decode_step`` calls, against teacher-forced ``forward`` over
+    the prompt and those tokens: the greedy tokens equal ``forward``'s
+    argmax at each position, and the last decode logits lie within 1e-4
+    of ``forward``'s last row (of its scale)."""
+    def check(model, cfg):
+        enc, prompts = seamless_wave(torch, modality, cfg, 0)
+        prefill = steps_lib.make_prefill_step(model, PROMPT + MAX_NEW)
+        decode = steps_lib.make_decode_step(model)
+        before = fc.LAUNCHES["flash_attention_fwd"]
+        logits, cache = prefill(enc, prompts)
+        toks = [logits.float().argmax(-1)]
+        while len(toks) < MAX_NEW:
+            logits, cache = decode(toks[-1], cache)
+            toks.append(logits.float().argmax(-1))
+        flash = fc.LAUNCHES["flash_attention_fwd"] - before
+        seq = torch.stack(toks, dim=1)
+        with torch.no_grad():
+            full = model(enc, torch.cat([prompts, seq[:, :-1]], dim=1))
+        forced = full[:, PROMPT - 1:].float().argmax(-1)
+        last = full[:, -1].float()
+        err = (logits.float() - last).abs().max().item()
+        scale = last.abs().max().item()
+        layers = cfg.num_dec_layers
+        return {"equal": bool(torch.equal(seq, forced)) and err <= 1e-4 * scale
+                and flash == cfg.num_enc_layers + 2 * layers
+                + (MAX_NEW - 1) * layers,
+                "greedy_equals_forced": bool(torch.equal(seq, forced)),
+                "tokens_req0": seq[0].tolist(),
+                "last_logits_max_abs_err": err, "logit_scale": scale,
+                "tol": 1e-4 * scale, "attention_launches": flash}
+    return check
+
+
+def seamless_wave(torch, modality, cfg, wave: int):
+    """Wave ``wave``'s BATCH requests: encoder frames (a generator seeded
+    by the request id) and PROMPT-token prompts (``serve_requests``'s)."""
+    import numpy as np
+
+    from repro_torch.serving.engine import Request
+    rids = range(wave * BATCH, (wave + 1) * BATCH)
+    enc = torch.cat([modality.frame_embeddings(
+        torch.Generator().manual_seed(1000 + rid), 1, ENC_FRAMES,
+        cfg.d_model, cfg.compute_dtype, DEVICE) for rid in rids])
+    reqs = serve_requests(cfg.vocab, Request)
+    prompts = torch.as_tensor(np.stack([reqs[rid].prompt for rid in rids]),
+                              device=DEVICE).long()
+    return enc, prompts
+
+
+def serve_seamless_phase(torch, fc, plan_compiler, modality, steps_lib,
+                         model, cfg) -> dict:
+    """``seamless_m4t_medium`` at full width and depth served through
+    ``make_prefill_step`` / ``make_decode_step`` (the engine serves no
+    encoder-decoder, in the reference neither): SEAMLESS_WAVES waves of
+    BATCH requests, each ENC_FRAMES encoder frames and a PROMPT-token
+    prompt, then MAX_NEW greedy tokens (the prefill's and MAX_NEW - 1
+    decode steps').  Every request must complete, the attention kernel
+    launch as the layers predict (a wave: the encoder's 12, the decoder
+    prefill's 12 self- and 12 cross-attentions, then 12 cross-attentions
+    a decode step), no runtime degrade.  Returns the run's launches."""
+    torch.cuda.empty_cache()
+    prefill = steps_lib.make_prefill_step(model, PROMPT + MAX_NEW)
+    decode = steps_lib.make_decode_step(model)
+    fc.reset_launches()
+    plan_compiler.reset_degrade_counts()
+    per_wave, decode_ms, prefill_ms, done = [], [], [], {}
+    torch.cuda.synchronize()
+    t_all = time.perf_counter()
+    for w in range(SEAMLESS_WAVES):
+        enc, prompts = seamless_wave(torch, modality, cfg, w)
+        before = fc.LAUNCHES["flash_attention_fwd"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(enc, prompts)
+        toks = [logits.float().argmax(-1)]
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        while len(toks) < MAX_NEW:
+            t0 = time.perf_counter()
+            logits, cache = decode(toks[-1], cache)
+            toks.append(logits.float().argmax(-1))
+            torch.cuda.synchronize()
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+        per_wave.append(fc.LAUNCHES["flash_attention_fwd"] - before)
+        for i, t in enumerate(torch.stack(toks, dim=1).cpu().tolist()):
+            done[w * BATCH + i] = t
+    secs = time.perf_counter() - t_all
+    launches = dict(fc.LAUNCHES)
+    degrades = dict(plan_compiler.DEGRADE_COUNTS)
+    L = cfg.num_dec_layers
+    expected = cfg.num_enc_layers + 2 * L + (MAX_NEW - 1) * L
+    tokens = sum(len(t) for t in done.values())
+    ok = (len(done) == SEAMLESS_WAVES * BATCH
+          and all(len(t) == MAX_NEW for t in done.values())
+          and all(n == expected for n in per_wave)
+          and launches["matmul"] > 0 and degrades["runtime"] == 0)
+    emit("serve_seamless", ok=bool(ok), arch=SEAMLESS_ARCH,
+         enc_layers=cfg.num_enc_layers, dec_layers=L,
+         enc_frames=ENC_FRAMES, prompt=PROMPT, new_tokens=MAX_NEW,
+         requests=len(done), tokens=tokens, seconds=secs,
+         tok_per_s=tokens / secs, prefill_ms=prefill_ms,
+         decode_step_ms_median=statistics.median(decode_ms),
+         attention_launches_per_wave=per_wave,
+         attention_launches_per_wave_expected=expected,
+         tokens_req0=done[0], launches=launches, degrades=degrades,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    if not ok:
+        raise AssertionError("serve_seamless phase failed")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2881,7 +3284,7 @@ def main() -> int:
     from repro_torch.kernels import quantized as qk
     from repro_torch.kernels import ssm_scan as sk
     from repro_torch.launch import steps as steps_lib
-    from repro_torch.models import lm as lm_mod, ssm
+    from repro_torch.models import lm as lm_mod, modality, ssm
     from repro_torch.precision import QuantPolicy, quant
     from repro_torch.launch import train as train_cli
     from repro_torch.serving import kv_cache, profiles
@@ -3120,7 +3523,8 @@ def main() -> int:
     # -- 21. qwen2_7b training at full width and depth ------------------------
     launches["train_qwen2"] = train_model_phase(
         torch, fc, plan_compiler, train_cli, q_einsum_ops,
-        name="train_qwen2", arch_id=QWEN_ARCH, steps=QWEN_STEPS, lr=QWEN_LR)
+        name="train_qwen2", arch_id=QWEN_ARCH, steps=QWEN_STEPS, lr=QWEN_LR,
+        num_layers=QWEN_TRAIN_LAYERS)
 
     # -- 22. cuda against einsum at 2 layers; the f32 prefill route -----------
     train_parity_phase(torch, q_arch, steps_lib, name="qwen2_parity",
@@ -3169,6 +3573,36 @@ def main() -> int:
     emit("olmoe_profile", ok=o_prof["device_busy_ms_per_step"]
          != "not measured", **o_prof)
 
+    # -- 28. the kernels at seamless_m4t_medium's main-path shapes ------------
+    s_arch = cfgbase.get(SEAMLESS_ARCH)
+    s_cfg = s_arch.model(dataclasses.replace(s_arch.tnn_default,
+                                             backend="cuda"))
+    s_einsum_ops = seamless_kernel_phase(torch, fc, fa, ref, plan_compiler,
+                                         profiles, tensorized, cfgbase, s_cfg,
+                                         totals)
+
+    # -- 29. seamless_m4t_medium training at full width and depth -------------
+    launches["train_seamless"], s_model, s_cfg = train_seamless_phase(
+        torch, fc, plan_compiler, memory, modality, steps_lib, s_arch,
+        s_einsum_ops)
+
+    # -- 30. ... then served: prefill and greedy decode, two waves ------------
+    launches["serve_seamless"] = serve_seamless_phase(
+        torch, fc, plan_compiler, modality, steps_lib, s_model, s_cfg)
+    s_prof = train_profile.profile("bf16", 1.0, SEAMLESS_ARCH, model=s_model,
+                                   warmup=OLMOE_PROFILE_STEPS[0],
+                                   steps=OLMOE_PROFILE_STEPS[1])
+    del s_model
+    emit("seamless_profile", ok=s_prof["device_busy_ms_per_step"]
+         != "not measured", **s_prof)
+
+    # -- 31. cuda against einsum at 2 + 2 layers; the f32 decode route -------
+    train_parity_phase(
+        torch, s_arch, steps_lib, name="seamless_parity",
+        tnn=s_arch.tnn_default, num_layers=STATE_LAYERS,
+        make_batch=seamless_batches(torch, modality, s_cfg.vocab),
+        route_check=seamless_route_check(torch, fc, modality, steps_lib))
+
     # -- the kernel line ---------------------------------------------------------
     kernels = []
     for name in ALL_KERNELS:
@@ -3216,6 +3650,8 @@ def main() -> int:
                 launches["train_qwen2"][name] / QWEN_STEPS,
             "launches_per_olmoe_train_step":
                 launches["train_olmoe"][name] / OLMOE_STEPS,
+            "launches_per_seamless_train_step":
+                launches["train_seamless"][name] / SEAMLESS_STEPS,
             "max_abs_err": t["max_abs_err"],
             "ms": sum(s_["ms"] for s_ in sums),
             "plain_ms": sum(s_["plain_ms"] for s_ in sums),
@@ -3227,6 +3663,8 @@ def main() -> int:
             "ms_on_library_shapes": sum(s_["ms_on_library_shapes"]
                                         for s_ in sums),
             "shapes_timed": sum(s_["shapes"] for s_ in sums)})
+    emit("phase_seconds", ok=True, seconds=dict(PHASE_SECONDS),
+         total_s=time.perf_counter() - _CLOCK["start"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

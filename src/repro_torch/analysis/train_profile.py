@@ -9,11 +9,15 @@
         --arch qwen2_7b --precision bf16
     PYTHONPATH=src python -m repro_torch.analysis.train_profile \
         --arch olmoe_1b_7b --precision bf16
+    PYTHONPATH=src python -m repro_torch.analysis.train_profile \
+        --arch seamless_m4t_medium --precision bf16
 
 Trains ``--arch``'s full-width config (default ``paper_atis_tt``;
 ``tnn_one_card`` where the arch has one, as ``zamba2_7b`` does, else
 ``tnn_default``; ``cuda`` backend, bf16, seed 0) at the train CLI's
-default batch 8 x seq 128, once per ``--precision`` (default: each entry
+default batch 8 x seq 128 (an encoder-decoder: 8 x 128 encoder frames,
+``modality.frame_embeddings`` seeded by the step, and 8 x 128 decoder
+tokens), once per ``--precision`` (default: each entry
 of :data:`PRECISIONS`, the tensorized layers' ``--tnn-precision`` with
 its loss scale; ``fp8`` runs every plan through the scaled and
 quantize/dequantize kernels), with
@@ -105,6 +109,7 @@ def profile(precision: str = "bf16", loss_scale: float = 1.0,
     from repro_torch.configs import base as cfgbase
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import modality
     from repro_torch.optim.adamw import AdamW
     from repro_torch.precision.policy import QuantPolicy
 
@@ -133,6 +138,11 @@ def profile(precision: str = "bf16", loss_scale: float = 1.0,
         nonlocal state
         b = {k: torch.as_tensor(v).to("cuda")
              for k, v in data.batch(s).items()}
+        if arch.model_kind == "encdec":
+            b = {"enc_embeds": modality.frame_embeddings(
+                     torch.Generator().manual_seed(s), batch, seq,
+                     cfg.d_model, cfg.compute_dtype, "cuda"),
+                 "dec_inputs": b["inputs"], "dec_targets": b["targets"]}
         state, m = step_fn(state, b)
         return float(m["loss"])
 

@@ -5,9 +5,14 @@ Port of ``src/repro/configs/base.py``: each architecture module defines an
 config of the same family and its TNN variant; ``--arch <id>`` resolves
 through :func:`get`.  Ported so far: the paper's own ``paper_atis_tt``,
 ``rwkv6_7b``, ``zamba2_7b``, the dense GQA family (``tinyllama_1_1b``,
-``internlm2_1_8b``, ``phi4_mini_3_8b``, ``qwen2_7b``) and the MoE family
-(``olmoe_1b_7b``, ``qwen3_moe_235b_a22b``); the other architectures are
-queued in ROADMAP.md.  ``tnn_one_card`` (the port's addition) names the TNN config
+``internlm2_1_8b``, ``phi4_mini_3_8b``, ``qwen2_7b``), the MoE family
+(``olmoe_1b_7b``, ``qwen3_moe_235b_a22b``), the encoder-decoder
+``seamless_m4t_medium`` (``model_kind="encdec"``) and the
+embeddings-input ``llava_next_34b``: every architecture of the
+reference's ``ARCH_IDS``, and ``paper_atis_tt``.  ``input_kind`` says
+whether a model reads token ids (``tokens``) or the modality stub's
+``[B, T, d_model]`` embeddings (``embeds``).  ``tnn_one_card`` (the
+port's addition) names the TNN config
 that fits the full model's training state on one 80 GB card where
 ``tnn_default`` does not.
 """
@@ -23,16 +28,17 @@ from repro_torch.core.tensorized import TNNConfig
 #: architectures this package has ported
 ARCH_IDS = ["paper_atis_tt", "rwkv6_7b", "zamba2_7b", "tinyllama_1_1b",
             "internlm2_1_8b", "phi4_mini_3_8b", "qwen2_7b", "olmoe_1b_7b",
-            "qwen3_moe_235b_a22b"]
+            "qwen3_moe_235b_a22b", "llava_next_34b", "seamless_m4t_medium"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     id: str
-    family: str                     # dense | moe | ssm | hybrid
-    model_kind: str                 # "lm"
-    make_model: Callable[..., Any]  # (tnn: TNNConfig|None) -> LMConfig
+    family: str                     # ssm | moe | vlm | audio | dense | hybrid
+    model_kind: str                 # "lm" | "encdec"
+    make_model: Callable[..., Any]  # (tnn) -> LMConfig | EncDecConfig
     make_smoke: Callable[..., Any]  # reduced same-family config
+    input_kind: str = "tokens"      # tokens | embeds (modality stub)
     notes: str = ""
     tnn_default: TNNConfig = TNNConfig(
         enabled=True, method="tt", rank=64, num_factors=2, targets=("mlp",),

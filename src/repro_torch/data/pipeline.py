@@ -3,10 +3,12 @@
 Port of ``src/repro/data/pipeline.py`` (:class:`DataConfig`,
 :class:`SyntheticLM`) in numpy: batches are a pure function of (seed,
 step, host slice), drawn with the same numpy generators in the same
-order as the reference, so they are bit-equal to its batches.  The
+order as the reference, so they are bit-equal to its batches.  With
+``embed_dim`` set (embeddings-input architectures: ``llava_next_34b``)
+``inputs`` are deterministic f32 pseudo-embeddings ``[rows, T,
+embed_dim]`` drawn after the ids, as the reference draws them.  The
 multi-host ``make_global_batch`` waits for the distributed slice
-(ROADMAP.md, queue A item 8), and the pseudo-embeddings of
-embeddings-input architectures for those architectures (item 7).
+(ROADMAP.md, queue A item 8).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ class DataConfig:
     global_batch: int
     seed: int = 0
     kind: str = "ngram"          # ngram | uniform
+    embed_dim: int | None = None  # set for embeds-input archs (vlm/audio)
 
 
 class SyntheticLM:
@@ -68,4 +71,10 @@ class SyntheticLM:
             toks = np.stack([self._tokens(np.random.default_rng(
                 (cfg.seed, step, host_index, r)), cfg.seq_len + 1)
                 for r in range(rows)])
-        return {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+        batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+        if cfg.embed_dim:
+            # embeds-input archs: deterministic pseudo-embeddings
+            rngf = np.random.default_rng((cfg.seed, step, host_index, 10**6))
+            batch["inputs"] = rngf.standard_normal(
+                (rows, cfg.seq_len, cfg.embed_dim)).astype(np.float32) * 0.02
+        return batch

@@ -15,7 +15,11 @@ a quantized K/V store: ``fp8`` (e4m3), ``fp8_e5m2`` or ``int8``, with
 running per-layer scales (:mod:`repro_torch.serving.kv_cache`); the
 engine refuses it for the others.  SSM and hybrid models (``rwkv6_7b``,
 ``zamba2_7b``) are served through the engine's sequential
-``decode_step`` fallback.  Server start builds the phase-specialized plan
+``decode_step`` fallback.  An embeddings-input architecture
+(``llava_next_34b``) is served on token-id prompts; an encoder-decoder
+one (``seamless_m4t_medium``) is refused, as the reference engine never
+builds one: it serves through ``steps.make_prefill_step`` and
+``make_decode_step``.  Server start builds the phase-specialized plan
 profiles when the model is tensorized, then runs the slot-table engine.
 """
 
@@ -78,6 +82,12 @@ def main(argv=None) -> list[Request]:
         tm.configure(args.serve_trace)
 
     arch = cfgbase.get(args.arch)
+    if arch.model_kind == "encdec":
+        raise SystemExit(
+            f"{arch.id} is an encoder-decoder model, which the engine does "
+            "not serve (nor does the reference's): serve it through "
+            "repro_torch.launch.steps.make_prefill_step and "
+            "make_decode_step")
     tnn_cfg = arch.tnn_default if args.tnn else None
     model, cfg = steps_lib.build_model(arch, tnn=tnn_cfg, smoke=args.smoke,
                                        device=args.device,

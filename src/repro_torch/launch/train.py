@@ -32,6 +32,14 @@ train unquantized only, so ``--tnn-precision`` other than bf16 (and a
 quantized ``--tnn-remat``) raises ``NotImplementedError`` there (ROADMAP.md,
 queue A item 13).
 
+An embeddings-input architecture (``llava_next_34b``) trains on the
+data's pseudo-embeddings (``DataConfig.embed_dim = d_model``), as the
+reference CLI does.  An encoder-decoder one (``seamless_m4t_medium``) is
+refused: the loop's batches carry no encoder frames (the reference CLI
+stops there too, with a ``KeyError``); it trains through
+``steps.build_model`` and ``steps.make_train_step`` on batches of
+``enc_embeds``, ``dec_inputs`` and ``dec_targets``.
+
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs the kernels'
 plain versions.  The loop, its ``train.step`` / ``train.data`` /
 ``train.step_fn`` spans and its log line are the reference's.  Weights
@@ -95,6 +103,13 @@ UNPORTED_FLAGS = {
     "production_mesh": ("--production-mesh", "queue A item 8 (distributed)"),
 }
 
+#: why the train loop refuses an encoder-decoder architecture
+ENCDEC_REFUSAL = (
+    "{arch} is an encoder-decoder model: the train loop's synthetic "
+    "batches carry no encoder frames (the reference CLI stops there too); "
+    "train it through repro_torch.launch.steps.build_model and "
+    "make_train_step with enc_embeds / dec_inputs / dec_targets batches")
+
 
 def train(arch_id: str, *, smoke: bool, tnn: bool, steps: int,
           global_batch: int, seq_len: int, lr: float,
@@ -120,6 +135,8 @@ def train(arch_id: str, *, smoke: bool, tnn: bool, steps: int,
     if owns_trace:
         tm.configure(trace_path)
     arch = cfgbase.get(arch_id)
+    if arch.model_kind == "encdec":
+        raise ValueError(ENCDEC_REFUSAL.format(arch=arch.id))
     if tnn_cfg is None:
         tnn_cfg = arch.tnn_default if tnn else None
     if tnn_cfg is not None and tnn_backend is not None:
@@ -165,8 +182,9 @@ def train(arch_id: str, *, smoke: bool, tnn: bool, steps: int,
     # On a card the probe is measured around the first step run.
     probe_first = mem_probe is not None and model.device.type == "cuda"
 
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq_len,
-                                  global_batch=global_batch))
+    data = SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=seq_len, global_batch=global_batch,
+        embed_dim=cfg.d_model if arch.input_kind == "embeds" else None))
     opt = AdamW(lr=lr, total_steps=max(steps, 2), warmup_steps=min(20, steps),
                 loss_scale=loss_scale)
     params = dict(model.named_parameters())
@@ -342,6 +360,8 @@ def main(argv=None) -> None:
         ap.error(str(e))
     if args.ckpt_every < 1:
         ap.error("--ckpt-every must be >= 1")
+    if cfgbase.get(args.arch).model_kind == "encdec":
+        ap.error(ENCDEC_REFUSAL.format(arch=args.arch))
     if args.device == "cuda" and not torch.cuda.is_available():
         ap.error("--device cuda: no CUDA card visible (use --device cpu "
                  "for the kernels' plain versions)")

@@ -164,11 +164,13 @@ def _write_slots(buf: torch.Tensor, new: torch.Tensor,
 
 class Attention(nn.Module):
     """GQA attention; q/k/v/o come from :func:`make_dense` (tensorized
-    when the TNN config targets ``qkv`` / ``out``)."""
+    when the TNN config targets ``qkv`` / ``out``).  ``causal=False``
+    (an encoder's self-attention) lets every position see every key in
+    the full-sequence paths (``forward``, ``prefill``)."""
 
     def __init__(self, d_model: int, num_heads: int, num_kv_heads: int,
                  head_dim: int, *, qkv_bias: bool = False,
-                 rope_theta: float = 10000.0,
+                 causal: bool = True, rope_theta: float = 10000.0,
                  q_chunk: int = 512, kv_chunk: int = 1024,
                  tnn: TNNConfig | None = None,
                  param_dtype=torch.float32, compute_dtype=torch.bfloat16,
@@ -176,6 +178,7 @@ class Attention(nn.Module):
         super().__init__()
         self.num_heads, self.num_kv_heads = num_heads, num_kv_heads
         self.head_dim = head_dim
+        self.causal = causal
         self.rope_theta = rope_theta
         self.q_chunk, self.kv_chunk = q_chunk, kv_chunk
         H, KV, D = num_heads, num_kv_heads, head_dim
@@ -207,7 +210,7 @@ class Attention(nn.Module):
         positions: [B, T]."""
         B, T, _ = x.shape
         q, k, v = self._qkv(x, positions)
-        ctx = blockwise_attention(q, k, v, causal=True,
+        ctx = blockwise_attention(q, k, v, causal=self.causal,
                                   q_chunk=self.q_chunk,
                                   kv_chunk=self.kv_chunk)
         return self.o(ctx.reshape(B, T, self.num_heads * self.head_dim))
@@ -219,7 +222,7 @@ class Attention(nn.Module):
         ``max_len`` positions, length ``T`` (a host scalar)."""
         B, T, _ = x.shape
         q, k, v = self._qkv(x, positions)
-        ctx = blockwise_attention(q, k, v, causal=True,
+        ctx = blockwise_attention(q, k, v, causal=self.causal,
                                   q_chunk=self.q_chunk,
                                   kv_chunk=self.kv_chunk)
         pad = (0, 0, 0, 0, 0, max_len - T)

@@ -6,7 +6,10 @@ Port of ``src/repro/models/lm.py``: :class:`MoESpec`, :class:`HybridSpec`,
 — the reference's ``__call__`` — over :meth:`LM.apply_layers`, and the
 masked next-token loss ``token_loss`` / ``loss``) and the serving entry
 points ``init_cache``, ``extend`` (chunked prefill at per-slot depths,
-attention only), ``prefill`` and ``decode_step``.
+attention only), ``prefill`` and ``decode_step``.  Each takes token ids
+or, for an embeddings-input architecture (``llava_next_34b``), the
+modality stub's floating ``[B, T, D]`` embeddings (``[B, D]`` a decode
+step), which bypass the table (:meth:`LM._embed`).
 Every projection consults ``cfg.tnn``
 (:func:`repro_torch.models.blocks.make_dense`), which is how the paper's
 technique, and with ``backend="cuda"`` the CUDA kernels, enter the model.
@@ -144,6 +147,22 @@ class MambaCache(NamedTuple):
     length: torch.Tensor    # [] (or [B]) int32 tokens seen, on the CPU
 
 
+def masked_nll(logits: torch.Tensor, targets, mask=None
+               ) -> tuple[torch.Tensor, dict]:
+    """The mean over ``mask`` (all ones when absent) of ``logsumexp -
+    gold`` of ``logits [..., V]`` at ``targets``, in f32: the loss and
+    ``{"nll", "tokens"}``."""
+    device = logits.device
+    targets = torch.as_tensor(targets).to(device).long()
+    mask = (torch.ones(targets.shape, device=device) if mask is None
+            else torch.as_tensor(mask).to(device, torch.float32))
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, targets[..., None])[..., 0]
+    loss = ((lse - gold) * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return loss, {"nll": loss, "tokens": mask.sum()}
+
+
 def _stacked(states: list):
     """Per-layer state tuples -> one tuple of ``[L, ...]`` stacks."""
     return type(states[0])(*(torch.stack(s) for s in zip(*states)))
@@ -245,9 +264,15 @@ class LM(nn.Module):
 
     # -- pieces ---------------------------------------------------------------
 
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        table = self.embed.to(self.cfg.compute_dtype)
-        return table[tokens.to(self.device).long()]
+    def _embed(self, inputs: torch.Tensor) -> torch.Tensor:
+        """Token ids ``[B, T]`` index the table; a floating ``[B, T, D]``
+        input (the modality stub's embeddings) is cast to the compute
+        dtype instead."""
+        cd = self.cfg.compute_dtype
+        inputs = inputs.to(self.device)
+        if inputs.is_floating_point():
+            return inputs.to(cd)
+        return self.embed.to(cd)[inputs.long()]
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         c = self.cfg
@@ -342,7 +367,8 @@ class LM(nn.Module):
 
     def forward(self, inputs: torch.Tensor, aux: dict | None = None
                 ) -> torch.Tensor:
-        """inputs: ``[B, T]`` token ids -> logits ``[B, T, V]``; a MoE
+        """inputs: ``[B, T]`` token ids (or ``[B, T, D]`` embeddings) ->
+        logits ``[B, T, V]``; a MoE
         model fills ``aux`` (when given) with ``lb_loss`` and ``z_loss``,
         each the mean over the layers."""
         B, T = inputs.shape[:2]
@@ -358,22 +384,13 @@ class LM(nn.Module):
 
     def token_loss(self, logits: torch.Tensor, batch: dict
                    ) -> tuple[torch.Tensor, dict]:
-        """Masked next-token NLL from precomputed logits: the mean over
-        ``mask`` (all ones when absent) of ``logsumexp - gold``, in f32."""
-        targets = torch.as_tensor(batch["targets"]).to(self.device).long()
-        mask = batch.get("mask")
-        mask = (torch.ones(targets.shape, device=self.device)
-                if mask is None else
-                torch.as_tensor(mask).to(self.device, torch.float32))
-        lf = logits.float()
-        lse = torch.logsumexp(lf, dim=-1)
-        gold = lf.gather(-1, targets[..., None])[..., 0]
-        nll = (lse - gold) * mask
-        loss = nll.sum() / torch.clamp_min(mask.sum(), 1.0)
-        return loss, {"nll": loss, "tokens": mask.sum()}
+        """Masked next-token NLL from precomputed logits
+        (:func:`masked_nll` of ``batch["targets"]``)."""
+        return masked_nll(logits, batch["targets"], batch.get("mask"))
 
     def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
-        """batch: ``{"inputs": [B, T], "targets": [B, T], "mask"?}``.  A
+        """batch: ``{"inputs": [B, T] (or [B, T, D]), "targets": [B, T],
+        "mask"?}``.  A
         MoE model adds ``0.01 * lb_loss + 1e-3 * z_loss`` and reports
         both."""
         inputs = torch.as_tensor(batch["inputs"]).to(self.device)
@@ -452,7 +469,8 @@ class LM(nn.Module):
                     cache: DecodeCache | StateCache | MambaCache
                     ) -> tuple[torch.Tensor,
                                DecodeCache | StateCache | MambaCache]:
-        """token: [B] ids -> (logits [B, V], advanced cache).  RWKV-6 and
+        """token: [B] ids (or [B, D] embeddings) -> (logits [B, V],
+        advanced cache).  RWKV-6 and
         Mamba-2 run each layer's single-step recurrence on its carried
         state; the hybrid's shared block attends over its application's
         K/V cache at each slot's depth (``cache.length``)."""
@@ -503,7 +521,8 @@ class LM(nn.Module):
     def prefill(self, inputs: torch.Tensor, max_len: int
                 ) -> tuple[torch.Tensor,
                            DecodeCache | StateCache | MambaCache]:
-        """Ingest the prompt ``[B, T]`` with the full-sequence path and
+        """Ingest the prompt ``[B, T]`` (or ``[B, T, D]`` embeddings)
+        with the full-sequence path and
         return the last position's logits ``[B, V]`` and the decode
         state.  Attention layers run the flash kernel over the prompt and
         leave their K/V zero-padded to ``max_len`` (a

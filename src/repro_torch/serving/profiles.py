@@ -50,7 +50,9 @@ def phase_tnn(tnn: TNNConfig, phase: str) -> TNNConfig:
 
 def tensorized_projections(cfg) -> list[tuple[str, int, int]]:
     """``(name, d_in, d_out)`` of every distinct tensorized projection an
-    ``LMConfig`` instantiates, per its ``tnn.targets``.  For Mamba-2 the
+    ``LMConfig`` (or an ``EncDecConfig``: the attention family's, for
+    both stacks and the cross-attention) instantiates, per its
+    ``tnn.targets``.  For Mamba-2 the
     port also lists the block's ``in`` (``mix``) and ``out`` projections
     and, for the hybrid, the shared block's attention and MLP (the
     reference lists the attention family's projections for every
@@ -66,7 +68,8 @@ def tensorized_projections(cfg) -> list[tuple[str, int, int]]:
             out.append((name, d_in, d_out))
 
     targets = c.tnn.targets
-    if c.block == "rwkv6":
+    block = getattr(c, "block", "attn")
+    if block == "rwkv6":
         # RWKV-6: r/k/v/g and cm_r are "mix", o is "out", cm_k/cm_v "mlp"
         if "mix" in targets:
             add("rwkv.mix", c.d_model, c.d_model)
@@ -77,7 +80,7 @@ def tensorized_projections(cfg) -> list[tuple[str, int, int]]:
             add("rwkv.cm_v", c.d_ff, c.d_model)
         return out
     d_ff = c.moe.d_ff_expert if getattr(c, "moe", None) else c.d_ff
-    if c.block == "mamba2":
+    if block == "mamba2":
         d_inner = 2 * c.d_model
         if "mix" in targets:
             add("mamba.in", c.d_model,

@@ -1360,3 +1360,90 @@ def test_cuda_batched_plan_equals_a_loop_over_experts(cuda_device):
             .reshape(192, 1024) for e in range(4)])
     scale = want.abs().max().item()
     assert _max_err(got, want) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,tq,tk,qc,kc", [
+    (8, 128, 128, 128, 128),     # seamless encoder training, non-causal
+    (4, 1024, 1024, 512, 1024),  # encoder serving: two q chunks, 1024 keys
+    (4, 16, 1024, 16, 1024),     # cross-attention prefill
+    (4, 1, 1024, 1, 1024),       # cross-attention decode: one query
+    (2, 48, 160, 48, 32),        # Tq != Tk over five kv chunks
+])
+def test_cuda_flash_noncausal_across_sequences(cuda_device, dtype, B, tq, tk,
+                                               qc, kc):
+    """The attention kernel non-causal with q from one sequence and k/v
+    from another (seamless's encoder and cross-attention shapes, H = KV =
+    16, D 64), against its plain version: ``out`` within 1e-5 of the
+    scale in f32 and one bf16 ulp in bf16, ``lse`` within 1e-5."""
+    gen = torch.Generator(device=cuda_device).manual_seed(tq + tk)
+    H = KV = 16
+    D = 64
+    q = torch.randn((B, tq, H, D), generator=gen, device=cuda_device)
+    k, v = (torch.randn((B, tk, KV, D), generator=gen, device=cuda_device)
+            for _ in "kv")
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    kw = dict(causal=False, q_chunk=qc, kv_chunk=kc)
+    before = fc.LAUNCHES["flash_attention_fwd"]
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    want, want_lse = ref.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fc.LAUNCHES["flash_attention_fwd"] == before + 1
+    assert out.shape == q.shape and lse.shape == (B, tq, KV, H // KV)
+    scale = float(want.float().abs().max())
+    tol = 1e-5 * scale if dtype == torch.float32 else _bf16_ulp(scale)
+    assert _max_err(out, want) <= tol
+    torch.testing.assert_close(lse, want_lse, rtol=0,
+                               atol=1e-5 * float(want_lse.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_seamless_step_and_decode_match_the_cpu(cuda_device):
+    """One f32 training step of the seamless smoke model through the
+    kernels on the card and their plain versions on the CPU (loss 1e-5,
+    every gradient 1e-4 of its scale), then prefill and a decode step
+    (logits 1e-5 of their scale); on the card the attention kernel runs
+    every attention of the step and the prefill, and each decode step's
+    cross-attentions."""
+    from repro_torch.configs import base
+    from repro_torch.launch import steps
+    from repro_torch.models import modality
+
+    arch = base.get("seamless_m4t_medium")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, 256, (2, 17)).astype(np.int64)
+    out = []
+    for device in ("cpu", cuda_device):
+        model, cfg = steps.build_model(arch, arch.tnn_default, smoke=True,
+                                       device=device, backend="cuda",
+                                       compute_dtype=torch.float32)
+        enc = modality.frame_embeddings(torch.Generator().manual_seed(1), 2,
+                                        32, cfg.d_model, torch.float32,
+                                        device)
+        batch = {"enc_embeds": enc, "dec_inputs": torch.from_numpy(toks[:, :-1]),
+                 "dec_targets": torch.from_numpy(toks[:, 1:])}
+        before = fc.LAUNCHES["flash_attention_fwd"]
+        loss, _ = model.loss(batch)
+        loss.backward()
+        prefill = steps.make_prefill_step(model, 24)
+        decode = steps.make_decode_step(model)
+        lp, cache = prefill(enc, toks[:, :8])
+        mid = fc.LAUNCHES["flash_attention_fwd"]
+        ld, cache = decode(toks[:, 8], cache)
+        if device != "cpu":
+            layers = cfg.num_enc_layers + 2 * cfg.num_dec_layers
+            assert mid - before == 2 * layers      # training + prefill
+            assert fc.LAUNCHES["flash_attention_fwd"] - mid == (
+                cfg.num_dec_layers)                # the cross-attentions
+        out.append((float(loss.detach()),
+                    {n: p.grad.cpu() for n, p in model.named_parameters()},
+                    lp.cpu(), ld.cpu()))
+    (l0, g0, p0, d0), (l1, g1, p1, d1) = out
+    assert l1 == pytest.approx(l0, rel=1e-5)
+    for name, g in g0.items():
+        torch.testing.assert_close(g1[name], g, rtol=0,
+                                   atol=1e-4 * float(g.abs().max()))
+    for got, want in ((p1, p0), (d1, d0)):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))

@@ -180,7 +180,7 @@ def test_olmoe_parameter_count_by_config_arithmetic():
 
 
 def test_unported_families_still_raise_and_moe_builds():
-    for arch_id in ("seamless_m4t_medium", "llava_next_34b"):
+    for arch_id in ("no_such_arch", "seamless-m4t-large"):
         with pytest.raises(KeyError, match="not ported"):
             tbase.get(arch_id)
     arch = tbase.get("qwen3_moe_235b_a22b")

@@ -268,7 +268,7 @@ def test_kv_write_past_the_cache_is_refused(reference):
 def test_engine_refuses_what_is_not_ported(reference):
     """A quantized KV cache now runs on an attention model (engine and
     CLI; ``tests/test_torch_kv_quant.py`` holds it to its properties);
-    an architecture still queued is refused."""
+    an architecture no package registers is refused."""
     model, cfg = _port(reference)
     engine = ServeEngine(model, batch_size=2, max_len=24, kv_policy="fp8")
     engine.submit(Request(rid=0, prompt=np.array([3, 1, 4], np.int32),
@@ -279,7 +279,7 @@ def test_engine_refuses_what_is_not_ported(reference):
     assert serve_cli.parse_args(["--arch", "paper_atis_tt",
                                  "--serve-kv-dtype", "fp8"]
                                 ).serve_kv_dtype == "fp8"
-    for arch_id in ("seamless_m4t_medium", "llava_next_34b"):
+    for arch_id in ("no_such_arch", "llava_next_72b"):
         with pytest.raises(KeyError, match="not ported"):
             tbase.get(arch_id)
 

@@ -588,14 +588,14 @@ def test_build_model_cuts_depth_only():
 def test_unported_blocks_raise_with_their_roadmap_item():
     """Mamba-2 is ported (``tests/test_torch_zamba2.py``) and so is the
     attention family's prefill (``tests/test_torch_dense.py``); what is
-    not raises: an unknown block, and the architectures of the families
-    still queued (``encdec`` and ``modality``, item 7)."""
+    not raises: an unknown block, and an architecture no package
+    registers (the message points at ROADMAP.md)."""
     with pytest.raises(ValueError, match="unknown block"):
         LMConfig(name="m", num_layers=1, d_model=8, num_heads=1,
                  num_kv_heads=1, d_ff=8, vocab=8, block="moe").validate()
     LMConfig(name="m", num_layers=1, d_model=8, num_heads=1,
              num_kv_heads=1, d_ff=8, vocab=8, block="mamba2").validate()
-    for arch_id in ("seamless_m4t_medium", "llava_next_34b"):
+    for arch_id in ("no_such_arch", "seamless-m4t-large"):
         with pytest.raises(KeyError, match="ROADMAP.md"):
             tbase.get(arch_id)
     model, _ = steps.build_model(tbase.get("paper_atis_tt"), smoke=True,
