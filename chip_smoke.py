@@ -132,8 +132,9 @@ and failing the script when it fails:
    its time.  Then the GEMM and chain kernels at
    every geometry of ``rwkv6_7b``'s FP/BP/WG plans (``cm_k``/``cm_v``,
    TT rank 64), as in phase 2.
-12. ``train_rwkv6`` — ``rwkv6_7b`` at full width (16 of its 32 layers:
-   ``RWKV_TRAIN_LAYERS``; d 4096, vocab 65,536) through the train entry point,
+12. ``train_rwkv6`` — ``rwkv6_7b`` at full width (4 of its 32 layers:
+   ``RWKV_TRAIN_LAYERS``; d 4096, vocab 65,536) through the
+   train entry point,
    ``cuda`` backend, bf16, batch 8, seq 128, 12 steps at lr 1e-3 (see
    ``RWKV_LR``): every loss
    finite, the mean of the last 5 below the first, the GEMM kernel and
@@ -164,8 +165,9 @@ and failing the script when it fails:
    with the log-decay one scalar per token broadcast over dk, at the
    init's ``-softplus(N(0, 1))``, against the twin and the sequential
    oracle, timed beside the twin and the bound.
-16. ``train_zamba2`` — ``zamba2_7b`` at full width and depth (81
-   layers, d 3584, vocab 32,000, nothing cut; 374,829,056 parameters)
+16. ``train_zamba2`` — ``zamba2_7b`` at full width, 27 of its 81
+   layers (``ZAMBA_TRAIN_LAYERS``: one shared-block period;
+   d 3584, vocab 32,000; 374,829,056 parameters at full depth)
    through the train entry point with ``tnn_cfg`` the one-card config,
    ``cuda`` backend, bf16, remat, batch 8, seq 128, 12 steps at lr 3e-4
    (see ``ZAMBA_LR``): every loss finite, the mean of the last 5 below the
@@ -198,8 +200,8 @@ and failing the script when it fails:
    ``LM.prefill``'s (B 4, T 16, chunks of 16), and at the other dense
    configs' training shapes (``tinyllama_1_1b``, ``internlm2_1_8b``,
    ``phi4_mini_3_8b``: rows off the main path), as in phase 3.
-21. ``train_qwen2`` — ``qwen2_7b`` at full width, 14 of its 28 layers
-   since PR 25 (``QWEN_TRAIN_LAYERS``; d 3584, vocab 152,064; at full
+21. ``train_qwen2`` — ``qwen2_7b`` at full width, 4 of its 28 layers
+   (``QWEN_TRAIN_LAYERS``; d 3584, vocab 152,064; at full
    depth 1,980,923,392 parameters) through
    the train entry point, ``cuda`` backend, bf16, remat, batch 8, seq
    128, 12 steps at the CLI's lr 3e-3: every loss finite, the mean of
@@ -213,7 +215,8 @@ and failing the script when it fails:
    native ``extend``), whose first wave's greedy tokens must equal
    ``LM.prefill`` over the wave's prompts (the attention kernel once a
    layer) followed by ``decode_step``.
-23. ``serve_qwen2`` — ``qwen2_7b`` at full width and depth through
+23. ``serve_qwen2`` — ``qwen2_7b`` at full width, 4 of its 28 layers
+   (``QWEN_SERVE_LAYERS``), through
    ``ServeEngine`` at the serve CLI's defaults with a bf16 and with an
    fp8 (e4m3) KV cache, on the same requests: every request completes
    in both, first tokens equal, the fp8 cache (one new token a request)
@@ -249,12 +252,59 @@ and failing the script when it fails:
    for rank is reported); first, in f32, the engine's
    greedy tokens (``extend``, padded columns routed too) equal
    ``LM.prefill`` followed by ``decode_step``.
-27. ``serve_olmoe`` — full width and depth through ``ServeEngine`` at
-   the serve CLI's defaults: every request completes, the batched GEMM
+27. ``serve_olmoe`` — full width, 8 of its 16 layers
+   (``OLMOE_SERVE_LAYERS``), through ``ServeEngine`` at the serve
+   CLI's defaults: every request completes, the batched GEMM
    launched, no 2-D GEMM, no runtime degrade; tok/s and tick times.
    Then ``olmoe_profile``: ``train_profile`` on that model (device busy
    and idle share of a training step, by kernel and by phase, the
    ``moe.*`` ranges among them).
+27a. ``olmoe_fp8_kernels`` — the quantized experts' kernels at every
+   geometry of ``olmoe_1b_7b``'s fp8 training plans (``--tnn``'s TT
+   rank 64 under ``--tnn-precision fp8``: each (expert, group) instance
+   runs the plans at one group's 24 slots, 8 groups x 64 experts = 512
+   instances a launch, an expert's cores broadcast over its groups with
+   stride 0), in fp8_e4m3, fp8_e5m2 and int8, against the plain
+   versions (a loop of the unbatched forms): the batched scaled GEMM
+   (``kernel:matmul_scaled_batched``) each instance within 1e-5 of its
+   own scale, the batched scaled chain (``kernel:chain_n_scaled_batched``,
+   at the rank-8 plans: none fuses at 64) each instance by
+   ``ref.chain_readback_agreement`` (the chain rule's 0.5% counted at
+   the link-0 intermediates the kernel rounds, which an instance's
+   32-row output cannot resolve), no element beyond two bf16 ulps of
+   its scale, and three instances launched alone through the unbatched
+   kernel equal to the batched output bit for bit, the quantize and
+   dequantize kernels in their per-row form (an instance a row of
+   ``[I, -1]``) and the
+   batched requantize (``kernel:requantize_batched``, one amax and scale
+   an instance in one launch) bit for bit, scales included; timed in
+   fp8_e4m3 beside the plain loop and the bound (bytes at 3.35 TB/s,
+   operations at 1,979 TFLOP/s); no PyTorch call computes a batched
+   scaled GEMM with per-instance scales, so no library time.
+27b. ``train_olmoe_fp8`` — full width, 8 of its 16 layers
+   (``OLMOE_FP8_LAYERS``), fp8 at loss scale 128, batch 8, seq 128, 12
+   steps at ``OLMOE_FP8_LR`` (3e-4) through the train entry point: the
+   ``train_olmoe`` gates (losses
+   finite, the last 5 below the first, the attention kernel twice a
+   layer), and on every step the batched quantized launches (scaled
+   GEMM, its reduce, chain, requantize and its amax pass, quantize,
+   dequantize) exactly what the compiled plans predict, one requantize
+   launch for every quantized plan op run (none in torch ops), every
+   history finite, the experts live at step 0 (every fed slot's output
+   row and the core gradients non-zero; each step's share is reported:
+   under the reference's summed histories they fall silent after a few
+   steps); step ms, tok/s, peak memory; then
+   ``train_olmoe_fp8_profile``, ``train_profile`` on the trained model
+   (device busy and idle share of a step); ``train_olmoe_fp8_rank8``,
+   the same at TT rank 8 and 2 layers, where the plans fuse chains.
+27c. ``olmoe_fp8_parity`` — phase 10's rule at full width, 2 layers:
+   ``cuda`` against its ``einsum`` twin under fp8 (f32 compute), every
+   step's loss, grad norm and history slots (relative to each leaf's
+   largest written slot: the sum over groups leaves differences of
+   close amaxes in the older slots) within three times the envelope of
+   ``1 ± 2**-22`` weight nudges; the cores' step-0 amaxes and layer 0's
+   expert inputs within 1e-6; loss scale 1 bit-identical to 128 but for
+   the dY rows.
 
 28. ``kernel:seamless`` — ``seamless_m4t_medium`` (the encoder-decoder
    family, ``--tnn``'s default: TT rank 64 on both stacks' SwiGLU): the
@@ -305,7 +355,10 @@ since the record before each of its records).  It then prints the
 its launches in the serve, train, train_fp8, train_rwkv6, train_zamba2,
 serve_zamba2, train_qwen2, serve_qwen2 (bf16 and fp8 KV),
 prefill_qwen2, train_phase_paths_off, train_olmoe, train_olmoe_rank8,
-serve_olmoe, train_seamless and serve_seamless runs, the batched GEMM and chain as rows of their own, for the GEMM also its
+serve_olmoe, train_olmoe_fp8, train_olmoe_fp8_rank8, train_seamless and
+serve_seamless runs, the batched GEMM and chain and the
+instance-batched scaled GEMM, chain and requantize as rows of their own,
+for the GEMM also its
 backward launches under autodiff and its split-K reduce launches, the
 ``phase_paths=False`` path's timed sums apart, for the requantize its
 partial-amax launches, and its timings at the main paths' shapes), the
@@ -357,10 +410,8 @@ FLASH_SHAPES = [(8, 128, 12, 12, 64, True, None),
 # most gradients under AdamW's eps, and warm-up to 3e-3 sends the loss
 # back up after step 7 (PERF.md, Findings).
 RWKV_ARCH, RWKV_STEPS, RWKV_LR = "rwkv6_7b", 12, 1e-3
-# train_rwkv6 runs 16 of the model's 32 layers (full width): at 32 it took
-# ~59 s of this script's 600, mostly drawing 3.83 B weights on the host,
-# and the olmoe phases need the room (PERF.md, Findings, PR 24).
-RWKV_TRAIN_LAYERS = 16
+# train_rwkv6's depth: see the depth cuts below.
+RWKV_TRAIN_LAYERS = 4
 # zamba2_7b's ssd scan: (BH = batch 8 x 64 heads, T, dk, dv, chunk).
 SSD_SHAPE = (8 * 64, 128, 64, 112, 128)
 # zamba2_7b training at full width and depth, the train CLI's shape, with
@@ -411,11 +462,25 @@ ROUTING_AGREEMENT = 0.99
 # own (5, 3), whose event count at olmoe's ~20,000 device events a step
 # made the phase take ~49 s of this script's 600.
 OLMOE_PROFILE_STEPS = (2, 1)
-# serve_zamba2 at 27 of the model's 81 layers (full width, one shared-block
-# period) and train_qwen2 at 14 of its 28: at full depth they took ~52 s
-# and ~32 s of this script's 600, and the seamless phases need the room
-# (PERF.md, Findings, PR 25).
-ZAMBA_SERVE_LAYERS, QWEN_TRAIN_LAYERS = 27, 14
+# train_olmoe_fp8: olmoe_1b_7b under the precision path (FP8_POLICY, loss
+# scale FP8_LOSS_SCALE) at full width, its quantized experts run per
+# (expert, group) instance: 8 groups x 64 experts = 512 instances of 24
+# slots, every plan op one batched launch; the train CLI's shape and
+# steps as train_olmoe's, at OLMOE_FP8_LR: at 16 layers the loss-descent
+# gate passes at 3e-4 and misses at OLMOE_LR (1e-3: last five 11.462 over
+# a first 11.439, grad norm up to 79.7), tools/olmoe_lr_sweep.py
+# --precision fp8 (PERF.md, Findings).
+OLMOE_FP8_LAYERS, OLMOE_FP8_LR = 8, 3e-4
+# Depth cuts, full width throughout, for this script's 600 s (PERF.md,
+# Findings: on an H100 80GB HBM3 at 700 W a whole run at the deeper
+# settings reached 624 s before its last 72 s of seamless phases):
+# train_rwkv6 4 of 32 layers, train_zamba2 and serve_zamba2 27 of 81
+# (one shared-block period), train_qwen2 and serve_qwen2 4 of 28,
+# serve_olmoe 8 of 16 (olmoe_profile profiles that model) and
+# train_olmoe_fp8 8 of 16 (at 16: 81.4 s and 49.7 s for its profile,
+# where 8 take about half).  train_olmoe keeps full depth.
+ZAMBA_SERVE_LAYERS, QWEN_TRAIN_LAYERS = 27, 4
+QWEN_SERVE_LAYERS, ZAMBA_TRAIN_LAYERS, OLMOE_SERVE_LAYERS = 4, 27, 8
 # seamless_m4t_medium (the encoder-decoder family: 12 + 12 layers, d 1024,
 # 16 heads of 64, vocab 256,256) at full width and depth under --tnn's
 # default (TT rank 64 on both stacks' SwiGLU; attention, embed and
@@ -470,6 +535,11 @@ REPLACES = {
     # (src/repro/models/blocks.py:696): a batched pallas_call
     "matmul_batched": "src/repro/kernels/fused_contraction.py:186",
     "chain_n_batched": "src/repro/kernels/fused_contraction.py:317",
+    # ... and its quantized layer over the groups and the experts: the
+    # scaled kernels and the requantize batched over (expert, group)
+    "matmul_scaled_batched": "src/repro/kernels/fused_contraction.py:160",
+    "chain_n_scaled_batched": "src/repro/kernels/fused_contraction.py:287",
+    "requantize_batched": "src/repro/kernels/quantized.py:47",
 }
 SOURCES = {
     "matmul": "src/repro_torch/kernels/csrc/fused_contraction.cu",
@@ -483,19 +553,26 @@ SOURCES = {
     "linear_scan": "src/repro_torch/kernels/csrc/ssm_scan.cu",
     "matmul_batched": "src/repro_torch/kernels/csrc/fused_contraction.cu",
     "chain_n_batched": "src/repro_torch/kernels/csrc/fused_contraction.cu",
+    "matmul_scaled_batched":
+        "src/repro_torch/kernels/csrc/fused_contraction.cu",
+    "chain_n_scaled_batched":
+        "src/repro_torch/kernels/csrc/fused_contraction.cu",
+    "requantize_batched": "src/repro_torch/kernels/csrc/quantized.cu",
 }
 KERNELS = ("matmul", "chain_n", "flash_attention_fwd")
 QUANT_KERNELS = ("matmul_scaled", "chain_n_scaled", "quantize", "dequantize",
                  "requantize")
-BATCHED_KERNELS = ("matmul_batched", "chain_n_batched")
+BATCHED_KERNELS = ("matmul_batched", "chain_n_batched",
+                   "matmul_scaled_batched", "chain_n_scaled_batched",
+                   "requantize_batched")
 ALL_KERNELS = KERNELS + QUANT_KERNELS + ("linear_scan",) + BATCHED_KERNELS
 #: the main-path runs whose launches the kernel line counts (and whose
 #: timed shapes it sums)
 RUNS = ("serve", "train", "train_fp8", "train_rwkv6", "train_zamba2",
         "serve_zamba2", "train_qwen2", "serve_qwen2", "serve_qwen2_fp8",
         "prefill_qwen2", "train_phase_paths_off", "train_olmoe",
-        "train_olmoe_rank8", "serve_olmoe", "train_seamless",
-        "serve_seamless")
+        "train_olmoe_rank8", "serve_olmoe", "train_olmoe_fp8",
+        "train_olmoe_fp8_rank8", "train_seamless", "serve_seamless")
 #: the phase_paths=False path's timed shapes: its FP plans' GEMMs and
 #: chains, and the GEMMs their autograd backward runs (reported apart;
 #: the FP shapes are timed in the ``train`` path's sums too)
@@ -526,15 +603,17 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_ms(torch, fn, inner: int = 20, reps: int = 25) -> float:
+def device_ms(torch, fn, inner: int = 20, reps: int = 25,
+              warmups: int = 3) -> float:
     """Median device time of one ``fn()`` call: ``inner`` calls captured
     in a CUDA graph (no host launch cost between them), replayed ``reps``
-    times between CUDA events after warm-up."""
+    times between CUDA events after one call and ``warmups`` more on a
+    side stream."""
     fn()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(3):
+        for _ in range(warmups):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
@@ -1460,7 +1539,8 @@ def broadcast_scan_check(torch, sk, ref, gen, ld_tok, *, check: str,
 def train_model_phase(torch, fc, plan_compiler, train_cli, einsum_ops, *,
                       name: str, arch_id: str, steps: int, lr: float,
                       tnn_cfg=None, batched_per_step=None,
-                      num_layers=None) -> dict:
+                      num_layers=None, precision=None, loss_scale=1.0,
+                      keep_model=False):
     """``arch_id`` (``rwkv6_7b``, ``zamba2_7b``, ``qwen2_7b``,
     ``olmoe_1b_7b``) at full width and depth (``num_layers`` cuts the
     depth) through the train entry point (``tnn_cfg`` in place of the
@@ -1473,7 +1553,15 @@ def train_model_phase(torch, fc, plan_compiler, train_cli, einsum_ops, *,
     and for the hybrid once per shared-block application (not
     checkpointed).  Beside the peak device memory it reports the
     activation probe (measured around the first step) and the planner's
-    modeled stash."""
+    modeled stash.  With ``precision`` (``--tnn-precision``, at
+    ``loss_scale``) the quantized plans must requantize every op's result
+    through the requantize kernels (their launches equal the quantized
+    plan ops run, no scale derived in torch ops on the card) and leave
+    every history finite; a MoE's quantized experts report how much of
+    them is live a step (:class:`ExpertActivity`) and must be live at
+    step 0 (every fed slot's output row non-zero, core gradients
+    non-zero).  ``keep_model`` returns ``(launches, model)``,
+    the trained model for a profile."""
     import numpy as np
 
     from repro_torch import memory
@@ -1483,27 +1571,33 @@ def train_model_phase(torch, fc, plan_compiler, train_cli, einsum_ops, *,
     fc.reset_launches()
     plan_compiler.reset_degrade_counts()
     seen = [dict(fc.LAUNCHES)]
+    watch, activity = ExpertActivity(train_cli.steps_lib), []
 
     def on_step(step, metrics):
         seen.append(dict(fc.LAUNCHES))
+        activity.append(watch.step())
 
     t0 = time.perf_counter()
-    out = train_cli.train(arch_id, smoke=False, tnn=True, steps=steps,
-                          global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
-                          lr=lr, tnn_backend="cuda", device=DEVICE,
-                          log_every=4, on_step=on_step, tnn_cfg=tnn_cfg,
-                          num_layers=num_layers)
-    torch.cuda.synchronize()
+    with CountQuantized(plan_compiler) as counts, watch:
+        out = train_cli.train(arch_id, smoke=False, tnn=True, steps=steps,
+                              global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                              lr=lr, tnn_backend="cuda", device=DEVICE,
+                              log_every=4, on_step=on_step, tnn_cfg=tnn_cfg,
+                              num_layers=num_layers, tnn_precision=precision,
+                              loss_scale=loss_scale)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(fc.LAUNCHES)
     degrades = dict(plan_compiler.DEGRADE_COUNTS)
     peak = torch.cuda.max_memory_allocated()
-    per_step = [{k: b[k] - a[k] for k in ("matmul", "matmul_reduce",
-                                           "chain_n", "linear_scan",
-                                           "flash_attention_fwd",
-                                           "matmul_batched",
-                                           "matmul_batched_reduce",
-                                           "chain_n_batched")}
+    per_step = [{k: b[k] - a[k] for k in (
+                    "matmul", "matmul_reduce", "chain_n", "linear_scan",
+                    "flash_attention_fwd", "matmul_batched",
+                    "matmul_batched_reduce", "chain_n_batched",
+                    "matmul_scaled", "chain_n_scaled", "requantize",
+                    "matmul_scaled_batched", "matmul_scaled_batched_reduce",
+                    "chain_n_scaled_batched", "requantize_batched",
+                    "requantize_batched_amax", "quantize", "dequantize")}
                 for a, b in zip(seen, seen[1:])]
     losses = out["losses"]
     rcfg = out["cfg"]
@@ -1533,6 +1627,30 @@ def train_model_phase(torch, fc, plan_compiler, train_cli, einsum_ops, *,
                   for s in per_step)
           and all(np.isfinite(router["lb_losses"] + router["z_losses"]))
           and einsum_ops == 0 and degrades["runtime"] == 0)
+    quant = {}
+    if precision:
+        hists = [p.detach() for n, p in out["state"]["params"].items()
+                 if n.endswith("quant_amax")]
+        requant_ok = (
+            launches["requantize"] + launches["requantize_batched"]
+            == counts["quantized_plan_ops"]
+            and counts["torch_op_requantizes"] == 0)
+        # Quantized experts do work at step 0 (just-in-time scales): every
+        # fed slot's output row and some of every core's gradient non-zero.
+        a0 = activity[0] if watch.layers and activity else None
+        experts_ok = a0 is None or (
+            a0["rows_fed"] > 0 and a0["rows_live"] == a0["rows_fed"]
+            and a0["dcore_nonzero"] > 0)
+        ok = (ok and bool(hists) and requant_ok and experts_ok
+              and all(bool(torch.isfinite(h).all()) for h in hists)
+              and degrades["runtime_quantized"] == 0)
+        quant = dict(precision=precision, loss_scale=loss_scale,
+                     every_op_requantized_by_kernel=requant_ok, **counts,
+                     expert_activity=activity if watch.layers else None,
+                     experts_live_at_step_0=experts_ok,
+                     amax_histories=len(hists),
+                     amax_history_shape=list(hists[0].shape) if hists
+                     else None)
     stash = memory.stash_report(rcfg, TRAIN_BATCH, TRAIN_SEQ, 1,
                                 rcfg.tnn.stash_policy())
     probe = {"peak_activation_bytes": out["peak_activation_bytes"],
@@ -1540,6 +1658,7 @@ def train_model_phase(torch, fc, plan_compiler, train_cli, einsum_ops, *,
              "modeled_stash_bytes": stash.peak_bytes,
              "modeled_stash_layer_bytes": stash.layer_bytes,
              "stash_policy": stash.stash.tag()}
+    model = out["model"] if keep_model else None
     del out
     emit(name, ok=bool(ok), arch=arch_id, d_model=rcfg.d_model,
          layers=rcfg.num_layers, heads=rcfg.num_heads,
@@ -1560,10 +1679,10 @@ def train_model_phase(torch, fc, plan_compiler, train_cli, einsum_ops, *,
          scans_per_step_expected=scans_per_step,
          attention_per_step_expected=attn_per_step, degrades=degrades,
          einsum_ops_in_plans=einsum_ops, max_memory_allocated=peak,
-         **probe)
+         **probe, **quant)
     if not ok:
         raise AssertionError(f"{name} phase failed")
-    return launches
+    return (launches, model) if keep_model else launches
 
 
 def state_phase(torch, fc, lm_mod, cfgbase, *, name: str, arch_id: str
@@ -1906,7 +2025,8 @@ def serve_qwen2_phase(torch, fc, plan_compiler, tm, steps_lib, profiles,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     tnn = dataclasses.replace(arch.tnn_default, backend="cuda")
-    model, cfg = steps_lib.build_model(arch, tnn, device=DEVICE, seed=0)
+    model, cfg = steps_lib.build_model(arch, tnn, device=DEVICE, seed=0,
+                                       num_layers=QWEN_SERVE_LAYERS)
     profiles.build_profiles(cfg, batch_size=BATCH, prefill_chunk=CHUNK)
     launches, runs, ok = {}, {}, True
     for kv, run in ((None, "serve_qwen2"), (QWEN_KV_POLICY,
@@ -2044,6 +2164,102 @@ def tick_spans_ms(torch, tm, model, vocab, ServeEngine, Request,
                                ("decode", "decode_step"))}
 
 
+class CountQuantized:
+    """Counts, while active, the quantized plan ops the plans run (around
+    ``plan_compiler._run_quantized``) and the scales ``quant.quantize``
+    derives from a tensor on the card (a requantize in torch ops, which
+    the requantize kernels replace there)."""
+
+    def __init__(self, plan_compiler):
+        self.pc = plan_compiler
+        self.counts = {"quantized_plan_ops": 0, "torch_op_requantizes": 0}
+
+    def __enter__(self):
+        run, quantize = self.pc._run_quantized, self.pc.q.quantize
+        self.saved = (run, quantize)
+
+        def counted_run(compiled, tensors, **kw):
+            self.counts["quantized_plan_ops"] += len(compiled.ops)
+            return run(compiled, tensors, **kw)
+
+        def counted_quantize(x, policy, scale=None, lead=0):
+            if scale is None and x.is_cuda:
+                self.counts["torch_op_requantizes"] += 1
+            return quantize(x, policy, scale=scale, lead=lead)
+
+        self.pc._run_quantized = counted_run
+        self.pc.q.quantize = counted_quantize
+        return self.counts
+
+    def __exit__(self, *exc):
+        self.pc._run_quantized, self.pc.q.quantize = self.saved
+        return False
+
+
+class ExpertActivity:
+    """How much of a MoE model's quantized experts is live, step by step,
+    while active: every model ``steps_lib.build_model`` builds gets
+    forward hooks on its quantized expert layers and gradient hooks on
+    their cores.  :meth:`step` (call it once a step) returns and resets
+    the step's counts, summed over layers, matrices and forward runs: of
+    the slots fed a non-zero input row, those whose output row is
+    non-zero (``rows_live`` of ``rows_fed``); the core gradients'
+    non-zero elements (``dcore_nonzero`` of ``dcore_elements``); and the
+    largest slot of any expert history (``hist_max``), which the
+    reference's sum over the token groups grows a step."""
+
+    def __init__(self, steps_lib):
+        self.lib = steps_lib
+        self.layers, self.out, self.grad = [], [], []
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.core.tensorized import TensorizedLinear
+        build = self.saved = self.lib.build_model
+
+        def count(*ts):
+            return torch.stack([t.sum() for t in ts])
+
+        def fwd(mod, inp, out):
+            fed = inp[0].detach().abs().amax(-1) > 0      # [E, G, C]
+            live = out.detach().abs().amax(-1) > 0
+            self.out.append(count(fed & live, fed))
+
+        def bwd(g):
+            self.grad.append(count(g.detach() != 0, torch.ones_like(
+                g, dtype=torch.bool)))
+
+        def built(*a, **k):
+            model, cfg = build(*a, **k)
+            for mod in model.modules():
+                if (isinstance(mod, TensorizedLinear) and mod.num_experts
+                        and mod.precision.quantized):
+                    self.layers.append(mod)
+                    mod.register_forward_hook(fwd)
+                    for c in mod.cores:
+                        c.register_hook(bwd)
+            return model, cfg
+
+        self.lib.build_model = built
+        return self
+
+    def __exit__(self, *exc):
+        self.lib.build_model = self.saved
+        return False
+
+    def step(self) -> dict:
+        import torch
+        if not self.layers:
+            return {}
+        o = torch.stack(self.out).sum(0).tolist() if self.out else [0, 0]
+        g = torch.stack(self.grad).sum(0).tolist() if self.grad else [0, 0]
+        hist = max(float(m.quant_amax.detach().max()) for m in self.layers)
+        self.out, self.grad = [], []
+        return {"rows_live": o[0], "rows_fed": o[1], "dcore_nonzero": g[0],
+                "dcore_elements": g[1], "hist_max": hist}
+
+
 def train_phase(torch, fc, plan_compiler, train_cli, einsum_ops, *,
                 name="train", precision=None, loss_scale=1.0,
                 bf16_last5=None) -> tuple[dict, float, dict]:
@@ -2063,33 +2279,14 @@ def train_phase(torch, fc, plan_compiler, train_cli, einsum_ops, *,
     torch.cuda.reset_peak_memory_stats()
     fc.reset_launches()
     plan_compiler.reset_degrade_counts()
-    run_quantized = plan_compiler._run_quantized
-    quantize = plan_compiler.q.quantize
-    counts = {"quantized_plan_ops": 0, "torch_op_requantizes": 0}
-
-    def counted_run(compiled, tensors, **kw):
-        counts["quantized_plan_ops"] += len(compiled.ops)
-        return run_quantized(compiled, tensors, **kw)
-
-    def counted_quantize(x, policy, scale=None):
-        if scale is None and x.is_cuda:
-            counts["torch_op_requantizes"] += 1
-        return quantize(x, policy, scale=scale)
-
-    if precision:
-        plan_compiler._run_quantized = counted_run
-        plan_compiler.q.quantize = counted_quantize
     t0 = time.perf_counter()
-    try:
+    with CountQuantized(plan_compiler) as counts:
         out = train_cli.train(ARCH, smoke=False, tnn=True, steps=TRAIN_STEPS,
                               global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
                               lr=TRAIN_LR, tnn_backend="cuda", device=DEVICE,
                               log_every=5, tnn_precision=precision,
                               loss_scale=loss_scale)
         torch.cuda.synchronize()
-    finally:
-        plan_compiler._run_quantized = run_quantized
-        plan_compiler.q.quantize = quantize
     wall = time.perf_counter() - t0
     launches = dict(fc.LAUNCHES)
     degrades = dict(plan_compiler.DEGRADE_COUNTS)
@@ -2291,40 +2488,57 @@ def prefill_route(torch, fc, model, vocab, Request, got: dict, cache_len
             "prefill_attention_launches": flash}
 
 
-def train_fp8_parity_phase(torch, arch, steps_lib, QuantPolicy) -> None:
+def train_fp8_parity_phase(torch, arch, steps_lib, QuantPolicy, *,
+                           name="train_fp8_parity", tnn=None,
+                           num_layers=None, exact_inputs=None,
+                           amax_metric="element") -> None:
     """``cuda`` against ``einsum`` under fp8 (loss scale 128, f32 compute)
-    for PARITY_STEPS steps from the same weights and batches.
+    for PARITY_STEPS steps from the same weights and batches (``arch``
+    with ``tnn`` for its TNN config and ``num_layers`` its depth when
+    given; both backends share one weight draw: the einsum model is the
+    cuda model's :func:`backend_twin`).
 
     * Exact: after the first step, the amaxes recorded before anything
-      quantized (every core's; the first layer's q/k/v input) agree
-      within 1e-6, and the cuda run at loss scale 1 is bit-identical to
-      the one at 128 except row 1 of each history (``amax(dy)``), which
-      is exactly 128 times smaller.
+      quantized (every core's; the input rows of ``exact_inputs``, by
+      default the first layer's q/k/v) agree within 1e-6, and the cuda
+      run at loss scale 1 is bit-identical to the one at 128 except row
+      1 of each history (``amax(dy)``), which is exactly 128 times
+      smaller.
     * fp8 training is chaotic at roundoff from the first step
       (per-tensor requantization after every contraction turns a one-ulp
       difference into a flipped fp8 rounding, which spreads: on an H100
       the nudge below moves the first step's grad norm by 0.15), so each
       backend is also run from its weights scaled by ``1 ± 2**-22`` (f32
       roundoff): at every step the backends' loss, grad norm and largest
-      relative amax difference stay within FP8_PARITY_FACTOR times that
-      envelope."""
+      amax difference stay within FP8_PARITY_FACTOR times that
+      envelope.  ``amax_metric`` ``"element"`` takes an amax's difference
+      relative to itself; ``"leaf"`` relative to its history leaf's
+      largest written slot (a MoE's expert histories, whose older slots
+      hold differences of close amaxes under the sum over groups)."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.optim.adamw import AdamW
-    tnn = dataclasses.replace(arch.tnn_default,
+    tnn = dataclasses.replace(tnn or arch.tnn_default,
                               precision=QuantPolicy.parse(FP8_POLICY))
-    base_sd = None
+    models, base = {}, {}
+
+    def model_for(backend):
+        if "cuda" not in models:
+            models["cuda"], base["cfg"] = steps_lib.build_model(
+                arch, tnn, device=DEVICE, seed=0, backend="cuda",
+                compute_dtype=torch.float32, num_layers=num_layers)
+            base["sd"] = {k: v.clone()
+                          for k, v in models["cuda"].state_dict().items()}
+        if backend not in models:
+            models[backend] = backend_twin(models["cuda"], backend)
+        return models[backend]
 
     def train(backend, nudge=0.0, loss_scale=FP8_LOSS_SCALE):
-        nonlocal base_sd
-        model, cfg = steps_lib.build_model(arch, tnn, device=DEVICE, seed=0,
-                                           backend=backend,
-                                           compute_dtype=torch.float32)
-        if base_sd is None:
-            base_sd = {k: v.clone() for k, v in model.state_dict().items()}
+        model = model_for(backend)
+        cfg = base["cfg"]
         model.load_state_dict({
             k: (v * (1 + nudge) if v.is_floating_point()
                 and not k.endswith("quant_amax") else v)
-            for k, v in base_sd.items()})
+            for k, v in base["sd"].items()})
         data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                                       global_batch=TRAIN_BATCH))
         opt = AdamW(lr=TRAIN_LR, total_steps=TRAIN_STEPS,
@@ -2343,13 +2557,17 @@ def train_fp8_parity_phase(torch, arch, steps_lib, QuantPolicy) -> None:
         return metrics, hists, {n: p.detach().clone()
                                 for n, p in params.items()}
 
+    def amax_gap(a, b):
+        if amax_metric == "leaf":
+            return float((a - b).abs().max() / b.abs().max())
+        return float(((a - b).abs() / b).max())
+
     def per_step(a, b):
-        """Per step: relative loss, grad norm and largest relative
-        difference of a written amax."""
+        """Per step: relative loss, grad norm and largest difference of a
+        written amax."""
         out = []
         for s_, ((la, ga), (lb, gb)) in enumerate(zip(a[0], b[0])):
-            h = max(float(((a[1][s_][n][:, :s_ + 1] - h_[:, :s_ + 1]).abs()
-                           / h_[:, :s_ + 1]).max())
+            h = max(amax_gap(a[1][s_][n][..., :s_ + 1], h_[..., :s_ + 1])
                     for n, h_ in b[1][s_].items())
             out.append((abs(la - lb) / abs(lb), abs(ga - gb) / abs(gb), h))
         return out
@@ -2370,11 +2588,12 @@ def train_fp8_parity_phase(torch, arch, steps_lib, QuantPolicy) -> None:
         ok = ok and good
     # Exact rows: what the first step recorded before anything quantized.
     h_c, h_e = runs["cuda"][1][0], runs["einsum"][1][0]
-    inputs = [f"layers.0.attn.{p}.quant_amax" for p in "qkv"]
-    exact = max([float(((h_c[n][2:, 0] - h_e[n][2:, 0]).abs()
-                        / h_e[n][2:, 0]).max()) for n in h_e]
-                + [float((h_c[n][0, 0] - h_e[n][0, 0]).abs() / h_e[n][0, 0])
-                   for n in inputs])
+    inputs = exact_inputs or [f"layers.0.attn.{p}.quant_amax"
+                              for p in "qkv"]
+    exact = max([float(((h_c[n][..., 2:, 0] - h_e[n][..., 2:, 0]).abs()
+                        / h_e[n][..., 2:, 0]).max()) for n in h_e]
+                + [float(((h_c[n][..., 0, 0] - h_e[n][..., 0, 0]).abs()
+                          / h_e[n][..., 0, 0]).max()) for n in inputs])
     report["exact_rows_rel"] = exact
     ok = ok and exact <= 1e-6
     # Loss scale: a power of two scales dy and its delayed scale alike.
@@ -2384,16 +2603,19 @@ def train_fp8_parity_phase(torch, arch, steps_lib, QuantPolicy) -> None:
     for n, t in p1.items():
         want = p128[n]
         if n.endswith("quant_amax"):
-            ls_exact = ls_exact and torch.equal(want[1], t[1] * FP8_LOSS_SCALE)
-            want, t = torch.cat([want[:1], want[2:]]), torch.cat([t[:1], t[2:]])
+            ls_exact = ls_exact and torch.equal(want[..., 1, :],
+                                                t[..., 1, :] * FP8_LOSS_SCALE)
+            want = torch.cat([want[..., :1, :], want[..., 2:, :]], dim=-2)
+            t = torch.cat([t[..., :1, :], t[..., 2:, :]], dim=-2)
         ls_exact = ls_exact and torch.equal(want, t)
     report["loss_scale_exact"] = bool(ls_exact)
     ok = ok and ls_exact
-    emit("train_fp8_parity", ok=ok, steps=PARITY_STEPS, policy=FP8_POLICY,
-         loss_scale=FP8_LOSS_SCALE, compute_dtype="float32",
+    emit(name, ok=ok, arch=arch.id, layers=base["cfg"].num_layers,
+         steps=PARITY_STEPS, policy=FP8_POLICY, loss_scale=FP8_LOSS_SCALE,
+         compute_dtype="float32", amax_metric=amax_metric,
          runs={b: r[0] for b, r in runs.items()}, **report)
     if not ok:
-        raise AssertionError("train fp8 parity failed")
+        raise AssertionError(f"{name} failed")
 
 
 def pp_off_geometries(cfg, fc, plan_compiler, profiles, tensorized):
@@ -2891,6 +3113,415 @@ def olmoe_kernel_phase(torch, fc, fa, ref, plan_compiler, profiles,
             "rank8_per_step": r_per_step}
 
 
+def olmoe_fp8_plan_ops(cfg, plan_compiler, profiles, tensorized,
+                      QuantPolicy, tokens):
+    """The compiled quantized plans a MoE model's expert layers run under
+    ``FP8_POLICY`` at ``tokens``, one group's slots of an expert (the
+    reference's vmap runs each (expert, group) instance at that batch):
+    ``[(runs a layer, phase, compiled, leads)]`` with ``leads`` each
+    plan slot's instance axes, 2 for an instance's tensor (x, dY, dW and
+    what they reach) and 1 for an expert's (its cores and their
+    products)."""
+    tnn = dataclasses.replace(cfg.tnn,
+                              precision=QuantPolicy.parse(FP8_POLICY))
+    m = cfg.moe
+    runs = {(cfg.d_model, m.d_ff_expert): 2, (m.d_ff_expert, cfg.d_model): 1}
+    out = []
+    for _, d_in, d_out in profiles.tensorized_projections(cfg):
+        layer = tensorized.make_tensorized_linear(
+            d_out, d_in, tnn, compute_dtype=cfg.compute_dtype,
+            device="meta", num_experts=m.num_experts)
+        for phase, results in tensorized.phase_plans(
+                layer.fact, tokens, layer.opts).items():
+            for r in results:
+                compiled = plan_compiler.compile_cached(
+                    r.plan, fuse=layer.opts.fused_chain,
+                    max_chain_len=layer.opts.max_chain_len,
+                    policy=layer.precision)
+                net = r.plan.network
+                leads = {i: 2 if net.node_names[i] in ("X", "dY", "dW")
+                         else 1 for i in range(net.num_nodes)}
+                for op in compiled.ops:
+                    reads = plan_compiler._op_reads(op)
+                    out_slot = (op.steps[-1].out
+                                if isinstance(op, plan_compiler.ChainOp)
+                                else op.step.out)
+                    leads[out_slot] = max(leads[s_] for s_ in reads)
+                out.append((runs[(d_in, d_out)], phase, compiled, leads))
+    return out
+
+
+def olmoe_fp8_geometries(plan_compiler, plans):
+    """Every geometry of :func:`olmoe_fp8_plan_ops`' plans, each
+    ``{geometry: phases}``: scaled GEMMs ``(m, n, k, transpose_rhs,
+    lhs lead, rhs lead)``, scaled chains ``(m0, link_shapes, leads)``,
+    quantized input nodes and dequantized outputs ``(lead, elements an
+    instance)``, and the op results requantized per instance ``{(lead,
+    shape, perm): phases}`` (the result as its kernel leaves it); and
+    the ``EinsumOp`` count."""
+    geo = {"gemm": {}, "chain": {}, "quantize": {}, "dequantize": {},
+           "requantize": {}}
+    einsum_ops = 0
+    for _, phase, compiled, leads in plans:
+        net = compiled.plan.network
+        sizes = net.sizes
+        for i in range(net.num_nodes):
+            geo["quantize"].setdefault(
+                (leads[i], math.prod(net.node_shape(i))), set()).add(phase)
+        last = compiled.plan.steps[-1].out
+        geo["dequantize"].setdefault(
+            (leads[last], math.prod(sizes[a] for a in net.output)),
+            set()).add(phase)
+        for op in compiled.ops:
+            if isinstance(op, plan_compiler.GemmOp):
+                mt = op.mat
+                geo["gemm"].setdefault(
+                    (mt.m, mt.n, mt.k, mt.transpose_rhs,
+                     leads[op.step.lhs], leads[op.step.rhs]),
+                    set()).add(phase)
+                axes, perm, out_slot = (mt.m_axes + mt.n_axes, mt.out_perm,
+                                        op.step.out)
+            elif isinstance(op, plan_compiler.ChainOp):
+                geo["chain"].setdefault(
+                    (op.m0, op.link_shapes,
+                     tuple(leads[s_] for s_ in plan_compiler._op_reads(op))),
+                    set()).add(phase)
+                axes, perm, out_slot = (op.m_axes + op.n_axes, op.out_perm,
+                                        op.steps[-1].out)
+            else:
+                einsum_ops += 1
+                continue
+            geo["requantize"].setdefault(
+                (leads[out_slot], tuple(sizes[a] for a in axes), perm),
+                set()).add(phase)
+    return geo, einsum_ops
+
+
+def olmoe_fp8_launches_per_step(fc, qk, plan_compiler, plans, cfg,
+                                dtype) -> dict:
+    """The launches one fp8 training step of the expert layers makes, by
+    launch key, as the compiled quantized plans predict (FP twice under
+    remat, BP and WG once): per plan op one batched scaled GEMM (and its
+    reduce where the instance's ``gemm_config`` splits K) or chain and
+    one batched requantize (two launches above
+    ``REQUANT_ONE_LAUNCH_MAX`` elements an instance); per plan one
+    quantize launch an input node (the per-row form, an instance a row)
+    and one dequantize launch."""
+    n = {"matmul_scaled_batched": 0, "matmul_scaled_batched_reduce": 0,
+         "chain_n_scaled_batched": 0, "requantize_batched": 0,
+         "requantize_batched_amax": 0, "quantize": 0, "dequantize": 0,
+         "matmul_batched": 0, "chain_n_batched": 0, "matmul_scaled": 0,
+         "chain_n_scaled": 0, "requantize": 0}
+    for runs, phase, compiled, _ in plans:
+        times = runs * (2 if phase == "fp" and cfg.remat else 1)
+        n["quantize"] += times * compiled.plan.network.num_nodes
+        n["dequantize"] += times
+        sizes = compiled.plan.network.sizes
+        for op in compiled.ops:
+            if isinstance(op, plan_compiler.GemmOp):
+                mt = op.mat
+                n["matmul_scaled_batched"] += times
+                if fc.gemm_config(mt.m, mt.n, mt.k, dtype,
+                                  mt.transpose_rhs).splits > 1:
+                    n["matmul_scaled_batched_reduce"] += times
+                axes = mt.m_axes + mt.n_axes
+            else:
+                n["chain_n_scaled_batched"] += times
+                axes = op.m_axes + op.n_axes
+            n["requantize_batched"] += times
+            if math.prod(sizes[a] for a in axes) > qk.REQUANT_ONE_LAUNCH_MAX:
+                n["requantize_batched_amax"] += times
+    return {k: v * cfg.num_layers for k, v in n.items()}
+
+
+def olmoe_fp8_kernel_phase(torch, fc, qk, ref, quant, QuantPolicy, cfg,
+                           plan_compiler, profiles, tensorized, totals
+                           ) -> dict:
+    """``olmoe_fp8_kernels``: the instance-batched B3-B6 at every
+    geometry of ``olmoe_1b_7b``'s fp8 training plans (full width, TT rank
+    64: an instance is one group's 24 slots of one expert, 8 groups x 64
+    experts = 512 instances; an expert's cores broadcast over its groups
+    with stride 0), in fp8_e4m3, fp8_e5m2 and int8, against the plain
+    versions (a loop of the unbatched forms): the scaled GEMM each
+    instance within 1e-5 of its own scale (exact f32 products summed in
+    another order), the scaled chain each instance by
+    ``ref.chain_readback_agreement``, two bf16 ulps and three instances
+    bit-equal to the unbatched kernel (at the rank-8 plans, where chains
+    fuse; none does at rank 64), the per-instance
+    quantize (the per-row
+    form on ``[I, -1]``), dequantize and batched requantize bit for bit,
+    scales included.  Timed in fp8_e4m3 beside the plain loop and the
+    bound (bytes at 3.35 TB/s: each input once, an expert's cores once
+    for all its groups; operations at the fp8 peak).  Returns the plans'
+    ``EinsumOp`` count and the launches a step they predict (full
+    rank at OLMOE_FP8_LAYERS, and the rank-8 two-layer run's)."""
+    E = cfg.moe.num_experts
+    G = TRAIN_BATCH
+    C = profiles.expert_tokens(cfg, 1, TRAIN_SEQ)
+    plans = olmoe_fp8_plan_ops(cfg, plan_compiler, profiles, tensorized,
+                               QuantPolicy, C)
+    geo, einsum_ops = olmoe_fp8_geometries(plan_compiler, plans)
+    r_cfg = dataclasses.replace(cfg, tnn=dataclasses.replace(
+        cfg.tnn, rank=OLMOE_CHAIN_RANK), num_layers=STATE_LAYERS)
+    r_plans = olmoe_fp8_plan_ops(r_cfg, plan_compiler, profiles,
+                                 tensorized, QuantPolicy, C)
+    r_geo, r_einsum = olmoe_fp8_geometries(plan_compiler, r_plans)
+    gen = torch.Generator(device=DEVICE).manual_seed(28)
+    shape_of = {2: (E, G), 1: (E,)}
+
+    def kernel_ms(fn):
+        # 25 calls: the largest geometries move GBs a call
+        return device_ms(torch, fn, inner=5, reps=5)
+
+    def plain_ms(fn):
+        # the plain GEMM and chain are loops of 512 instances: one warm-up
+        # call, then one call captured and replayed twice
+        return device_ms(torch, fn, inner=1, reps=2, warmups=1)
+
+    def rand(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=DEVICE) * scale
+
+    def bits(t):
+        return t.contiguous().reshape(-1).view(torch.uint8)
+
+    def wide(t, lead, to):
+        """An expert's tensor (lead 1) broadcast over the groups."""
+        if lead == to:
+            return t
+        return t.unsqueeze(1).expand((E, G) + tuple(t.shape[1:]))
+
+    def per_instance_ok(got, want, lead, tol_rel):
+        err = (got - want).abs().flatten(lead).amax(-1)
+        scale = want.abs().flatten(lead).amax(-1)
+        return bool((err <= tol_rel * scale).all()), float(err.max()), \
+            float(scale.max())
+
+    def account(name, path, err, timed):
+        t = totals[name]
+        t["max_abs_err"] = max(t["max_abs_err"], err)
+        if timed is not None:
+            add_total(t.setdefault(path, new_totals()), *timed)
+
+    def fail(name, rec):
+        emit(f"kernel:{name}", ok=False, **rec)
+        raise AssertionError(f"{name} kernel disagrees: {rec}")
+
+    path = "train_olmoe_fp8"
+    for dname in QUANT_DTYPES:
+        pol = QuantPolicy.parse(dname)
+        timing = dname == QUANT_DTYPES[0]
+        for (lead, cols), phases in sorted(geo["quantize"].items()):
+            rows = math.prod(shape_of[lead])
+            x = rand((rows, cols), 3.0).to(cfg.compute_dtype)
+            s_ = quant.compute_scale(x.float().abs().amax(-1, keepdim=True),
+                                     pol.qmax, pol.margin)
+            q = qk.quantize_cuda(x, s_, pol)
+            d = qk.dequantize_cuda(q, s_)
+            rec = {"path": path, "instances": rows, "cols": cols,
+                   "lead": lead, "phases": sorted(phases), "dtype": dname,
+                   "form": "per_row", "bit_exact": torch.equal(
+                       bits(q), bits(ref.quantize(x, s_, pol)))}
+            if not rec["bit_exact"]:
+                fail("quantize", rec)
+            timed = None
+            if timing:
+                ms = kernel_ms(lambda: qk.quantize_cuda(x, s_, pol))
+                plain = plain_ms(lambda: ref.quantize(x, s_, pol))
+                b, by = bound_ms(rows * cols * 3 + 4 * rows, 3 * rows * cols,
+                                 "float32")
+                timed = (ms, plain, None, b, by)
+                rec.update(ms=ms, plain_ms=plain, library_ms=None,
+                           bound_ms=b, bound_by=by)
+            emit("kernel:quantize", ok=True, **rec)
+            account("quantize", path, 0.0, timed)
+        for (lead, cols), phases in sorted(geo["dequantize"].items()):
+            rows = math.prod(shape_of[lead])
+            t, s_ = ref.requantize(rand((rows, cols), 3.0), pol, 1)
+            s_ = s_.reshape(rows, 1)
+            got = qk.dequantize_cuda(t, s_)
+            rec = {"path": path, "instances": rows, "cols": cols,
+                   "lead": lead, "phases": sorted(phases), "dtype": dname,
+                   "form": "per_row", "bit_exact": torch.equal(
+                       bits(got), bits(ref.dequantize(t, s_)))}
+            if not rec["bit_exact"]:
+                fail("dequantize", rec)
+            timed = None
+            if timing:
+                ms = kernel_ms(lambda: qk.dequantize_cuda(t, s_))
+                plain = plain_ms(lambda: ref.dequantize(t, s_))
+                b, by = bound_ms(rows * cols * 5 + 4 * rows, rows * cols,
+                                 "float32")
+                timed = (ms, plain, None, b, by)
+                rec.update(ms=ms, plain_ms=plain, library_ms=None,
+                           bound_ms=b, bound_by=by)
+            emit("kernel:dequantize", ok=True, **rec)
+            account("dequantize", path, 0.0, timed)
+        inter = dataclasses.replace(pol, granularity="tensor")
+        for (lead, shape, perm), phases in sorted(
+                geo["requantize"].items(), key=str):
+            x = rand(shape_of[lead] + shape, 3.0)
+            if perm is not None:
+                x = x.permute(tuple(range(lead))
+                              + tuple(p_ + lead for p_ in perm))
+            gq, gs = qk.requantize_cuda(x, pol, lead)
+            wq, ws = ref.requantize(x, pol, lead)
+            n = math.prod(shape)
+            rec = {"path": path, "lead": lead, "instances":
+                   math.prod(shape_of[lead]), "numel_per_instance": n,
+                   "shape": list(x.shape), "permuted": perm is not None,
+                   "phases": sorted(phases), "dtype": dname,
+                   "launches_per_call": qk.requantize_launches(n),
+                   "bit_exact": (torch.equal(bits(gq), bits(wq))
+                                 and torch.equal(bits(gs), bits(ws))),
+                   "strides_match": gq.stride() == wq.stride(),
+                   "torch_ops_scale_bit_equal": torch.equal(
+                       bits(gs), bits(quant.quantize(x, inter,
+                                                     lead=lead).scale))}
+            if not (rec["bit_exact"] and rec["strides_match"]
+                    and rec["torch_ops_scale_bit_equal"]):
+                fail("requantize_batched", rec)
+            timed = None
+            if timing:
+                ms = kernel_ms(lambda: qk.requantize_cuda(x, pol, lead))
+                plain = plain_ms(lambda: ref.requantize(x, pol, lead))
+                total = x.numel()
+                b, by = bound_ms(5 * total + 4 * total // n, 4 * total,
+                                 "float32")
+                timed = (ms, plain, None, b, by)
+                rec.update(ms=ms, plain_ms=plain, library_ms=None,
+                           bound_ms=b, bound_by=by)
+            emit("kernel:requantize_batched", ok=True, **rec)
+            account("requantize_batched", path, 0.0, timed)
+        for (m, n, k, trans, ll, lr), phases in sorted(geo["gemm"].items()):
+            lead = max(ll, lr)
+            qx = quant.quantize(rand(shape_of[ll] + (m, k)), pol, lead=ll)
+            qw = quant.quantize(rand(shape_of[lr] + ((n, k) if trans
+                                                     else (k, n))),
+                                pol, lead=lr)
+            x, w = wide(qx.q, ll, lead), wide(qw.q, lr, lead)
+            sl, sr = wide(qx.scale, ll, lead), wide(qw.scale, lr, lead)
+            got = fc.matmul_cuda(x, w, transpose_rhs=trans, scales=(sl, sr))
+            want = ref.matmul_scaled(x, w, sl, sr, transpose_rhs=trans)
+            torch.cuda.synchronize()
+            ok, err, scale = per_instance_ok(got, want, lead, 1e-5)
+            rec = {"path": path, "m": m, "n": n, "k": k,
+                   "transpose_rhs": trans, "leads": [ll, lr],
+                   "instances": math.prod(shape_of[lead]),
+                   "phases": sorted(phases), "dtype": dname,
+                   "max_abs_err": err, "scale": scale,
+                   "tol": "1e-5 of each instance's scale",
+                   "config": gemm_config_rec(fc, x, w, trans)}
+            if not ok:
+                fail("matmul_scaled_batched", rec)
+            timed = None
+            if timing:
+                inst = math.prod(shape_of[lead])
+                ms = kernel_ms(lambda: fc.matmul_cuda(
+                    x, w, transpose_rhs=trans, scales=(sl, sr)))
+                plain = plain_ms(lambda: ref.matmul_scaled(
+                    x, w, sl, sr, transpose_rhs=trans))
+                b, by = bound_ms(
+                    qx.q.numel() + qw.q.numel() + 4 * (qx.scale.numel()
+                                                       + qw.scale.numel())
+                    + 4 * inst * m * n, 2 * inst * m * n * k, "fp8")
+                timed = (ms, plain, None, b, by)
+                rec.update(ms=ms, plain_ms=plain, library_ms=None,
+                           library_note="no PyTorch call computes a "
+                           "batched scaled GEMM with per-instance scales",
+                           bound_ms=b, bound_by=by)
+            emit("kernel:matmul_scaled_batched", ok=True, **rec)
+            account("matmul_scaled_batched", path, err, timed)
+        for (m0, shapes, leads), phases in sorted(r_geo["chain"].items()):
+            lead = max(leads)
+            qx = quant.quantize(rand(shape_of[leads[0]]
+                                     + (m0, shapes[0][0])), pol,
+                                lead=leads[0])
+            qws = [quant.quantize(rand(shape_of[li] + s_), pol, lead=li)
+                   for li, s_ in zip(leads[1:], shapes)]
+            x = wide(qx.q, leads[0], lead)
+            ws = [wide(w.q, li, lead) for w, li in zip(qws, leads[1:])]
+            sc = [wide(t.scale, li, lead) for t, li in zip([qx, *qws],
+                                                          leads)]
+            scales = (sc[0] * sc[1], *sc[2:])
+            got = fc.chain_n_cuda(x, ws, scales=scales)
+            want = ref.chain_n_scaled(x, ws, scales)
+            torch.cuda.synchronize()
+            gw = got.flatten(0, lead - 1)
+            ww = want.flatten(0, lead - 1)
+            checks = [ref.chain_scaled_agreement(a, b_)
+                      for a, b_ in zip(gw, ww)]
+            good, readback = ref.chain_readback_agreement(
+                fc.chain_n_cuda, x, ws, scales)
+            # The batch indexing changes no sum: three instances launched
+            # alone through the unbatched kernel equal the batched output
+            # bit for bit.
+            alone = []
+            for e_, g_ in ((0, 0), (E // 2, 1), (E - 1, G - 1)):
+                one = fc.chain_n_cuda(
+                    x[e_, g_], [w[e_, g_] for w in ws],
+                    scales=(scales[0][e_, g_].expand(m0, 1).contiguous(),
+                            scales[1][e_, g_].expand(
+                                1, shapes[-1][1]).contiguous()))
+                alone.append(torch.equal(one, got[e_, g_]))
+            readback["unbatched_bit_equal"] = alone
+            good = good and all(alone) and all(
+                c_[1]["max_abs_err"] <= c_[1]["tol_abs"] for c_ in checks)
+            err = max(c_[1]["max_abs_err"] for c_ in checks)
+            rows, _ = fc.chain_plan(m0, shapes)
+            rec = {"path": "train_olmoe_fp8_rank8", "m0": m0,
+                   "links": [list(s_) for s_ in shapes],
+                   "leads": list(leads), "instances": len(checks),
+                   "phases": sorted(phases), "dtype": dname,
+                   **chain_config_rec(fc, x, ws), "max_abs_err": err,
+                   "rule": "chain_readback_agreement per instance, and "
+                   "no element beyond two bf16 ulps of its scale",
+                   "readback": readback,
+                   "elements_rule_passed": sum(c_[0] for c_ in checks),
+                   "worst": max((c_[1] for c_ in checks),
+                                key=lambda d: d["share_beyond_1e-5"])}
+            if not good:
+                fail("chain_n_scaled_batched", rec)
+            timed = None
+            if timing:
+                inst = len(checks)
+                ms = kernel_ms(lambda: fc.chain_n_cuda(x, ws, scales=scales))
+                plain = plain_ms(lambda: ref.chain_n_scaled(x, ws, scales))
+                nbytes = (qx.q.numel() + sum(w.q.numel() for w in qws)
+                          + 4 * sum(s_.numel() for s_ in sc)
+                          + 4 * inst * rows[-1] * shapes[-1][1])
+                flops = inst * sum(2 * r * a * c for r, (a, c)
+                                   in zip(rows, shapes))
+                b, by = bound_ms(nbytes, flops, "fp8")
+                timed = (ms, plain, None, b, by)
+                rec.update(ms=ms, plain_ms=plain, library_ms=None,
+                           bound_ms=b, bound_by=by)
+            emit("kernel:chain_n_scaled_batched", ok=True, **rec)
+            account("chain_n_scaled_batched", "train_olmoe_fp8_rank8", err,
+                    timed)
+    dtype = QuantPolicy.parse(FP8_POLICY).operand_dtype
+    per_step = olmoe_fp8_launches_per_step(
+        fc, qk, plan_compiler, plans,
+        dataclasses.replace(cfg, num_layers=OLMOE_FP8_LAYERS), dtype)
+    r_per_step = olmoe_fp8_launches_per_step(fc, qk, plan_compiler, r_plans,
+                                             r_cfg, dtype)
+    emit("olmoe_fp8_kernels", ok=True, arch=OLMOE_ARCH, experts=E,
+         groups=G, slots_per_instance=C, instances=E * G,
+         tnn_rank=cfg.tnn.rank, chain_rank=OLMOE_CHAIN_RANK,
+         geometries={k: len(v) for k, v in geo.items()},
+         rank8_chains=len(r_geo["chain"]), einsum_ops=einsum_ops,
+         launches_per_train_step_predicted=per_step,
+         rank8_launches_per_train_step_predicted=r_per_step,
+         sums={name: {p_: {k: (sorted(v) if isinstance(v, set) else v)
+                           for k, v in totals[name][p_].items()}
+                      for p_ in (path, "train_olmoe_fp8_rank8")
+                      if p_ in totals[name]}
+               for name in ALL_KERNELS})
+    if not geo["gemm"] or not r_geo["chain"] or einsum_ops or r_einsum:
+        raise AssertionError("olmoe_fp8_kernels: a batched form went "
+                             "unchecked, or a plan lowers to einsum")
+    return {"per_step": per_step, "rank8_per_step": r_per_step}
+
+
 def routing_agreement(torch, models: dict, batch) -> dict:
     """How far the same batch through ``models`` (``{"cuda": ...,
     "einsum": ...}``, same weights) routes alike, each MoE layer's top-k
@@ -2931,8 +3562,9 @@ def routing_agreement(torch, models: dict, batch) -> dict:
 
 def serve_olmoe_phase(torch, fc, plan_compiler, tm, steps_lib, profiles,
                       arch, ServeEngine, Request):
-    """``olmoe_1b_7b`` at full width and depth (``--tnn``'s default,
-    ``cuda`` backend, bf16) through ``ServeEngine`` (its native
+    """``olmoe_1b_7b`` at full width, OLMOE_SERVE_LAYERS of its 16
+    layers (``--tnn``'s default, ``cuda`` backend, bf16) through
+    ``ServeEngine`` (its native
     ``extend``: each slot one token group) at the serve CLI's defaults:
     every request completes, the batched GEMM launched, no runtime
     degrade; tok/s and tick times.  Returns the run's launches and the
@@ -2940,7 +3572,8 @@ def serve_olmoe_phase(torch, fc, plan_compiler, tm, steps_lib, profiles,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     tnn = dataclasses.replace(arch.tnn_default, backend="cuda")
-    model, cfg = steps_lib.build_model(arch, tnn, device=DEVICE, seed=0)
+    model, cfg = steps_lib.build_model(arch, tnn, device=DEVICE, seed=0,
+                                       num_layers=OLMOE_SERVE_LAYERS)
     prof = profiles.build_profiles(cfg, batch_size=BATCH,
                                    prefill_chunk=CHUNK)
     fc.reset_launches()
@@ -3499,7 +4132,8 @@ def main() -> int:
     launches["train_zamba2"] = train_model_phase(
         torch, fc, plan_compiler, train_cli, z_einsum_ops,
         name="train_zamba2", arch_id=ZAMBA_ARCH, steps=ZAMBA_STEPS,
-        lr=ZAMBA_LR, tnn_cfg=z_arch.tnn_one_card)
+        lr=ZAMBA_LR, tnn_cfg=z_arch.tnn_one_card,
+        num_layers=ZAMBA_TRAIN_LAYERS)
 
     # -- 17. the hybrid's decode state through prefill -> decode ----------------
     state_phase(torch, fc, lm_mod, cfgbase, name="zamba2_state",
@@ -3572,6 +4206,40 @@ def main() -> int:
     del o_model
     emit("olmoe_profile", ok=o_prof["device_busy_ms_per_step"]
          != "not measured", **o_prof)
+
+    # -- 27a. olmoe_1b_7b's quantized experts: the instance-batched B3-B6 ----
+    of_plans = olmoe_fp8_kernel_phase(torch, fc, qk, ref, quant, QuantPolicy,
+                                      o_cfg, plan_compiler, profiles,
+                                      tensorized, totals)
+
+    # -- 27b. fp8 training at full width; its profile; rank 8 (chains) -------
+    launches["train_olmoe_fp8"], of_model = train_model_phase(
+        torch, fc, plan_compiler, train_cli, 0, name="train_olmoe_fp8",
+        arch_id=OLMOE_ARCH, steps=OLMOE_STEPS, lr=OLMOE_FP8_LR,
+        batched_per_step=of_plans["per_step"], num_layers=OLMOE_FP8_LAYERS,
+        precision=FP8_POLICY, loss_scale=FP8_LOSS_SCALE, keep_model=True)
+    of_prof = train_profile.profile(FP8_POLICY, FP8_LOSS_SCALE, OLMOE_ARCH,
+                                    model=of_model,
+                                    warmup=OLMOE_PROFILE_STEPS[0],
+                                    steps=OLMOE_PROFILE_STEPS[1])
+    del of_model
+    emit("train_olmoe_fp8_profile", ok=of_prof["device_busy_ms_per_step"]
+         != "not measured", layers=OLMOE_FP8_LAYERS, **of_prof)
+    launches["train_olmoe_fp8_rank8"] = train_model_phase(
+        torch, fc, plan_compiler, train_cli, 0,
+        name="train_olmoe_fp8_rank8", arch_id=OLMOE_ARCH,
+        steps=OLMOE_CHAIN_STEPS, lr=OLMOE_LR,
+        tnn_cfg=dataclasses.replace(o_arch.tnn_default,
+                                    rank=OLMOE_CHAIN_RANK),
+        num_layers=STATE_LAYERS, batched_per_step=of_plans["rank8_per_step"],
+        precision=FP8_POLICY, loss_scale=FP8_LOSS_SCALE)
+
+    # -- 27c. fp8: cuda against einsum at 2 layers, f32 ------------------------
+    train_fp8_parity_phase(
+        torch, o_arch, steps_lib, QuantPolicy, name="olmoe_fp8_parity",
+        tnn=o_arch.tnn_default, num_layers=STATE_LAYERS,
+        exact_inputs=[f"layers.0.mlp.experts.{p}.quant_amax"
+                      for p in ("gate", "up")], amax_metric="leaf")
 
     # -- 28. the kernels at seamless_m4t_medium's main-path shapes ------------
     s_arch = cfgbase.get(SEAMLESS_ARCH)
@@ -3650,6 +4318,8 @@ def main() -> int:
                 launches["train_qwen2"][name] / QWEN_STEPS,
             "launches_per_olmoe_train_step":
                 launches["train_olmoe"][name] / OLMOE_STEPS,
+            "launches_per_olmoe_fp8_train_step":
+                launches["train_olmoe_fp8"][name] / OLMOE_STEPS,
             "launches_per_seamless_train_step":
                 launches["train_seamless"][name] / SEAMLESS_STEPS,
             "max_abs_err": t["max_abs_err"],

@@ -16,7 +16,14 @@ kernels' fused scales).
 carries a leading expert axis (``[E, *node_shape]``), each einsum step
 gets one more letter and the kernel backend launches the batched
 kernels, one launch for all E (the reference's ``jax.vmap`` over the
-experts' stacked cores).  Quantized execution takes no batch axis.
+experts' stacked cores).  Under a quantized policy ``groups=G`` adds the
+token groups: a tensor is then an expert's (``[E, *node_shape]``, its
+cores) or an instance's (``[E, G, *node_shape]``), every quantize and
+requantize is per expert or per instance, and a step with an instance
+operand is per instance (the reference's ``jax.vmap`` over the groups of
+its quantized layer, with the cores broadcast, inside the vmap over the
+experts): on the einsum backend the group axis is one more letter, the
+CPU oracle of the kernels' instance batch.
 
 Not ported yet: the SPMD ``mesh`` path (distributed slice, ROADMAP.md
 queue A).
@@ -72,6 +79,30 @@ def _einsum_step(step: ContractionStep, lhs: torch.Tensor,
                         rhs.float())
 
 
+def _einsum_step_lead(step: ContractionStep, lhs: torch.Tensor,
+                      rhs: torch.Tensor, lhs_lead: int, rhs_lead: int
+                      ) -> torch.Tensor:
+    """:func:`_einsum_step` on operands with ``lhs_lead`` / ``rhs_lead``
+    leading instance axes (0; 1, an expert's; 2, an (expert, group)
+    instance's): the expert and group axes as two more letters, the
+    result carrying the most either operand has."""
+    if lhs_lead == rhs_lead < 2:
+        return _einsum_step(step, lhs, rhs, batched=bool(lhs_lead))
+    axes = []
+    for a in step.lhs_axes + step.rhs_axes + step.out_axes:
+        if a not in axes:
+            axes.append(a)
+    if len(axes) + 2 > len(_LETTERS):
+        raise ValueError(f"too many axes in one step: {len(axes)}")
+    sym = {a: _LETTERS[i + 2] for i, a in enumerate(axes)}
+    inst = _LETTERS[:2]
+    lead = max(lhs_lead, rhs_lead)
+    spec = (f"{inst[:lhs_lead]}{''.join(sym[a] for a in step.lhs_axes)},"
+            f"{inst[:rhs_lead]}{''.join(sym[a] for a in step.rhs_axes)}->"
+            f"{inst[:lead]}{''.join(sym[a] for a in step.out_axes)}")
+    return torch.einsum(spec, lhs.float(), rhs.float())
+
+
 def output_perm(plan: ContractionPlan, lead: int = 0):
     """The permute taking the last step's output axes to the network's
     output order (after ``lead`` batch axes), or None."""
@@ -86,9 +117,13 @@ def execute(plan: ContractionPlan, tensors: Sequence[torch.Tensor],
             out_dtype=None, backend: str = "einsum",
             fused_chain: bool = True, max_chain_len: int = 2,
             policy=None, input_scales=None,
-            batch: int | None = None) -> torch.Tensor:
+            batch: int | None = None,
+            groups: int | None = None) -> torch.Tensor:
     """Run the plan over concrete tensors (one per network node, in order;
-    with ``batch`` each ``[batch, *node_shape]``).
+    with ``batch`` each ``[batch, *node_shape]``, and with ``groups``
+    (quantized only) each ``[batch, *node_shape]`` or ``[batch, groups,
+    *node_shape]``: the result is per instance, ``[batch, groups, ...]``,
+    when any input is).
 
     ``fused_chain`` / ``max_chain_len`` steer the cuda backend's chain
     fusion (the einsum backend runs step by step either way).
@@ -102,6 +137,8 @@ def execute(plan: ContractionPlan, tensors: Sequence[torch.Tensor],
     per tensor; the result is a real (dequantized) tensor.
     ``input_scales`` (one f32 scale or None per node) overrides the
     just-in-time amax scales: the delayed scaling of ``TensorizedLinear``.
+    Batched, a node's scale is one per leading index (``[batch]`` or
+    ``[batch, groups]``, its tensor's leading axes).
     """
     from repro_torch.core.policy import ExecutionPolicy
     if isinstance(policy, ExecutionPolicy):
@@ -116,15 +153,16 @@ def execute(plan: ContractionPlan, tensors: Sequence[torch.Tensor],
         raise ValueError(f"plan has {net.num_nodes} nodes, got "
                          f"{len(tensors)} tensors")
     lead = () if batch is None else (batch,)
+    if groups is not None and (batch is None or policy is None):
+        raise ValueError("groups need a batch and a quantized policy")
     for i, t in enumerate(tensors):
-        if tuple(t.shape) != lead + net.node_shape(i):
+        shapes = [lead + net.node_shape(i)]
+        if groups is not None:
+            shapes.append(lead + (groups,) + net.node_shape(i))
+        if tuple(t.shape) not in shapes:
             raise ValueError(f"node {net.node_names[i]}: expected "
-                             f"{lead + net.node_shape(i)}, got "
+                             f"{' or '.join(map(str, shapes))}, got "
                              f"{tuple(t.shape)}")
-    if batch is not None and policy is not None:
-        raise NotImplementedError(
-            "quantized execution with an expert batch axis is not ported "
-            "yet (ROADMAP.md, queue A item 13)")
     if out_dtype is None:
         out_dtype = tensors[0].dtype
 
@@ -139,7 +177,7 @@ def execute(plan: ContractionPlan, tensors: Sequence[torch.Tensor],
 
     if policy is not None:
         return _execute_einsum_quantized(plan, tensors, policy, input_scales,
-                                         out_dtype)
+                                         out_dtype, batch is not None)
 
     if not plan.steps:                      # single-node network
         return tensors[0].to(out_dtype)
@@ -160,28 +198,39 @@ def execute(plan: ContractionPlan, tensors: Sequence[torch.Tensor],
 
 
 def _execute_einsum_quantized(plan: ContractionPlan, tensors, policy,
-                              input_scales, out_dtype) -> torch.Tensor:
+                              input_scales, out_dtype, batched: bool = False
+                              ) -> torch.Tensor:
     """Reference semantics of quantized execution: quantize the input
     nodes (delayed scales where given), dequantize and einsum every step
-    with f32 accumulation, requantize each intermediate per tensor."""
+    with f32 accumulation, requantize each intermediate per tensor.
+    ``batched``: per expert or per (expert, group) instance, by each
+    tensor's leading axes (:func:`execute`)."""
     from repro_torch.precision import quant as q
 
     inter_policy = dataclasses.replace(policy, granularity="tensor")
     net = plan.network
-    qslots = dict(enumerate(q.quantize_nodes(tensors, policy, input_scales)))
+    leads = [t.dim() - len(net.node_shape(i)) if batched else 0
+             for i, t in enumerate(tensors)]
+    qslots = {i: q.quantize(x, policy, lead=leads[i],
+                            scale=None if input_scales is None
+                            else input_scales[i])
+              for i, x in enumerate(tensors)}
     if not plan.steps:
         return q.dequantize(qslots[0], out_dtype)
     for step in plan.steps:
-        res = _einsum_step(step, q.dequantize(qslots[step.lhs]),
-                           q.dequantize(qslots[step.rhs]))
-        qslots[step.out] = q.quantize(res, inter_policy)
+        ql, qr = qslots[step.lhs], qslots[step.rhs]
+        res = _einsum_step_lead(step, q.dequantize(ql), q.dequantize(qr),
+                                ql.lead, qr.lead)
+        qslots[step.out] = q.quantize(res, inter_policy,
+                                      lead=max(ql.lead, qr.lead))
         for op in (step.lhs, step.rhs):
             if op in qslots and not _used_later(plan, step, op):
                 del qslots[op]
-    out = q.dequantize(qslots[plan.steps[-1].out])
-    last_axes = plan.steps[-1].out_axes
-    if last_axes != net.output:
-        out = out.permute(tuple(last_axes.index(a) for a in net.output))
+    final = qslots[plan.steps[-1].out]
+    out = q.dequantize(final)
+    perm = output_perm(plan, final.lead)
+    if perm is not None:
+        out = out.permute(perm)
     return out.to(out_dtype)
 
 

@@ -35,7 +35,12 @@ reference's:
    output through the dequantize kernel.  A quantized chain the kernel
    refuses at run time raises on the card (compilation fused it against
    the wrapper's own budget, so that is a fault); CPU operands run the
-   plain chain math instead, counted as ``runtime_quantized``.
+   plain chain math instead, counted as ``runtime_quantized``.  With an
+   instance batch (a MoE's quantized experts: every tensor ``[E, ...]``
+   for an expert's, ``[E, G, ...]`` for an (expert, group) instance's)
+   each tensor carries one per-tensor scale per expert or instance, and
+   each op is one launch of the batched kernels for all of them, an
+   expert's operand broadcast over its groups without copies.
 
 Because the shared-memory budget (227 KB) differs from the reference's
 VMEM budget (100 MiB), fusion choices may differ from the reference's;
@@ -54,7 +59,7 @@ import torch
 
 from repro_torch import telemetry as tm
 from repro_torch.core.contraction import (
-    _einsum_spec, _einsum_step, output_perm,
+    _einsum_spec, _einsum_step, _einsum_step_lead, output_perm,
 )
 from repro_torch.core.tnetwork import AxisId, ContractionPlan, ContractionStep
 from repro_torch.kernels import ops, ref
@@ -469,8 +474,10 @@ def run(compiled: CompiledPlan, tensors: Sequence[torch.Tensor],
     each layout copy; the GEMM and chain ops then launch the batched
     kernels (3-D operands, one launch for every expert), a refused chain
     degrades to one batched GEMM launch per link, and the einsum fallback
-    gets the axis as one more letter.  No autograd or quantized route
-    takes the axis.
+    gets the axis as one more letter.  A quantized plan takes, besides,
+    a group axis on the tensors that carry one (``[E, G, ...]``: the
+    (expert, group) instances, :func:`_run_quantized`).  No autograd
+    route takes the axes.
 
     When autograd records (grad mode on and an input that requires a
     gradient: ``phase_paths=False`` training), the GEMM and chain ops
@@ -483,13 +490,13 @@ def run(compiled: CompiledPlan, tensors: Sequence[torch.Tensor],
     if out_dtype is None:
         out_dtype = tensors[0].dtype
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-    if batched and (compiled.policy is not None or grad):
+    if batched and grad:
         raise NotImplementedError(
-            "an expert-batched plan runs unquantized and outside autograd "
-            "(ROADMAP.md, queue A items 13 and 14)")
+            "an expert-batched plan runs outside autograd (ROADMAP.md, "
+            "queue A item 14)")
     if compiled.policy is not None:
         return _run_quantized(compiled, tensors, out_dtype=out_dtype,
-                              input_scales=input_scales)
+                              input_scales=input_scales, batched=batched)
     if not plan.steps:
         return tensors[0].to(out_dtype)
 
@@ -569,10 +576,22 @@ def run(compiled: CompiledPlan, tensors: Sequence[torch.Tensor],
 # ---------------------------------------------------------------------------
 
 
-def _quantize_input(x: torch.Tensor, scale, policy) -> q.QTensor:
+def _quantize_input(x: torch.Tensor, scale, policy, lead: int = 0
+                    ) -> q.QTensor:
     """An input node in the policy dtype: >= 2-D nodes through the
     quantize kernel on their ``[rows, -1]`` view, with the per-tensor
-    scale as is or tile scales expanded per row."""
+    scale as is or tile scales expanded per row.  ``lead`` instance axes
+    (an expert's tensor ``[E, ...]``, an instance's ``[E, G, ...]``):
+    each instance a row of ``[I, -1]`` and its per-tensor scale that
+    row's, the kernel's per-row form."""
+    if lead:
+        if scale is None:
+            scale = qpolicy.compute_scale(qpolicy.lead_amax(x, lead),
+                                          policy.qmax, policy.margin)
+        rows = math.prod(x.shape[:lead])
+        q2 = quantize_cuda(x.reshape(rows, -1).contiguous(),
+                           scale.reshape(rows, 1).contiguous(), policy)
+        return q.QTensor(q=q2.reshape(x.shape), scale=scale, lead=lead)
     if x.dim() < 2:
         return q.quantize(x, policy, scale=scale)
     if scale is None:
@@ -592,7 +611,13 @@ def _quantize_input(x: torch.Tensor, scale, policy) -> q.QTensor:
 
 def _dequantize_output(t: q.QTensor) -> torch.Tensor:
     """The plan output back to f32 through the dequantize kernel, on its
-    ``[rows, -1]`` view (the reference's ``quant.dequantize``)."""
+    ``[rows, -1]`` view (the reference's ``quant.dequantize``); batched,
+    each instance a row with its scale (the per-row form)."""
+    if t.lead:
+        rows = math.prod(t.q.shape[:t.lead])
+        out = dequantize_cuda(t.q.reshape(rows, -1).contiguous(),
+                              t.scale.reshape(rows, 1).contiguous())
+        return out.reshape(t.q.shape)
     if t.q.dim() < 2:
         return q.dequantize(t)
     rows = t.q.shape[0]
@@ -602,19 +627,33 @@ def _dequantize_output(t: q.QTensor) -> torch.Tensor:
     return out.reshape(t.q.shape)
 
 
-def _requantize(res: torch.Tensor, policy) -> q.QTensor:
-    """An op's f32 result back in the policy dtype, per tensor: on the
-    card through the requantize kernel (amax, scale and cast; a permuted
-    result is walked in its storage order, no copy), on the CPU through
-    ``quant.quantize``, the plain ops the kernel is held to."""
+def _requantize(res: torch.Tensor, policy, lead: int = 0) -> q.QTensor:
+    """An op's f32 result back in the policy dtype, per tensor (per
+    instance of its ``lead`` axes): on the card through the requantize
+    kernel (amax, scale and cast in one launch for every instance; a
+    permuted result is walked in its storage order, no copy), on the CPU
+    through ``quant.quantize``, the plain ops the kernel is held to."""
     if res.device.type == "cpu":
-        return q.quantize(res, policy)
-    qq, scale = requantize_cuda(res, policy)
-    return q.QTensor(q=qq, scale=scale)
+        return (q.quantize(res, policy, lead=lead) if lead
+                else q.quantize(res, policy))
+    if not lead:
+        qq, scale = requantize_cuda(res, policy)
+        return q.QTensor(q=qq, scale=scale)
+    qq, scale = requantize_cuda(res, policy, lead)
+    return q.QTensor(q=qq, scale=scale, lead=lead)
+
+
+def _broadcast(t: torch.Tensor, lead: int, shape: tuple) -> torch.Tensor:
+    """An expert's tensor (``lead`` 1) as a view over the instance axes
+    ``shape = (E, G)``: stride 0 over the groups, nothing copied."""
+    if lead == len(shape):
+        return t
+    return t.unsqueeze(1).expand(tuple(shape) + tuple(t.shape[1:]))
 
 
 def _run_quantized(compiled: CompiledPlan, tensors: Sequence[torch.Tensor],
-                   *, out_dtype, input_scales) -> torch.Tensor:
+                   *, out_dtype, input_scales, batched: bool = False
+                   ) -> torch.Tensor:
     """Quantized dispatch (the reference's ``_run_quantized``): operands
     live in the policy dtype end to end.
 
@@ -629,22 +668,52 @@ def _run_quantized(compiled: CompiledPlan, tensors: Sequence[torch.Tensor],
     path has tile scales there).  Einsum-fallback steps dequantize, run
     the reference einsum, and requantize.  The plan output goes through
     the dequantize kernel.
+
+    ``batched``: each tensor leads with an expert axis (``[E, *node]``)
+    or an expert and a group axis (``[E, G, *node]``, an instance of the
+    reference's vmap over groups and experts), its scales one per
+    leading index.  An op whose operands are both an expert's runs once
+    for all experts and its result is an expert's; an op with an
+    instance operand runs once for all ``E * G`` instances (the expert's
+    operand broadcast over the groups) and its result is per instance.
+    Every result is requantized per expert or per instance, as the
+    reference's per-tensor requantize under ``jax.vmap``.
     """
     policy = compiled.policy
     inter_policy = dataclasses.replace(policy, granularity="tensor")
     plan = compiled.plan
     net = plan.network
     sizes = net.sizes
+    if batched and policy.granularity == "tile":
+        raise NotImplementedError(
+            "tile-granular scales with an instance axis are not ported "
+            "(ROADMAP.md, queue A item 15)")
 
     def per_tensor(t: q.QTensor) -> q.QTensor:
         return t if t.per_tensor else q.requantize_per_tensor(t, policy)
 
+    leads = [t.dim() - len(net.node_shape(i)) if batched else 0
+             for i, t in enumerate(tensors)]
+    inst = max(((t.shape[0], t.shape[1]) for t, lead in zip(tensors, leads)
+                if lead == 2), default=None)
     qslots: dict[int, q.QTensor] = {
         i: _quantize_input(x, None if input_scales is None
-                           else input_scales[i], policy)
+                           else input_scales[i], policy,
+                           *([leads[i]] if leads[i] else []))
         for i, x in enumerate(tensors)}
     if not plan.steps:
         return q.dequantize(qslots[0], out_dtype)
+
+    def instance_batch(ts: list[q.QTensor], mats: list[torch.Tensor]):
+        """An op's instance axes (0, 1 or 2 of them) and its operands'
+        matrices ``mats`` and scales broadcast to them: an expert's over
+        the groups (stride 0, no copy) when any operand is an
+        instance's."""
+        lead = max(t.lead for t in ts)
+        if lead < 2:
+            return lead, mats, [t.scale for t in ts]
+        return (lead, [_broadcast(m, t.lead, inst) for m, t in zip(mats, ts)],
+                [_broadcast(t.scale, t.lead, inst) for t in ts])
 
     last_use: dict[int, int] = {}
     for t, op in enumerate(compiled.ops):
@@ -654,8 +723,10 @@ def _run_quantized(compiled: CompiledPlan, tensors: Sequence[torch.Tensor],
     for t, op in enumerate(compiled.ops):
         t0 = tm.now_us() if trace else 0.0
         if isinstance(op, EinsumOp):
-            res = _einsum_step(op.step, q.dequantize(qslots[op.step.lhs]),
-                               q.dequantize(qslots[op.step.rhs]))
+            ql, qr = qslots[op.step.lhs], qslots[op.step.rhs]
+            lead = max(ql.lead, qr.lead)
+            res = _einsum_step_lead(op.step, q.dequantize(ql),
+                                    q.dequantize(qr), ql.lead, qr.lead)
             out_slot = op.step.out
         elif isinstance(op, GemmOp):
             mat = op.mat
@@ -663,19 +734,22 @@ def _run_quantized(compiled: CompiledPlan, tensors: Sequence[torch.Tensor],
             if not ql.per_tensor and (mat.lhs_perm is not None
                                       or not mat.m_axes):
                 ql = per_tensor(ql)
-            x2 = _as_2d(ql.q, mat.lhs_perm, mat.m, mat.k)
-            sl = q.expand_row_scales(ql.scale, mat.m)
             qr = per_tensor(qslots[op.step.rhs])
+            x2 = _as_2d(ql.q, mat.lhs_perm, mat.m, mat.k, ql.lead)
             if mat.transpose_rhs:
-                w2 = _as_2d(qr.q, mat.rhs_perm, mat.n, mat.k)
+                w2 = _as_2d(qr.q, mat.rhs_perm, mat.n, mat.k, qr.lead)
             else:
-                w2 = _as_2d(qr.q, mat.rhs_perm, mat.k, mat.n)
-            sr = q.expand_row_scales(qr.scale, mat.n).reshape(1, mat.n)
+                w2 = _as_2d(qr.q, mat.rhs_perm, mat.k, mat.n, qr.lead)
+            lead, (x2, w2), (sl, sr) = instance_batch([ql, qr], [x2, w2])
+            if not lead:
+                sl = q.expand_row_scales(ql.scale, mat.m)
+                sr = q.expand_row_scales(qr.scale, mat.n).reshape(1, mat.n)
             res = matmul_cuda(x2, w2, transpose_rhs=mat.transpose_rhs,
                               scales=(sl, sr))
-            res = res.reshape(tuple(sizes[a] for a in mat.m_axes + mat.n_axes))
+            res = res.reshape(tuple(res.shape[:lead]) + tuple(
+                sizes[a] for a in mat.m_axes + mat.n_axes))
             if mat.out_perm is not None:
-                res = res.permute(mat.out_perm)
+                res = res.permute(_lead(mat.out_perm, lead))
             out_slot = op.step.out
         else:                            # ChainOp
             qx = qslots[op.steps[0].lhs]
@@ -683,18 +757,27 @@ def _run_quantized(compiled: CompiledPlan, tensors: Sequence[torch.Tensor],
                                       or not op.m_axes):
                 qx = per_tensor(qx)
             qws = [per_tensor(qslots[s.rhs]) for s in op.steps]
-            x2 = _as_2d(qx.q, op.x_perm, op.m0, op.k)
-            w2s = [_as_2d(qw.q, p, ki, ni)
+            x2 = _as_2d(qx.q, op.x_perm, op.m0, op.k, qx.lead)
+            w2s = [_as_2d(qw.q, p, ki, ni, qw.lead)
                    for (qw, p), (ki, ni) in zip(zip(qws, op.w_perms),
                                                 op.link_shapes)]
-            # Folded per-link dequantization: the lhs row scales absorb
-            # W1's per-tensor scale, each interior weight contributes a
-            # [1, 1] scalar, the last weight's scale applies per output
-            # column.  Per-tensor scalars commute with the row regroup.
-            s_first = q.expand_row_scales(qx.scale, op.m0) * qws[0].scale
-            mids = [qw.scale.reshape(1, 1) for qw in qws[1:-1]]
-            s_last = q.expand_row_scales(qws[-1].scale, op.n).reshape(1, op.n)
-            scales = (s_first, *mids, s_last)
+            lead, (x2, *w2s), sc = instance_batch([qx, *qws], [x2, *w2s])
+            if lead:
+                # One folded factor a link per instance: the lhs scale
+                # times W1's, each interior weight's, the last weight's.
+                scales = (sc[0] * sc[1], *sc[2:])
+            else:
+                # Folded per-link dequantization: the lhs row scales
+                # absorb W1's per-tensor scale, each interior weight
+                # contributes a [1, 1] scalar, the last weight's scale
+                # applies per output column.  Per-tensor scalars commute
+                # with the row regroup.
+                s_first = (q.expand_row_scales(qx.scale, op.m0)
+                           * qws[0].scale)
+                mids = [qw.scale.reshape(1, 1) for qw in qws[1:-1]]
+                s_last = q.expand_row_scales(qws[-1].scale,
+                                             op.n).reshape(1, op.n)
+                scales = (s_first, *mids, s_last)
             try:
                 res = chain_n_cuda(x2, w2s, scales=scales)
             except ChainLoweringError as err:
@@ -706,11 +789,13 @@ def _run_quantized(compiled: CompiledPlan, tensors: Sequence[torch.Tensor],
                     raise
                 _degrade("runtime_quantized", err)
                 res = ref.chain_n_scaled(x2, w2s, scales)
-            res = res.reshape(tuple(sizes[ax] for ax in op.m_axes + op.n_axes))
+            res = res.reshape(tuple(res.shape[:lead]) + tuple(
+                sizes[ax] for ax in op.m_axes + op.n_axes))
             if op.out_perm is not None:
-                res = res.permute(op.out_perm)
+                res = res.permute(_lead(op.out_perm, lead))
             out_slot = op.steps[-1].out
-        qslots[out_slot] = _requantize(res, inter_policy)
+        qslots[out_slot] = _requantize(res, inter_policy,
+                                       *([lead] if lead else []))
         if trace:
             kind = ("einsum" if isinstance(op, EinsumOp)
                     else "gemm" if isinstance(op, GemmOp) else "chain")
@@ -720,8 +805,9 @@ def _run_quantized(compiled: CompiledPlan, tensors: Sequence[torch.Tensor],
             if slot != out_slot and last_use[slot] == t and slot in qslots:
                 del qslots[slot]
 
-    out = _dequantize_output(qslots[plan.steps[-1].out])
-    last_axes = plan.steps[-1].out_axes
-    if last_axes != net.output:
-        out = out.permute(tuple(last_axes.index(a) for a in net.output))
+    final = qslots[plan.steps[-1].out]
+    out = _dequantize_output(final)
+    perm = output_perm(plan, final.lead)
+    if perm is not None:
+        out = out.permute(perm)
     return out.to(out_dtype)

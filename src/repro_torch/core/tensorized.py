@@ -35,14 +35,22 @@ through its ``round``/``clip`` there.
 
 With ``num_experts=E`` the layer is E experts' matrices under one
 factorization (the reference's ``jax.vmap(layer.init)`` over a MoE's
-experts): each core is one ``[E, ...]`` parameter, the input is ``[E,
-T, N]`` (T tokens an expert: the MoE folds its token groups into this
-axis) and every FP, BP and WG plan, searched at batch T, runs once for
-all E through the batched kernels (``contraction.execute(...,
-batch=E)``).  Each expert's WG gradient is then the sum over all its T
-tokens, as the reference's vmap over groups sums its per-group
-gradients.  Expert layers run unquantized and under ``phase_paths``
-only (ROADMAP.md, queue A items 13 and 14).
+experts): each core is one ``[E, ...]`` parameter and the input is
+``[E, G, C, N]`` (C slots of each of G token groups an expert holds).
+Unquantized, the groups fold into the tokens: every FP, BP and WG plan,
+searched at batch ``G * C``, runs once for all E through the batched
+kernels (``contraction.execute(..., batch=E)``), and each expert's WG
+gradient is the sum over all its tokens, as the reference's vmap over
+groups sums its per-group gradients.  Quantized (:class:`_TNNApplyQ`
+with ``groups``), the groups stay apart, as the reference's vmap keeps
+them: each (expert, group) instance is one quantized layer
+call at batch C, with its own per-tensor scales and stash, all ``E * G``
+of them in one launch a plan op (``contraction.execute(..., batch=E,
+groups=G)``); the core gradients and the delayed-scaling history's
+delta are summed over the groups, as the vmap's transpose sums them.
+The history is ``[E, 2 + num_cores, H]``, one window per expert.
+Expert layers run under ``phase_paths`` only (ROADMAP.md, queue A item
+14), and with per-tensor scales (item 15).
 
 Not ported yet: autotuned tiles (item 5); the SPMD mesh path (item 8).
 """
@@ -65,7 +73,7 @@ from repro_torch.memory.stash import (
     STORE, StashPolicy, stash, stashed_amax, unstash,
 )
 from repro_torch.precision.policy import (
-    AMAX_KEY, QuantPolicy, amax_of, scale_from_history,
+    AMAX_KEY, QuantPolicy, compute_scale, lead_amax,
 )
 
 #: torch dtype -> the dtype name the reference's policies key on
@@ -266,15 +274,18 @@ def layer_cost(fact: Factorization, batch: int,
 class _TNNApply(torch.autograd.Function):
     """``y = FP(x, cores)``; the backward runs the BP plan for dX and the
     chosen WG strategy for every core gradient.  ``fact`` / ``opts`` /
-    ``backend`` / ``remat`` / ``batched`` are static (the reference's
-    nondiff args); ``batched``: x and every core carry a leading expert
-    axis, and each plan runs once for all experts.
+    ``backend`` / ``remat`` / ``groups`` are static (the reference's
+    nondiff args); ``groups`` > 0: x and every core carry a leading
+    expert axis, each plan runs once for all experts, and x's tokens
+    are ``groups`` token groups of equal size (a quantized stash keeps
+    one scale per (expert, group) instance, as the reference's vmap).
     Each phase runs inside a ``torch.profiler`` range (``tnn.fp``,
     ``tnn.bp``, ``tnn.wg``), which ``repro_torch.analysis.train_profile``
     reads to split a step's device time by phase."""
 
     @staticmethod
-    def forward(ctx, fact, opts, backend, remat, batched, x, *cores):
+    def forward(ctx, fact, opts, backend, remat, groups, x, *cores):
+        batched = groups > 0
         batch = x.shape[0] if batched else None
         fp, _, _ = _plans(fact, x.shape[int(batched)], opts)
         with record_function("tnn.fp"):
@@ -282,22 +293,27 @@ class _TNNApply(torch.autograd.Function):
                                     fused_chain=opts.fused_chain,
                                     max_chain_len=opts.max_chain_len,
                                     batch=batch)
-        ctx.static = (fact, opts, backend, remat, batched)
+        ctx.static = (fact, opts, backend, remat, groups, x.shape)
         if any(ctx.needs_input_grad):
             # What survives to the backward is the stash policy's call:
             # x as is (store; recompute drops it at the model level, where
             # the per-layer checkpoint re-runs this forward) or an fp8/int8
-            # payload with its scale (quantized).  Cores are parameters,
-            # alive anyway.
-            ctx.save_for_backward(*stash(x, remat), *cores)
+            # payload with its scale (quantized; per (expert, group)
+            # instance for an expert layer).  Cores are parameters, alive
+            # anyway.
+            xs = x.reshape(x.shape[0], groups, -1) if batched else x
+            ctx.save_for_backward(*stash(xs, remat, lead=2 * batched),
+                                  *cores)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        fact, opts, backend, remat, batched = ctx.static
+        fact, opts, backend, remat, groups, x_shape = ctx.static
+        batched = groups > 0
         payload, scale, amax, *cores = ctx.saved_tensors
         x = unstash((payload, scale, amax), remat,
-                    cores[0].dtype if cores else dy.dtype)
+                    cores[0].dtype if cores else dy.dtype,
+                    lead=2 * batched).reshape(x_shape)
         _, bp, (wg_kind, dw_res, wg) = _plans(fact, x.shape[int(batched)],
                                               opts)
         kw = dict(backend=backend, fused_chain=opts.fused_chain,
@@ -330,12 +346,30 @@ class _TNNApply(torch.autograd.Function):
 # into ``new_hist``, so the history advances once per optimizer step.
 
 
-def _phase_scales(policy: QuantPolicy, hist: torch.Tensor, rows, tensors):
-    """Delayed per-tensor scales for one phase's input nodes; ``rows[i]``
-    is the history row backing ``tensors[i]``."""
-    return [scale_from_history(hist[row], amax_of(t), policy.qmax,
-                               policy.margin)
-            for row, t in zip(rows, tensors)]
+def _delayed_scale(policy: QuantPolicy, hist: torch.Tensor, row: int,
+                   amax: torch.Tensor, lead: int) -> torch.Tensor:
+    """Delayed scale of history row ``row`` for a tensor of current amax
+    ``amax``: the window's max, or ``amax`` while the window is all zero
+    (the reference's ``scale_from_history``).  ``lead`` counts the
+    tensor's instance axes: 0 a dense layer's tensor (``hist [2 + n,
+    H]``), 1 an expert's (``[E, ...]``, its cores) and 2 an (expert,
+    group) instance's (``[E, G, ...]``, x and dY), whose expert's window
+    (``hist [E, 2 + n, H]``) serves each of its groups, as under the
+    reference's vmap over the groups and the experts."""
+    h = hist[..., row, :].amax(dim=-1)
+    if lead == 2:
+        h = h[:, None]
+    return compute_scale(torch.where(h > 0, h, amax), policy.qmax,
+                         policy.margin)
+
+
+def _phase_scales(policy: QuantPolicy, hist: torch.Tensor, rows, tensors,
+                  leads):
+    """Delayed scales for one phase's input nodes; ``rows[i]`` is the
+    history row backing ``tensors[i]``, whose first ``leads[i]`` axes
+    index instances (:func:`_delayed_scale`)."""
+    return [_delayed_scale(policy, hist, row, lead_amax(t, lead), lead)
+            for row, t, lead in zip(rows, tensors, leads)]
 
 
 def _stash_policy_q(policy: QuantPolicy, remat: StashPolicy) -> StashPolicy:
@@ -351,44 +385,63 @@ class _TNNApplyQ(torch.autograd.Function):
     backward runs BP and WG quantized and returns ``hist - new_hist`` as
     the history's gradient, ``new_hist`` being the history rolled one
     slot with this step's amaxes (x's from the forward, as stashed).  The
-    reference's ``_tnn_apply_q`` / ``_tnn_q_fwd`` / ``_tnn_q_bwd``."""
+    reference's ``_tnn_apply_q`` / ``_tnn_q_fwd`` / ``_tnn_q_bwd``.
+
+    ``groups`` > 0: a MoE's expert layer, ``x [E, G, C, *in_dims]`` with
+    ``G == groups``, ``hist [E, 2 + n, H]`` and each core ``[E, ...]``.
+    The reference vmaps its quantized layer over the experts (cores,
+    history) and, outside that, over the G token groups (the parameters
+    broadcast), so each (expert, group) instance runs the plans at batch
+    C with its own x and dY scales, requantize scales and stash; every
+    plan op is one batched launch for all ``E * G`` instances.  As the
+    vmap's transpose, each core's gradient and the history's delta sum
+    over the groups: after AdamW's passthrough the history holds
+    ``sum_g new_hist_g - (G - 1) * hist``."""
 
     @staticmethod
-    def forward(ctx, fact, opts, backend, policy, remat, x, hist, *cores):
-        fp, _, _ = _plans(fact, x.shape[0], opts)
-        core_rows = list(range(2, 2 + len(cores)))
-        scales = _phase_scales(policy, hist, [0] + core_rows, (x, *cores))
+    def forward(ctx, fact, opts, backend, policy, remat, groups, x, hist,
+                *cores):
+        lead, n = 2 * (groups > 0), len(cores)
+        fp, _, _ = _plans(fact, x.shape[lead], opts)
+        scales = _phase_scales(policy, hist, [0] + list(range(2, 2 + n)),
+                               (x, *cores), [lead] + [lead // 2] * n)
         with record_function("tnn.fp"):
             y = contraction.execute(fp.plan, [x, *cores], backend=backend,
                                     fused_chain=opts.fused_chain,
                                     max_chain_len=opts.max_chain_len,
-                                    policy=policy, input_scales=scales)
-        ctx.static = (fact, opts, backend, policy, remat)
+                                    policy=policy, input_scales=scales,
+                                    batch=x.shape[0] if lead else None,
+                                    groups=groups or None)
+        ctx.static = (fact, opts, backend, policy, remat, groups)
         if any(ctx.needs_input_grad):
             sp = _stash_policy_q(policy, remat)
             # A quantized stash pins the delayed scale the executor used,
             # so the backward's re-quantization of x-hat is bit-identical.
             ctx.save_for_backward(
-                *stash(x, sp, scale=scales[0] if sp.quantized else None),
+                *stash(x, sp, scale=scales[0] if sp.quantized else None,
+                       lead=lead),
                 hist, *cores)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        fact, opts, backend, policy, remat = ctx.static
+        fact, opts, backend, policy, remat, groups = ctx.static
         payload, s_stash, amax_stash, hist, *cores = ctx.saved_tensors
         sp = _stash_policy_q(policy, remat)
+        lead, n = 2 * (groups > 0), len(cores)
         xres = (payload, s_stash, amax_stash)
-        x = unstash(xres, sp, cores[0].dtype if cores else dy.dtype)
-        amax_x = stashed_amax(xres, x)
-        _, bp, (wg_kind, dw_res, wg) = _plans(fact, x.shape[0], opts)
+        x = unstash(xres, sp, cores[0].dtype if cores else dy.dtype,
+                    lead=lead)
+        amax_x = stashed_amax(xres, x, lead=lead)
+        _, bp, (wg_kind, dw_res, wg) = _plans(fact, x.shape[lead], opts)
         kw = dict(backend=backend, fused_chain=opts.fused_chain,
-                  max_chain_len=opts.max_chain_len, policy=policy)
+                  max_chain_len=opts.max_chain_len, policy=policy,
+                  batch=x.shape[0] if lead else None, groups=groups or None)
         dy = dy.to(x.dtype)
-        core_rows = list(range(2, 2 + len(cores)))
-        s_x = scale_from_history(hist[0], amax_x, policy.qmax, policy.margin)
-        s_dy, *s_cores = _phase_scales(policy, hist, [1] + core_rows,
-                                       (dy, *cores))
+        s_x = _delayed_scale(policy, hist, 0, amax_x, lead)
+        s_dy, *s_cores = _phase_scales(policy, hist,
+                                       [1] + list(range(2, 2 + n)),
+                                       (dy, *cores), [lead] + [lead // 2] * n)
         with record_function("tnn.bp"):
             dx = contraction.execute(bp.plan, [dy, *cores],
                                      input_scales=[s_dy, *s_cores], **kw)
@@ -402,19 +455,30 @@ class _TNNApplyQ(torch.autograd.Function):
                 s_others = [s for j, s in enumerate(s_cores) if j != i]
                 if wg_kind == "shared":
                     # dW has no cross-step identity: just-in-time scale.
-                    dcores.append(contraction.execute(
+                    g = contraction.execute(
                         w.plan, [dw, *others],
-                        input_scales=[None, *s_others], **kw))
+                        input_scales=[None, *s_others], **kw)
                 else:
-                    dcores.append(contraction.execute(
+                    g = contraction.execute(
                         w.plan, [x, dy, *others],
-                        input_scales=[s_x, s_dy, *s_others], **kw))
+                        input_scales=[s_x, s_dy, *s_others], **kw)
+                dcores.append(g.sum(dim=1) if lead else g)  # groups' sum
         # The state-update channel: roll every history row one slot with
-        # this step's amaxes and hand back the delta as the gradient.
-        current = torch.stack([amax_x, amax_of(dy)]
-                              + [amax_of(c) for c in cores])
-        new_hist = torch.cat([current[:, None], hist[:, :-1]], dim=1)
-        return (None, None, None, None, None, dx, hist - new_hist, *dcores)
+        # this step's amaxes (each instance its expert's window) and hand
+        # back the delta as the gradient, summed over the groups.
+        amax_cores = [lead_amax(c, lead // 2) for c in cores]
+        if lead:
+            amax_cores = [a[:, None].expand(amax_x.shape) for a in amax_cores]
+        cur = torch.stack([amax_x, lead_amax(dy, lead), *amax_cores], dim=-1)
+        old = hist[:, None] if lead else hist
+        new_hist = torch.cat(
+            [cur[..., None],
+             old[..., :-1].expand(cur.shape + (hist.shape[-1] - 1,))],
+            dim=-1)
+        d_hist = old - new_hist
+        if lead:
+            d_hist = d_hist.sum(dim=1)
+        return (None, None, None, None, None, None, dx, d_hist, *dcores)
 
 
 class TensorizedLinear(nn.Module):
@@ -428,8 +492,10 @@ class TensorizedLinear(nn.Module):
     ``quant_amax`` was removed runs with just-in-time scales.
 
     ``num_experts=E``: E experts' matrices, each core ``[E, *core
-    shape]``, ``x[E, ..., N] -> y[E, ..., M]`` (see the module's
-    docstring); no bias, unquantized, ``phase_paths`` only.
+    shape]``, ``x[E, G, C, N] -> y[E, G, C, M]`` (see the module's
+    docstring; ``x[E, T, N]`` is one group), under a quantized
+    ``precision`` with the history ``[E, 2 + num_cores, H]``; no bias,
+    ``phase_paths`` only.
     """
 
     def __init__(self, fact: Factorization, *, use_bias: bool = False,
@@ -442,7 +508,7 @@ class TensorizedLinear(nn.Module):
                  device=None, generator: torch.Generator | None = None):
         super().__init__()
         if num_experts is not None:
-            _check_experts(use_bias, phase_paths, remat, precision)
+            _check_experts(use_bias, phase_paths, precision)
         self.num_experts = num_experts
         self.fact = fact
         self.use_bias = use_bias
@@ -465,7 +531,7 @@ class TensorizedLinear(nn.Module):
         if precision.quantized:
             # Never cast to the compute dtype: the history stays f32.
             self.register_parameter(AMAX_KEY, nn.Parameter(torch.zeros(
-                (2 + fact.num_cores, precision.amax_history_len),
+                lead + (2 + fact.num_cores, precision.amax_history_len),
                 dtype=torch.float32, device=device)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -487,11 +553,11 @@ class TensorizedLinear(nn.Module):
                      self.precision.amax_history_len),
                     dtype=torch.float32, device=xt.device)
             y = _TNNApplyQ.apply(self.fact, self.opts, self.backend,
-                                 self.precision, self.remat, xt, hist,
+                                 self.precision, self.remat, 0, xt, hist,
                                  *cores)
         elif self.phase_paths:
             y = _TNNApply.apply(self.fact, self.opts, self.backend,
-                                self.remat, False, xt, *cores)
+                                self.remat, 0, xt, *cores)
         else:
             # The ablation: the FP plan, differentiated by autograd.
             if quantized and torch.is_grad_enabled() and (
@@ -513,32 +579,50 @@ class TensorizedLinear(nn.Module):
         return y.to(x.dtype)
 
     def _forward_experts(self, x: torch.Tensor) -> torch.Tensor:
-        """``x[E, ..., N]``: every expert's tokens through its matrix, the
-        FP/BP/WG plans searched at the tokens an expert holds and run once
-        for all E (the batched kernels on the ``cuda`` backend)."""
+        """``x[E, G, C, N]`` (``x[E, T, N]``: one group): every expert's
+        slots through its matrix.  Unquantized, the groups fold into the
+        tokens: the FP/BP/WG plans, searched at the ``G * C`` tokens an
+        expert holds, run once for all E (the batched kernels on the
+        ``cuda`` backend).  Quantized, each (expert, group) instance runs
+        them at batch C (:class:`_TNNApplyQ` with ``groups``)."""
         E, *lead, n = x.shape
         if E != self.num_experts or n != self.fact.N:
             raise ValueError(f"expert input {tuple(x.shape)} for "
                              f"{self.num_experts} experts of N "
                              f"{self.fact.N}")
-        _check_experts(False, self.phase_paths, self.remat, self.precision)
+        _check_experts(False, self.phase_paths, self.precision)
+        groups = lead[0] if len(lead) == 2 else 1
         tokens = math.prod(lead) if lead else 1
-        xt = x.reshape((E, tokens) + tuple(self.fact.in_dims))
-        xt = xt.to(self.compute_dtype)
         cores = [c.to(self.compute_dtype) for c in self.cores]
-        y = _TNNApply.apply(self.fact, self.opts, self.backend, self.remat,
-                            True, xt, *cores)
+        if self.precision.quantized:
+            xt = x.reshape((E, groups, tokens // groups)
+                           + tuple(self.fact.in_dims))
+            xt = xt.to(self.compute_dtype).contiguous()
+            hist = self._parameters.get(AMAX_KEY)
+            if hist is None:            # no history: just-in-time scales
+                hist = torch.zeros(
+                    (E, 2 + self.fact.num_cores,
+                     self.precision.amax_history_len),
+                    dtype=torch.float32, device=xt.device)
+            y = _TNNApplyQ.apply(self.fact, self.opts, self.backend,
+                                 self.precision, self.remat, groups, xt,
+                                 hist, *cores)
+        else:
+            xt = x.reshape((E, tokens) + tuple(self.fact.in_dims))
+            xt = xt.to(self.compute_dtype)
+            y = _TNNApply.apply(self.fact, self.opts, self.backend,
+                                self.remat, groups, xt, *cores)
         return y.reshape((E, *lead, self.fact.M)).to(x.dtype)
 
 
-def _check_experts(use_bias: bool, phase_paths: bool, remat: StashPolicy,
+def _check_experts(use_bias: bool, phase_paths: bool,
                    precision: QuantPolicy) -> None:
     """Refuse what the expert-stacked layer does not run, with the
     ROADMAP.md item that ports it."""
-    if precision.quantized or remat.quantized:
+    if precision.quantized and precision.granularity == "tile":
         raise NotImplementedError(
-            "quantized MoE experts (the batched scaled GEMM and chain, B3 "
-            "and B4) are not ported yet (ROADMAP.md, queue A item 13)")
+            "tile-granular scales on quantized MoE experts are not ported "
+            "yet (ROADMAP.md, queue A item 15)")
     if not phase_paths:
         raise NotImplementedError(
             "MoE experts under phase_paths=False (autodiff through the "

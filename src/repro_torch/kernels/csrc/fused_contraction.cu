@@ -83,6 +83,14 @@
 //   slices), the chains' batch is blockIdx.y; each expert's operands sit
 //   a fixed stride apart.  The same computation as one entry, indexed by
 //   expert, with one entry's configuration.
+// * The scaled forms take the batch too, two-level: a MoE's quantized
+//   experts run one instance per (expert, group), each with its own
+//   per-tensor scales (the reference vmaps its quantized layer over the
+//   token groups and then the experts).  Entry b = bo * inner + bi reads
+//   an operand at bo * outer + bi * inner_stride, so an expert's cores
+//   (inner stride 0) serve all its groups without G copies, and its
+//   epilogue multiplies by entry b's scalar scales (GemmBatch::rs = 0;
+//   the chain's s_scalar) read from device vectors in the same way.
 //
 // Plain C interface (loaded with ctypes): every launch goes to the caller's
 // stream, allocates nothing, and returns cudaGetLastError().
@@ -302,14 +310,34 @@ struct GemmTiles {
   }
 };
 
+// Where batch entry b of a GEMM launch reads its operands and scales:
+// b = bo * inner + bi, an operand (or scale vector) at bo * outer +
+// bi * inner-stride elements.  inner 1 is the one-level batch (the
+// experts of a plain batched GEMM).  rs 1: sl per row and sr per column
+// (one product); rs 0: entry b's one scalar each (the instance batch).
+struct GemmBatch {
+  int inner;
+  long long x_o, x_i, w_o, w_i;
+  long long sl_o, sl_i, sr_o, sr_i;
+  int rs;
+};
+
+__host__ __device__ __forceinline__ long long batch_off(int b, int inner,
+                                                        long long outer_stride,
+                                                        long long inner_stride) {
+  const int bo = b / inner;
+  return bo * outer_stride + (long long)(b - bo * inner) * inner_stride;
+}
+
 // The epilogue of one output element: the operand type's rounding, or
-// (acc * sl[row]) * sr[col] in f32 for the scaled form.
+// (acc * sl[row]) * sr[col] in f32 for the scaled form (rs 0: the
+// entry's scalars sl[0], sr[0]).
 template <typename T, typename TOut>
 __device__ __forceinline__ TOut gemm_epilogue(float v, const float* sl,
                                               const float* sr, int row,
-                                              int col) {
+                                              int col, int rs) {
   if constexpr (sizeof(T) == 1)
-    return __fmul_rn(__fmul_rn(v, sl[row]), sr[col]);
+    return __fmul_rn(__fmul_rn(v, sl[row * rs]), sr[col * rs]);
   else
     return from_f<TOut>(v);
 }
@@ -321,8 +349,9 @@ template <typename T, typename TOut, int BM, int BN>
 __device__ __forceinline__ void gemm_write_tile(const float* tile, int tp,
                                                 TOut* out, float* part,
                                                 const float* sl,
-                                                const float* sr, int M, int N,
-                                                int m0, int n0) {
+                                                const float* sr, int rs,
+                                                int M, int N, int m0,
+                                                int n0) {
   constexpr int kQ = BN / 4;
   const bool vec = (N % 4) == 0;
 #pragma unroll 1
@@ -345,7 +374,8 @@ __device__ __forceinline__ void gemm_write_tile(const float* tile, int tp,
     TOut y[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k)
-      y[k] = gemm_epilogue<T, TOut>(vs[k], sl, sr, row, min(col + k, N - 1));
+      y[k] = gemm_epilogue<T, TOut>(vs[k], sl, sr, row, min(col + k, N - 1),
+                                    rs);
     if (!full) {
       for (int k = 0; k < 4 && col + k < N; ++k) out[o + k] = y[k];
     } else if constexpr (std::is_same<TOut, float>::value) {
@@ -367,8 +397,9 @@ __device__ __forceinline__ void gemm_write_tile(const float* tile, int tp,
 // Tensor-core GEMM, one BM x BN output tile and one K slice of one batch
 // entry per block (blockIdx.z = b * splits + slice; one split writes C,
 // more write f32 partials to part[z] for gemm_splitk_reduce).  Batch entry
-// b reads X at x + b * sx and W at w + b * sw (elements) and writes the
-// b-th [M, N] of C: the expert axis of a vmapped matmul_pallas.
+// b reads X and W where GemmBatch puts them (and, scaled, its scales) and
+// writes the b-th [M, N] of C: the expert axis of a vmapped matmul_pallas,
+// or the (expert, group) instances of the quantized experts.
 // bf16: m16n8k16 with f32 accumulators.
 // fp8: each m16n8k32 step as two f16 m16n8k16 steps on the bytes widened
 // exactly to f16 in registers, the tensor-core sums promoted into f32
@@ -382,7 +413,7 @@ __global__ void __launch_bounds__(kGemmThreads, kGemmMinBlocks)
                    const float* __restrict__ sl, const float* __restrict__ sr,
                    TOut* __restrict__ out, float* __restrict__ part, int M,
                    int N, int K, int k_slice, int cw, int splits,
-                   long long sx, long long sw) {
+                   GemmBatch bt) {
   using Tiles = GemmTiles<T, kTransRhs, BM, BN>;
   constexpr int kSize = sizeof(T);
   constexpr bool kInt8 = std::is_same<T, int8_t>::value;
@@ -402,9 +433,13 @@ __global__ void __launch_bounds__(kGemmThreads, kGemmMinBlocks)
   const int k_begin = (blockIdx.z - bz * splits) * k_slice;
   const int k_end = min(K, k_begin + k_slice);
   const int nk = (k_end - k_begin + Tiles::BK - 1) / Tiles::BK;
-  x += bz * sx;
-  w += bz * sw;
+  x += batch_off(bz, bt.inner, bt.x_o, bt.x_i);
+  w += batch_off(bz, bt.inner, bt.w_o, bt.w_i);
   out += (size_t)bz * M * N;
+  if constexpr (kSize == 1) {
+    sl += batch_off(bz, bt.inner, bt.sl_o, bt.sl_i);
+    sr += batch_off(bz, bt.inner, bt.sr_o, bt.sr_i);
+  }
 
   float acc[MI][NI][4];
 #pragma unroll
@@ -587,7 +622,8 @@ __global__ void __launch_bounds__(kGemmThreads, kGemmMinBlocks)
       }
     }
   __syncthreads();
-  gemm_write_tile<T, TOut, BM, BN>(tile, kTP, out, p, sl, sr, M, N, m0, n0);
+  gemm_write_tile<T, TOut, BM, BN>(tile, kTP, out, p, sl, sr, bt.rs, M, N,
+                                   m0, n0);
 }
 
 // f32 GEMM on the FMA units (no TF32: it keeps ~3 decimal digits), the
@@ -599,7 +635,7 @@ __global__ void __launch_bounds__(kGemmThreads, kGemmMinBlocks)
     gemm_simt_kernel(const float* __restrict__ x, const float* __restrict__ w,
                      float* __restrict__ out, float* __restrict__ part, int M,
                      int N, int K, int k_slice, int cw, int splits,
-                     long long sx, long long sw) {
+                     GemmBatch bt) {
   using Tiles = GemmTiles<float, kTransRhs, BM, BN>;
   constexpr int TX = BN < 16 ? BN : 16, TY = kGemmThreads / TX;
   constexpr int TM = BM / TY, TN = BN / TX;
@@ -612,8 +648,8 @@ __global__ void __launch_bounds__(kGemmThreads, kGemmMinBlocks)
   const int k_begin = (blockIdx.z - bz * splits) * k_slice;
   const int k_end = min(K, k_begin + k_slice);
   const int nk = (k_end - k_begin + Tiles::BK - 1) / Tiles::BK;
-  x += bz * sx;
-  w += bz * sw;
+  x += batch_off(bz, bt.inner, bt.x_o, bt.x_i);
+  w += batch_off(bz, bt.inner, bt.w_o, bt.w_i);
   out += (size_t)bz * M * N;
   float acc[TM][TN];
 #pragma unroll
@@ -662,13 +698,13 @@ __global__ void __launch_bounds__(kGemmThreads, kGemmMinBlocks)
 // Split-K's second pass: C = epilogue(part[0] + part[1] + ... +
 // part[S-1]), summed in that fixed order (no atomics: the same inputs
 // give the same bits on every run); batch entry b sums its own slices
-// part[b * S .. b * S + S - 1].
+// part[b * S .. b * S + S - 1], its scales where GemmBatch puts them.
 template <typename T, typename TOut>
 __global__ void __launch_bounds__(256)
     gemm_splitk_reduce(const float* __restrict__ part, int splits,
                        const float* __restrict__ sl,
                        const float* __restrict__ sr, TOut* __restrict__ out,
-                       int M, int N, int batch) {
+                       int M, int N, int batch, GemmBatch bt) {
   const size_t mn = (size_t)M * N, total = mn * batch;
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
        i += (size_t)gridDim.x * blockDim.x) {
@@ -677,26 +713,35 @@ __global__ void __launch_bounds__(256)
     float v = pb[0];
     for (int z = 1; z < splits; ++z) v += pb[(size_t)z * mn];
     const int row = static_cast<int>(j / N), col = static_cast<int>(j % N);
-    out[i] = gemm_epilogue<T, TOut>(v, sl, sr, row, col);
+    const float* slb = sl;
+    const float* srb = sr;
+    if constexpr (sizeof(T) == 1) {
+      slb += batch_off(static_cast<int>(b), bt.inner, bt.sl_o, bt.sl_i);
+      srb += batch_off(static_cast<int>(b), bt.inner, bt.sr_o, bt.sr_i);
+    }
+    out[i] = gemm_epilogue<T, TOut>(v, slb, srb, row, col, bt.rs);
   }
 }
 
 // Whether (tile, splits, cw) is a configuration the kernels take for
 // these operands (the rule fused_contraction.gemm_config follows), with
-// `batch` entries sx and sw elements apart; sets k_slice, the elements of
-// K each split walks.
+// `batch` entries placed by bt; sets k_slice, the elements of K each split
+// walks.
 template <typename T>
 bool gemm_config_ok(int trans, int tile, int splits, int cw, const void* x,
                     const void* w, const void* part, int M, int N, int K,
-                    int batch, long long sx, long long sw, int* k_slice) {
+                    int batch, const GemmBatch& bt, int* k_slice) {
   constexpr int kSize = sizeof(T);
   if (tile < 0 || tile >= kGemmTiles) return false;
-  if (M <= 0 || N <= 0 || K < 0 || batch < 1 || sx < 0 || sw < 0)
+  if (M <= 0 || N <= 0 || K < 0 || batch < 1 || bt.inner < 1 ||
+      batch % bt.inner || bt.x_o < 0 || bt.x_i < 0 || bt.w_o < 0 ||
+      bt.w_i < 0 || (bt.rs != 0 && bt.rs != 1))
     return false;
   if (cw != 1 && cw != 2 && cw != 4 && cw != 8 && cw != 16) return false;
   if (reinterpret_cast<uintptr_t>(x) % cw ||
       reinterpret_cast<uintptr_t>(w) % cw || ((size_t)K * kSize) % cw ||
-      (sx * kSize) % cw || (sw * kSize) % cw)
+      (bt.x_o * kSize) % cw || (bt.x_i * kSize) % cw ||
+      (bt.w_o * kSize) % cw || (bt.w_i * kSize) % cw)
     return false;
   if (!trans && (((size_t)N * kSize) % cw || cw > kTileBN[tile] * kSize))
     return false;
@@ -719,7 +764,7 @@ template <typename T, typename TOut, bool kTrans, int BM, int BN, int kWM,
 int launch_gemm_tile(const void* x, const void* w, const float* sl,
                      const float* sr, void* out, float* part, int M, int N,
                      int K, int splits, int k_slice, int cw, int batch,
-                     long long sx, long long sw, cudaStream_t stream) {
+                     const GemmBatch& bt, cudaStream_t stream) {
   constexpr int kRing = gemm_smem_bytes(sizeof(T), kTrans, BM, BN);
   static_assert(kRing <= kSmemLimit, "GEMM tile over the shared-memory budget");
   static_assert(gemm_out_tile_bytes(BM, BN) <= kRing, "output tile over the ring");
@@ -743,7 +788,7 @@ int launch_gemm_tile(const void* x, const void* w, const float* sl,
       attr_set = true;
     }
     kern<<<grid, kGemmThreads, smem, stream>>>(xp, wp, op, part, M, N, K,
-                                               k_slice, cw, splits, sx, sw);
+                                               k_slice, cw, splits, bt);
   } else {
     auto kern = gemm_tc_kernel<T, TOut, kTrans, BM, BN, kWM, kWN>;
     if (!attr_set) {
@@ -753,8 +798,7 @@ int launch_gemm_tile(const void* x, const void* w, const float* sl,
       attr_set = true;
     }
     kern<<<grid, kGemmThreads, smem, stream>>>(xp, wp, sl, sr, op, part, M,
-                                               N, K, k_slice, cw, splits, sx,
-                                               sw);
+                                               N, K, k_slice, cw, splits, bt);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
@@ -762,7 +806,7 @@ int launch_gemm_tile(const void* x, const void* w, const float* sl,
   const int blocks = static_cast<int>(
       std::min<size_t>((total + 255) / 256, (size_t)132 * 8));
   gemm_splitk_reduce<T, TOut>
-      <<<blocks, 256, 0, stream>>>(part, splits, sl, sr, op, M, N, batch);
+      <<<blocks, 256, 0, stream>>>(part, splits, sl, sr, op, M, N, batch, bt);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -770,24 +814,24 @@ template <typename T, typename TOut, bool kTrans>
 int launch_gemm_trans(int tile, const void* x, const void* w, const float* sl,
                       const float* sr, void* out, float* part, int M, int N,
                       int K, int splits, int k_slice, int cw, int batch,
-                      long long sx, long long sw, cudaStream_t s) {
+                      const GemmBatch& bt, cudaStream_t s) {
   switch (tile) {
     case 0:
       return launch_gemm_tile<T, TOut, kTrans, 128, 64, 2, 2>(
-          x, w, sl, sr, out, part, M, N, K, splits, k_slice, cw, batch, sx,
-          sw, s);
+          x, w, sl, sr, out, part, M, N, K, splits, k_slice, cw, batch, bt,
+          s);
     case 1:
       return launch_gemm_tile<T, TOut, kTrans, 64, 64, 2, 2>(
-          x, w, sl, sr, out, part, M, N, K, splits, k_slice, cw, batch, sx,
-          sw, s);
+          x, w, sl, sr, out, part, M, N, K, splits, k_slice, cw, batch, bt,
+          s);
     case 2:
       return launch_gemm_tile<T, TOut, kTrans, 128, 16, 4, 1>(
-          x, w, sl, sr, out, part, M, N, K, splits, k_slice, cw, batch, sx,
-          sw, s);
+          x, w, sl, sr, out, part, M, N, K, splits, k_slice, cw, batch, bt,
+          s);
     case 3:
       return launch_gemm_tile<T, TOut, kTrans, 128, 8, 4, 1>(
-          x, w, sl, sr, out, part, M, N, K, splits, k_slice, cw, batch, sx,
-          sw, s);
+          x, w, sl, sr, out, part, M, N, K, splits, k_slice, cw, batch, bt,
+          s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -795,20 +839,20 @@ int launch_gemm_trans(int tile, const void* x, const void* w, const float* sl,
 template <typename T, typename TOut>
 int launch_gemm(int trans, int tile, int splits, int cw, const void* x,
                 const void* w, const float* sl, const float* sr, void* out,
-                void* part, int M, int N, int K, int batch, long long sx,
-                long long sw, cudaStream_t s) {
+                void* part, int M, int N, int K, int batch,
+                const GemmBatch& bt, cudaStream_t s) {
   int k_slice = 0;
   if (!gemm_config_ok<T>(trans, tile, splits, cw, x, w, part, M, N, K, batch,
-                         sx, sw, &k_slice))
+                         bt, &k_slice))
     return static_cast<int>(cudaErrorInvalidValue);
   float* pp = static_cast<float*>(part);
   if (trans)
     return launch_gemm_trans<T, TOut, true>(tile, x, w, sl, sr, out, pp, M, N,
-                                            K, splits, k_slice, cw, batch, sx,
-                                            sw, s);
+                                            K, splits, k_slice, cw, batch, bt,
+                                            s);
   return launch_gemm_trans<T, TOut, false>(tile, x, w, sl, sr, out, pp, M, N,
-                                           K, splits, k_slice, cw, batch, sx,
-                                           sw, s);
+                                           K, splits, k_slice, cw, batch, bt,
+                                           s);
 }
 
 // ---------------------------------------------------------------------------
@@ -960,9 +1004,16 @@ struct ChainTcArgs {
   int warp_steps;          // k-steps each warp takes of a stage
   int stages;              // stages of K0 a pass walks
   int links, m_final, band, cw;
-  // Batch entry blockIdx.y (one chain per expert): X, W_i and Y this many
-  // bytes past entry 0.
-  long long x_stride, out_stride, w_stride[kMaxLinks];
+  // Batch entry blockIdx.y = bo * inner + bi (one chain per expert, or per
+  // (expert, group) instance): X and W_i at bo * outer + bi * inner bytes
+  // past entry 0 (an expert's weights: inner 0), Y out_stride bytes apart.
+  int inner;
+  long long x_stride, x_inner, out_stride, w_stride[kMaxLinks],
+      w_inner[kMaxLinks];
+  // s_scalar 1 (the scaled chain's instance batch): each link's factor is
+  // one scalar per entry, at bo * s_o[i] + bi * s_i[i] floats of s[i].
+  int s_scalar;
+  long long s_o[kMaxLinks], s_i[kMaxLinks];
 };
 
 // The shared-memory layout of one chain block (mirrored by
@@ -1149,8 +1200,10 @@ __global__ void __launch_bounds__(kChainThreads)
   const int k0 = a.k[0], n0 = a.n[0];
   const int row_bytes = k0 * kSize;
   const int rows0 = rows_final * a.mult[0];  // this block's link-0 rows
+  const int bo = blockIdx.y / a.inner, bi = blockIdx.y - bo * a.inner;
+  const int srs = a.s_scalar ? 0 : 1;  // a scale's stride over rows/cols
   const unsigned char* xb = reinterpret_cast<const unsigned char*>(x) +
-                            blockIdx.y * a.x_stride +
+                            bo * a.x_stride + bi * a.x_inner +
                             (size_t)f0 * a.mult[0] * row_bytes;
 
   // Every weight in X's type, and the scaled chain's scales of this block,
@@ -1160,13 +1213,20 @@ __global__ void __launch_bounds__(kChainThreads)
   for (int i = 0; i < a.links; ++i)
     copy_flat(smem + a.w_off[i],
               static_cast<const unsigned char*>(a.w[i]) +
-                  blockIdx.y * a.w_stride[i],
+                  bo * a.w_stride[i] + bi * a.w_inner[i],
               a.k[i] * a.n[i] * kSize);
   if constexpr (kScaled) {
-    copy_flat(smem + a.s_off[0], a.s[0] + (size_t)f0 * a.mult[0], rows0 * 4);
-    for (int i = 1; i < a.links; ++i)
-      copy_flat(smem + a.s_off[i], a.s[i],
-                (i == a.links - 1 ? a.n[i] : 1) * 4);
+    if (a.s_scalar) {  // the entry's one factor a link
+      for (int i = 0; i < a.links; ++i)
+        copy_flat(smem + a.s_off[i], a.s[i] + bo * a.s_o[i] + bi * a.s_i[i],
+                  4);
+    } else {
+      copy_flat(smem + a.s_off[0], a.s[0] + (size_t)f0 * a.mult[0],
+                rows0 * 4);
+      for (int i = 1; i < a.links; ++i)
+        copy_flat(smem + a.s_off[i], a.s[i],
+                  (i == a.links - 1 ? a.n[i] : 1) * 4);
+    }
   }
   cp_async_commit();
   for (int i = 1; i < a.links; ++i) {
@@ -1297,7 +1357,7 @@ __global__ void __launch_bounds__(kChainThreads)
         for (int w = 1; w < kChainWarps; ++w) v += part[w * rp * 8 + e];
         const int rr = p0 + r;  // the block's link-0 row
         if constexpr (kScaled)
-          v = __fmul_rn(v, s0[rr]);
+          v = __fmul_rn(v, s0[rr * srs]);
         *reinterpret_cast<__nv_bfloat16*>(
             a1 + (rr / g1) * a.a_pitch[1] + ((rr % g1) * n0 + c) * 2) =
             __float2bfloat16(v);
@@ -1348,7 +1408,7 @@ __global__ void __launch_bounds__(kChainThreads)
         const int r = mt * 16 + g + 8 * (e >> 1), c = nt * 8 + 2 * q + (e & 1);
         if (r >= rows || c >= n) continue;
         float v = acc[0][e] + acc[1][e];
-        if constexpr (kScaled) v = __fmul_rn(v, sc[last ? c : 0]);
+        if constexpr (kScaled) v = __fmul_rn(v, sc[last ? c * srs : 0]);
         if (last) {
           ys[r * n + c] = from_f<TOut>(v);
         } else {
@@ -1366,7 +1426,7 @@ __global__ void __launch_bounds__(kChainThreads)
       rows_final * a.n[a.links - 1] * static_cast<int>(sizeof(TOut));
   unsigned char* yd = reinterpret_cast<unsigned char*>(
                           out + (size_t)f0 * a.n[a.links - 1]) +
-                      blockIdx.y * a.out_stride;
+                      (long long)blockIdx.y * a.out_stride;
   const unsigned char* yb = smem + a.y_off;
   const uintptr_t ya = reinterpret_cast<uintptr_t>(yd);
   if (ya % 16 == 0 && ybytes % 16 == 0) {
@@ -1385,10 +1445,11 @@ __global__ void __launch_bounds__(kChainThreads)
 
 // Whether the kernel takes cw for this X (alignment of its base, its row
 // pitch and the bytes between batch entries).
-bool chain_cw_ok(int cw, const void* x, int row_bytes, long long x_stride) {
+bool chain_cw_ok(int cw, const void* x, int row_bytes, long long x_stride,
+                 long long x_inner) {
   return (cw == 1 || cw == 2 || cw == 4 || cw == 8 || cw == 16) &&
          reinterpret_cast<uintptr_t>(x) % cw == 0 && row_bytes % cw == 0 &&
-         x_stride % cw == 0;
+         x_stride % cw == 0 && x_inner % cw == 0;
 }
 
 template <typename T, typename TOut, bool kScaled>
@@ -1397,16 +1458,20 @@ int launch_chain_tc(const void* x, const void* const* ws,
                     const int* mults, int links, int m_final, int band,
                     int warp_k, int cw, void* out, int batch,
                     long long x_stride, const long long* w_strides,
-                    long long out_stride, cudaStream_t stream) {
+                    long long out_stride, int inner, long long x_inner,
+                    const long long* w_inners, int s_scalar,
+                    const long long* s_outers, const long long* s_inners,
+                    cudaStream_t stream) {
   ChainTcArgs a{};
   const long long smem = chain_tc_layout(sizeof(T), sizeof(TOut), ks, ns,
                                          mults, links, band, warp_k, &a);
   const long long sz = sizeof(T);
-  // The scaled chain's scales have no batch axis: it runs one chain.
+  // A batched scaled chain takes one scalar factor a link per entry.
   if (smem < 0 || smem > kSmemLimit || m_final < 1 || batch < 1 ||
-      batch > 65535 || (kScaled && batch != 1) ||
+      batch > 65535 || inner < 1 || batch % inner || x_stride < 0 ||
+      x_inner < 0 || (kScaled && batch != 1 && !s_scalar) ||
       !chain_cw_ok(cw, x, ks[0] * static_cast<int>(sizeof(T)),
-                   x_stride * sz))
+                   x_stride * sz, x_inner * sz))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kern = chain_tc_kernel<T, TOut, kScaled>;
   static bool attr_set = false;
@@ -1417,9 +1482,14 @@ int launch_chain_tc(const void* x, const void* const* ws,
     attr_set = true;
   }
   for (int i = 0; i < links; ++i) {
+    if (w_strides[i] < 0 || w_inners[i] < 0)
+      return static_cast<int>(cudaErrorInvalidValue);
     a.w[i] = ws[i];
     a.w_stride[i] = w_strides[i] * sz;
+    a.w_inner[i] = w_inners[i] * sz;
     a.s[i] = kScaled ? scales[i] : nullptr;
+    a.s_o[i] = kScaled && s_scalar ? s_outers[i] : 0;
+    a.s_i[i] = kScaled && s_scalar ? s_inners[i] : 0;
     a.k[i] = ks[i];
     a.n[i] = ns[i];
     a.mult[i] = mults[i];
@@ -1429,6 +1499,9 @@ int launch_chain_tc(const void* x, const void* const* ws,
   a.band = band;
   a.cw = cw;
   a.x_stride = x_stride * sz;
+  a.x_inner = x_inner * sz;
+  a.inner = inner;
+  a.s_scalar = kScaled ? s_scalar : 0;
   a.out_stride = out_stride * static_cast<long long>(sizeof(TOut));
   const dim3 grid((m_final + band - 1) / band, batch);
   kern<<<grid, kChainThreads, static_cast<size_t>(smem), stream>>>(
@@ -1455,34 +1528,46 @@ int fc_matmul(int dtype, int trans, const void* x, const void* w, void* out,
               void* part, int batch, long long sx, long long sw, int M, int N,
               int K, int tile, int splits, int cw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const GemmBatch bt{1, sx, 0, sw, 0, 0, 0, 0, 0, 1};
   if (dtype == 0)
     return launch_gemm<float, float>(trans, tile, splits, cw, x, w, nullptr,
-                                     nullptr, out, part, M, N, K, batch, sx,
-                                     sw, s);
+                                     nullptr, out, part, M, N, K, batch, bt,
+                                     s);
   if (dtype == 1)
     return launch_gemm<__nv_bfloat16, __nv_bfloat16>(
         trans, tile, splits, cw, x, w, nullptr, nullptr, out, part, M, N, K,
-        batch, sx, sw, s);
+        batch, bt, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// C[M, N] = (Xq @ Wq) * sl[M] * sr[N] in f32; dtype 2, 3 or 4.
+// C[M, N] = (Xq @ Wq) * sl[M] * sr[N] in f32; dtype 2, 3 or 4.  With
+// batch > 1 (the quantized experts' instances) entry b = bo * inner + bi
+// reads X at bo * x_o + bi * x_i, W at bo * w_o + bi * w_i, and one scalar
+// each of sl and sr placed alike (rs 0); C entries are M * N apart.
+// batch 1 with rs 1 is the unbatched product with per-row sl and
+// per-column sr.
 int fc_matmul_scaled(int dtype, int trans, const void* x, const void* w,
                      const void* sl, const void* sr, void* out, void* part,
+                     int batch, int inner, long long x_o, long long x_i,
+                     long long w_o, long long w_i, long long sl_o,
+                     long long sl_i, long long sr_o, long long sr_i, int rs,
                      int M, int N, int K, int tile, int splits, int cw,
                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(sl);
   const float* r = static_cast<const float*>(sr);
+  const GemmBatch bt{inner, x_o, x_i, w_o, w_i, sl_o, sl_i, sr_o, sr_i, rs};
   if (dtype == 2)
     return launch_gemm<__nv_fp8_e4m3, float>(trans, tile, splits, cw, x, w, l,
-                                             r, out, part, M, N, K, 1, 0, 0, s);
+                                             r, out, part, M, N, K, batch, bt,
+                                             s);
   if (dtype == 3)
     return launch_gemm<__nv_fp8_e5m2, float>(trans, tile, splits, cw, x, w, l,
-                                             r, out, part, M, N, K, 1, 0, 0, s);
+                                             r, out, part, M, N, K, batch, bt,
+                                             s);
   if (dtype == 4)
     return launch_gemm<int8_t, float>(trans, tile, splits, cw, x, w, l, r,
-                                      out, part, M, N, K, 1, 0, 0, s);
+                                      out, part, M, N, K, batch, bt, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1499,16 +1584,17 @@ int fc_gemm_k_slice(int dtype, int trans, int tile, int splits, int cw,
                     const void* x, const void* w, int M, int N, int K) {
   int k_slice = -1;
   const void* part = reinterpret_cast<const void*>(uintptr_t{16});
+  const GemmBatch bt{1, 0, 0, 0, 0, 0, 0, 0, 0, 1};
   bool ok = false;
   if (dtype == 0)
     ok = gemm_config_ok<float>(trans, tile, splits, cw, x, w, part, M, N, K,
-                               1, 0, 0, &k_slice);
+                               1, bt, &k_slice);
   else if (dtype == 1)
     ok = gemm_config_ok<__nv_bfloat16>(trans, tile, splits, cw, x, w, part, M,
-                                       N, K, 1, 0, 0, &k_slice);
+                                       N, K, 1, bt, &k_slice);
   else if (dtype >= 2 && dtype <= 4)
     ok = gemm_config_ok<int8_t>(trans, tile, splits, cw, x, w, part, M, N, K,
-                                1, 0, 0, &k_slice);
+                                1, bt, &k_slice);
   return ok ? k_slice : -1;
 }
 
@@ -1533,11 +1619,17 @@ int fc_chain(int dtype, const void* x, const void* const* ws, const int* ks,
 // ChainTcArgs::s), 2, 3 or 4 (fp8/int8 X and W, bf16 intermediates, f32
 // Y).  band, warp_k and cw as fused_contraction.chain_config chose them;
 // a configuration the kernel does not take returns cudaErrorInvalidValue.
+// Entry b = bo * inner + bi reads X at bo * x_stride + bi * x_inner and
+// W_i at bo * w_strides[i] + bi * w_inners[i] elements; with s_scalar
+// (the quantized experts' instances) link i's factor is the one float at
+// bo * s_outers[i] + bi * s_inners[i] of scales[i].
 int fc_chain_tc(int dtype, const void* x, const void* const* ws,
                 const void* const* scales, const int* ks, const int* ns,
                 const int* mults, int links, int m_final, int band,
                 int warp_k, int cw, void* out, int batch, long long x_stride,
-                const long long* w_strides, long long out_stride,
+                const long long* w_strides, long long out_stride, int inner,
+                long long x_inner, const long long* w_inners, int s_scalar,
+                const long long* s_outers, const long long* s_inners,
                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* const* sc = reinterpret_cast<const float* const*>(scales);
@@ -1546,20 +1638,24 @@ int fc_chain_tc(int dtype, const void* x, const void* const* ws,
   if (dtype == 1)
     return launch_chain_tc<__nv_bfloat16, __nv_bfloat16, false>(
         x, ws, nullptr, ks, ns, mults, links, m_final, band, warp_k, cw, out,
-        batch, x_stride, w_strides, out_stride, s);
+        batch, x_stride, w_strides, out_stride, inner, x_inner, w_inners,
+        s_scalar, s_outers, s_inners, s);
   if (sc == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 2)
     return launch_chain_tc<__nv_fp8_e4m3, float, true>(
         x, ws, sc, ks, ns, mults, links, m_final, band, warp_k, cw, out,
-        batch, x_stride, w_strides, out_stride, s);
+        batch, x_stride, w_strides, out_stride, inner, x_inner, w_inners,
+        s_scalar, s_outers, s_inners, s);
   if (dtype == 3)
     return launch_chain_tc<__nv_fp8_e5m2, float, true>(
         x, ws, sc, ks, ns, mults, links, m_final, band, warp_k, cw, out,
-        batch, x_stride, w_strides, out_stride, s);
+        batch, x_stride, w_strides, out_stride, inner, x_inner, w_inners,
+        s_scalar, s_outers, s_inners, s);
   if (dtype == 4)
     return launch_chain_tc<int8_t, float, true>(
         x, ws, sc, ks, ns, mults, links, m_final, band, warp_k, cw, out,
-        batch, x_stride, w_strides, out_stride, s);
+        batch, x_stride, w_strides, out_stride, inner, x_inner, w_inners,
+        s_scalar, s_outers, s_inners, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

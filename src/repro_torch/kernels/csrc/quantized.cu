@@ -30,6 +30,16 @@
 //   to 6.1 us at every size probed, 6,144 to 73,728 elements, more than
 //   one block's divides.)
 //
+// * The batched requantize (the quantized experts: one instance per
+//   (expert, group), each a contiguous span of n elements) runs the same
+//   kernels with one amax and scale per instance, in one launch: up to
+//   kOneLaunchMax elements an instance, requant_block_kernel with one
+//   block per instance (blockIdx.x); above, per-instance partials
+//   (requant_amax_kernel and requant_cast_kernel with the instance on
+//   blockIdx.y, ga partials each), again with no atomics.  Instance i's
+//   scale is scale_out[i], its bits those of the per-tensor form on that
+//   instance alone.
+//
 // The amax compares |x| as unsigned bit patterns: for non-negative floats
 // they order as the values do, with every NaN above +inf, so the maximum
 // is torch.amax(x.abs()) exactly, NaN carried through.  The clamp is a
@@ -378,12 +388,16 @@ __device__ __forceinline__ void store_unit(uint8_t* q, int64_t u, int64_t n,
 // block.  A thread takes pairs of adjacent units (8 elements: 8
 // independent divides a pair, which its latency needs more than the
 // warp's contiguous span), pair k of thread t being k * kBlockThreads + t.
+// Block i takes instance i: the n elements from x + i * n, scale_out[i].
 template <typename TIn, int kOut, bool kWide>
 __global__ void __launch_bounds__(kBlockThreads, 1)
     requant_block_kernel(const TIn* __restrict__ x, uint8_t* __restrict__ q,
                          float* __restrict__ scale_out, int64_t n,
                          Scaling c) {
   constexpr int kPairs = kBlockUnits / 2;
+  x += blockIdx.x * n;
+  q += blockIdx.x * n;
+  scale_out += blockIdx.x;
   const int64_t units = (n + kVec - 1) / kVec;
   float v[kPairs][2][kVec];
   uint32_t m = 0;
@@ -412,11 +426,14 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   }
 }
 
-// Launch 1 of a larger tensor: the max |x| bits of each block's units.
+// Launch 1 of a larger tensor: the max |x| bits of each block's units
+// (instance blockIdx.y: x + blockIdx.y * n, partials gridDim.x apart).
 template <typename TIn, bool kWide>
 __global__ void __launch_bounds__(kThreads)
     requant_amax_kernel(const TIn* __restrict__ x,
                         uint32_t* __restrict__ partial, int64_t n) {
+  x += blockIdx.y * n;
+  partial += blockIdx.y * gridDim.x;
   const int64_t units = (n + kVec - 1) / kVec;
   const int64_t stride = int64_t(gridDim.x) * kThreads;
   uint32_t m = 0;
@@ -438,13 +455,17 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Launch 2: every block reduces the partials (L2-resident), block 0
-// writes the scale, and all cast their units.
+// writes the scale, and all cast their units (instance blockIdx.y).
 template <typename TIn, int kOut, bool kWide>
 __global__ void __launch_bounds__(kThreads)
     requant_cast_kernel(const TIn* __restrict__ x,
                         const uint32_t* __restrict__ partial, int n_partial,
                         uint8_t* __restrict__ q, float* __restrict__ scale_out,
                         int64_t n, Scaling c) {
+  x += blockIdx.y * n;
+  q += blockIdx.y * n;
+  partial += blockIdx.y * n_partial;
+  scale_out += blockIdx.y;
   uint32_t m = 0;
   for (int i = threadIdx.x; i < n_partial; i += kThreads)
     m = max(m, partial[i]);
@@ -550,11 +571,12 @@ int launch_dequantize(const void* q, const float* s, int per_row, void* o,
 
 template <typename TIn, int kOut, bool kWide>
 int launch_requantize_w(const TIn* x, uint8_t* q, float* scale_out,
-                        uint32_t* partial, int64_t n, Scaling c,
-                        cudaStream_t st) {
+                        uint32_t* partial, int64_t instances, int64_t n,
+                        Scaling c, cudaStream_t st) {
   if (n <= kOneLaunchMax) {
     requant_block_kernel<TIn, kOut, kWide>
-        <<<1, kBlockThreads, 0, st>>>(x, q, scale_out, n, c);
+        <<<static_cast<unsigned>(instances), kBlockThreads, 0, st>>>(
+            x, q, scale_out, n, c);
     return static_cast<int>(cudaGetLastError());
   }
   if (partial == nullptr) return static_cast<int>(cudaErrorInvalidValue);
@@ -562,30 +584,34 @@ int launch_requantize_w(const TIn* x, uint8_t* q, float* scale_out,
   // amax: each thread reads about 16 units (64 elements)
   int64_t ga = (units + int64_t(kThreads) * 16 - 1) / (int64_t(kThreads) * 16);
   ga = ga < kMaxPartials ? ga : kMaxPartials;
-  requant_amax_kernel<TIn, kWide>
-      <<<static_cast<unsigned>(ga), kThreads, 0, st>>>(x, partial, n);
+  const dim3 grid_a(static_cast<unsigned>(ga),
+                    static_cast<unsigned>(instances));
+  requant_amax_kernel<TIn, kWide><<<grid_a, kThreads, 0, st>>>(x, partial, n);
   int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
   const int steps = steps_for(units);
   const int64_t gc = (units + int64_t(kThreads) * steps - 1) /
                      (int64_t(kThreads) * steps);
-  requant_cast_kernel<TIn, kOut, kWide>
-      <<<static_cast<unsigned>(gc), kThreads, 0, st>>>(
-          x, partial, static_cast<int>(ga), q, scale_out, n, c);
+  const dim3 grid_c(static_cast<unsigned>(gc),
+                    static_cast<unsigned>(instances));
+  requant_cast_kernel<TIn, kOut, kWide><<<grid_c, kThreads, 0, st>>>(
+      x, partial, static_cast<int>(ga), q, scale_out, n, c);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TIn, int kOut>
 int launch_requantize(const void* x, void* q, float* scale_out,
-                      uint32_t* partial, int64_t n, Scaling c,
-                      cudaStream_t st) {
+                      uint32_t* partial, int64_t instances, int64_t n,
+                      Scaling c, cudaStream_t st) {
   const TIn* xp = static_cast<const TIn*>(x);
   uint8_t* qp = static_cast<uint8_t*>(q);
-  if (aligned(x, kVec * sizeof(TIn)) && aligned(q, kVec))
-    return launch_requantize_w<TIn, kOut, true>(xp, qp, scale_out, partial, n,
-                                                c, st);
-  return launch_requantize_w<TIn, kOut, false>(xp, qp, scale_out, partial, n,
-                                               c, st);
+  // Every instance's span must start aligned for the wide loads.
+  if (aligned(x, kVec * sizeof(TIn)) && aligned(q, kVec) &&
+      (instances == 1 || n % kVec == 0))
+    return launch_requantize_w<TIn, kOut, true>(xp, qp, scale_out, partial,
+                                                instances, n, c, st);
+  return launch_requantize_w<TIn, kOut, false>(xp, qp, scale_out, partial,
+                                               instances, n, c, st);
 }
 
 template <typename TIn>
@@ -615,14 +641,17 @@ int dispatch_dequantize(int out, const void* q, const float* s, int per_row,
 
 template <typename TIn>
 int dispatch_requantize(int out, const void* x, void* q, float* scale_out,
-                        uint32_t* partial, int64_t n, Scaling c,
-                        cudaStream_t st) {
+                        uint32_t* partial, int64_t instances, int64_t n,
+                        Scaling c, cudaStream_t st) {
   if (out == kE4M3)
-    return launch_requantize<TIn, kE4M3>(x, q, scale_out, partial, n, c, st);
+    return launch_requantize<TIn, kE4M3>(x, q, scale_out, partial, instances,
+                                         n, c, st);
   if (out == kE5M2)
-    return launch_requantize<TIn, kE5M2>(x, q, scale_out, partial, n, c, st);
+    return launch_requantize<TIn, kE5M2>(x, q, scale_out, partial, instances,
+                                         n, c, st);
   if (out == kI8)
-    return launch_requantize<TIn, kI8>(x, q, scale_out, partial, n, c, st);
+    return launch_requantize<TIn, kI8>(x, q, scale_out, partial, instances, n,
+                                       c, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -668,6 +697,30 @@ int q_dequantize(int in_dtype, int out_dtype, const void* q, const void* s,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The per-tensor requantize of `instances` tensors of n elements each,
+// instance i the n elements from x + i * n (each dense, any layout: the
+// kernels walk its storage flat): q and the f32 scales scale_out[i].
+// partial: instances * q_requantize_max_partials() uint32 of scratch,
+// needed (and only read or written) when n > q_requantize_one_launch_max().
+int q_requantize_batched(int in_dtype, int out_dtype, const void* x, void* q,
+                         void* scale_out, void* partial, int64_t instances,
+                         int64_t n, float qmax, float margin, float eps,
+                         void* stream) {
+  if (n < 1 || instances < 1 || instances > kMaxGridY)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Scaling c{qmax, margin, eps};
+  float* so = static_cast<float*>(scale_out);
+  uint32_t* pp = static_cast<uint32_t*>(partial);
+  if (in_dtype == kF32)
+    return dispatch_requantize<float>(out_dtype, x, q, so, pp, instances, n,
+                                      c, st);
+  if (in_dtype == kBF16)
+    return dispatch_requantize<__nv_bfloat16>(out_dtype, x, q, so, pp,
+                                              instances, n, c, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // The per-tensor requantize of n elements of x (dense, any layout: the
 // kernels walk its storage flat): q and the f32 scalar scale_out.
 // partial: q_requantize_max_partials() uint32 of scratch, needed (and
@@ -675,17 +728,8 @@ int q_dequantize(int in_dtype, int out_dtype, const void* q, const void* s,
 int q_requantize(int in_dtype, int out_dtype, const void* x, void* q,
                  void* scale_out, void* partial, int64_t n, float qmax,
                  float margin, float eps, void* stream) {
-  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Scaling c{qmax, margin, eps};
-  float* so = static_cast<float*>(scale_out);
-  uint32_t* pp = static_cast<uint32_t*>(partial);
-  if (in_dtype == kF32)
-    return dispatch_requantize<float>(out_dtype, x, q, so, pp, n, c, st);
-  if (in_dtype == kBF16)
-    return dispatch_requantize<__nv_bfloat16>(out_dtype, x, q, so, pp, n, c,
-                                              st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return q_requantize_batched(in_dtype, out_dtype, x, q, scale_out, partial,
+                              1, n, qmax, margin, eps, stream);
 }
 
 int64_t q_requantize_one_launch_max() { return kOneLaunchMax; }

@@ -34,6 +34,13 @@ the H100 and how the design answers it):
   :func:`gemm_config`.  Which chains fuse is :func:`chain_band_rows`,
   the same for both kernels.
 
+Both take a batch axis: one launch for every expert of a MoE's
+expert-stacked layer (3-D operands), and in their scaled forms one launch
+for every (expert, group) instance of its quantized experts (4-D
+operands ``[E, G, ...]`` whose expert-level ones broadcast over G with
+stride 0, and one per-tensor scale per instance: the reference vmaps its
+quantized layer over the groups and the experts).
+
 Each wrapper checks device, dtype, shape and contiguity, launches on
 ``torch.cuda.current_stream()`` and raises if the launch reports an
 error.  For a tensor on the CPU it runs the plain version
@@ -101,14 +108,20 @@ CHAIN_RING_BYTES = 64 * 1024
 #: count apart, under ``matmul_bwd`` / ``matmul_bwd_reduce``, and so do
 #: the expert-batched launches (3-D operands, every expert in one
 #: launch): ``matmul_batched`` / ``matmul_batched_reduce`` and
-#: ``chain_n_batched``.
+#: ``chain_n_batched``; and the instance-batched scaled ones (the
+#: quantized experts): ``matmul_scaled_batched`` /
+#: ``matmul_scaled_batched_reduce``, ``chain_n_scaled_batched``, and the
+#: batched requantize, ``requantize_batched`` /
+#: ``requantize_batched_amax``.
 LAUNCHES = {"matmul": 0, "chain_n": 0, "flash_attention_fwd": 0,
             "matmul_scaled": 0, "chain_n_scaled": 0, "quantize": 0,
             "dequantize": 0, "linear_scan": 0, "matmul_reduce": 0,
             "matmul_scaled_reduce": 0, "requantize": 0,
             "requantize_amax": 0, "matmul_bwd": 0, "matmul_bwd_reduce": 0,
             "matmul_batched": 0, "matmul_batched_reduce": 0,
-            "chain_n_batched": 0}
+            "chain_n_batched": 0, "matmul_scaled_batched": 0,
+            "matmul_scaled_batched_reduce": 0, "chain_n_scaled_batched": 0,
+            "requantize_batched": 0, "requantize_batched_amax": 0}
 
 #: operand dtype codes of the CUDA sources (``csrc/*.cu``)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -425,13 +438,33 @@ def gemm_config(m: int, n: int, k: int, dtype: torch.dtype,
 
 def _alignment(*tensors: torch.Tensor) -> int:
     """The largest power of two up to 16 dividing every base address and,
-    for a batched (3-D) operand, the bytes between its batch entries."""
+    for a batched (3-D or 4-D) operand, the bytes between its batch
+    entries along each batch axis."""
     a = 16
     for t in tensors:
-        while t.data_ptr() % a or (
-                t.dim() == 3 and t.stride(0) * t.element_size() % a):
+        while t.data_ptr() % a or any(
+                t.stride(d) * t.element_size() % a
+                for d in range(t.dim() - 2)):
             a //= 2
     return a
+
+
+def _batch_strides(t: torch.Tensor) -> tuple[int, int]:
+    """(outer, inner) element strides of a batched operand's batch axes:
+    ``[B, ...]`` gives ``(stride 0, 0)``, ``[E, G, ...]`` its two
+    strides (0 on G for an expert's operand broadcast over its
+    groups)."""
+    if t.dim() == 4:
+        return t.stride(0), t.stride(1)
+    return (t.stride(0), 0) if t.dim() == 3 else (0, 0)
+
+
+def _scale_strides(t: torch.Tensor) -> tuple[int, int]:
+    """(outer, inner) element strides of a per-instance scale ``[B]`` or
+    ``[E, G]``."""
+    if t.dim() == 1:
+        return t.stride(0), 0
+    return t.stride(0), t.stride(1)
 
 
 def gemm_config_for(x: torch.Tensor, w: torch.Tensor,
@@ -468,7 +501,9 @@ def _lib() -> ctypes.CDLL:
                                  cll, ctypes.POINTER(cll), cll, vp]
         lib.fc_chain.restype = ci
         lib.fc_matmul_scaled.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, ci,
-                                         ci, ci, ci, ci, ci, vp]
+                                         ci, cll, cll, cll, cll, cll, cll,
+                                         cll, cll, ci, ci, ci, ci, ci, ci,
+                                         ci, vp]
         lib.fc_matmul_scaled.restype = ci
         lib.fc_gemm_smem_bytes.argtypes = [ci, ci, ci]
         lib.fc_gemm_smem_bytes.restype = ci
@@ -479,7 +514,10 @@ def _lib() -> ctypes.CDLL:
                                     ctypes.POINTER(vp), ctypes.POINTER(ci),
                                     ctypes.POINTER(ci), ctypes.POINTER(ci),
                                     ci, ci, ci, ci, ci, vp, ci, cll,
-                                    ctypes.POINTER(cll), cll, vp]
+                                    ctypes.POINTER(cll), cll, ci, cll,
+                                    ctypes.POINTER(cll), ci,
+                                    ctypes.POINTER(cll),
+                                    ctypes.POINTER(cll), vp]
         lib.fc_chain_tc.restype = ci
         lib.fc_chain_tc_smem_bytes.argtypes = [
             ci, ctypes.POINTER(ci), ctypes.POINTER(ci), ctypes.POINTER(ci),
@@ -501,16 +539,21 @@ def _check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
-def _check_cuda_operands(op: str, tensors, out_dtype, scales=()) -> None:
+def _check_cuda_operands(op: str, tensors, out_dtype, scales=(),
+                         instances: bool = False) -> None:
     """Device, dtype and contiguity checks before a launch.  Plain
     kernels take f32/bf16 operands and write their type; the scaled ones
-    take fp8/int8 operands with f32 scales and write f32."""
+    take fp8/int8 operands with f32 scales and write f32.  ``instances``
+    (the instance batch): each operand's matrices must be contiguous,
+    its batch axes and the per-instance scales may take any strides."""
     dev = tensors[0].device
     dtype = tensors[0].dtype
     for t in (*tensors, *scales):
         if t.device != dev:
             raise ValueError(f"{op}: operands on {t.device} and {dev}")
-        if not t.is_contiguous():
+    for t in (tensors if instances else (*tensors, *scales)):
+        mat = t[(0,) * (t.dim() - 2)] if instances else t
+        if not mat.is_contiguous():
             raise ValueError(f"{op}: operands must be contiguous")
     for t in tensors:
         if t.dtype != dtype:
@@ -532,18 +575,28 @@ def _check_cuda_operands(op: str, tensors, out_dtype, scales=()) -> None:
         raise ValueError(f"{op}: the kernel writes {dtype}, not {out_dtype}")
 
 
-def _check_gemm_scales(scales, m: int, n: int, k: int):
+def _check_gemm_scales(scales, m: int, n: int, k: int, lead=()):
     sl, sr = scales
-    _require(tuple(sl.shape) == (m, 1) and tuple(sr.shape) == (1, n),
+    want = ((tuple(lead), tuple(lead)) if lead
+            else ((m, 1), (1, n)))
+    _require((tuple(sl.shape), tuple(sr.shape)) == want,
              f"bad GEMM scale shapes {tuple(sl.shape)}/{tuple(sr.shape)} "
-             f"for [{m}x{k}] @ [{k}x{n}]")
+             f"for [{m}x{k}] @ [{k}x{n}]"
+             + (f" over instances {tuple(lead)}" if lead else ""))
     return sl, sr
 
 
-def _check_chain_scales(scales, n_w: int, m0: int, n: int) -> tuple:
+def _check_chain_scales(scales, n_w: int, m0: int, n: int,
+                        lead=()) -> tuple:
     scales = tuple(scales)
     _require(len(scales) == n_w,
              f"expected {n_w} chain scales, got {len(scales)}")
+    if lead:
+        for j, s_ in enumerate(scales):
+            _require(tuple(s_.shape) == tuple(lead),
+                     f"chain scale {j} must be one per instance "
+                     f"{tuple(lead)}, got {tuple(s_.shape)}")
+        return scales
     s_first, *mid, s_last = scales
     _require(tuple(s_first.shape) == (m0, 1),
              f"chain lhs scale must be [{m0}, 1], got "
@@ -568,30 +621,37 @@ def matmul_cuda(x: torch.Tensor, w: torch.Tensor, *,
     reference's vmapped ``matmul_pallas``), each with one entry's
     :func:`gemm_config`; counted under ``matmul_batched``.
 
-    ``scales=(sl, sr)`` runs the scaled kernel (2-D operands only):
-    ``x``/``w`` hold fp8/int8 values, ``sl`` is the lhs scale per row
-    (``[M, 1]`` f32), ``sr`` the rhs scale per column (``[1, N]`` f32),
-    and the f32 output is ``(Xq @ Wq) * sl * sr``.
+    ``scales=(sl, sr)`` runs the scaled kernel: ``x``/``w`` hold
+    fp8/int8 values, ``sl`` is the lhs scale per row (``[M, 1]`` f32),
+    ``sr`` the rhs scale per column (``[1, N]`` f32), and the f32 output
+    is ``(Xq @ Wq) * sl * sr``.  Batched (the instances of a MoE's
+    quantized experts): ``X[*I, M, K]`` and ``W`` alike, ``I`` one batch
+    axis or two (``[E, G]``; an expert's W broadcast over its groups,
+    stride 0, is read without copies), and ``sl``, ``sr`` one scalar per
+    instance (shape ``I``, any strides); ``C[*I, M, N]``, one launch,
+    counted under ``matmul_scaled_batched``.
 
     ``launch_key`` names the :data:`LAUNCHES` entry a plain 2-D launch
     counts under (``matmul``, or ``matmul_bwd`` for an autograd
     backward's)."""
     if launch_key not in ("matmul", "matmul_bwd"):
         raise ValueError(f"matmul_cuda: unknown launch key {launch_key!r}")
-    batched = x.dim() == 3
-    _require(x.dim() == w.dim() and x.dim() in (2, 3),
-             f"GEMM operands must be 2-D or both 3-D, got {tuple(x.shape)} "
-             f"and {tuple(w.shape)}")
-    _require(not batched or x.shape[0] == w.shape[0],
-             f"GEMM batch mismatch {x.shape[0]} vs {w.shape[0]}")
-    _require(not (batched and scales is not None),
-             "the scaled GEMM takes 2-D operands")
+    batched = x.dim() >= 3
+    _require(x.dim() == w.dim() and x.dim() in (2, 3, 4),
+             f"GEMM operands must be 2-D or both 3-D / 4-D, got "
+             f"{tuple(x.shape)} and {tuple(w.shape)}")
+    _require(x.shape[:-2] == w.shape[:-2],
+             f"GEMM batch mismatch {tuple(x.shape[:-2])} vs "
+             f"{tuple(w.shape[:-2])}")
+    _require(x.dim() < 4 or scales is not None,
+             "two batch axes take the scaled GEMM")
+    lead = tuple(x.shape[:-2])
     m, k = x.shape[-2:]
     n, k2 = (w.shape[-2:] if transpose_rhs
              else (w.shape[-1], w.shape[-2]))
     _require(k == k2, f"contraction mismatch {k} vs {k2}")
     if scales is not None:
-        scales = _check_gemm_scales(scales, m, n, k)
+        scales = _check_gemm_scales(scales, m, n, k, lead)
     on_cpu = all(t.device.type == "cpu" for t in (x, w, *(scales or ())))
     if on_cpu and scales is None:
         return ref.matmul(x, w, transpose_rhs=transpose_rhs,
@@ -602,9 +662,13 @@ def matmul_cuda(x: torch.Tensor, w: torch.Tensor, *,
         return ref.matmul_scaled(x, w, *scales, transpose_rhs=transpose_rhs)
     if x.device.type != "cuda":
         raise ValueError(f"matmul_cuda: no kernel for device {x.device}")
-    _check_cuda_operands("matmul_cuda", (x, w), out_dtype, scales or ())
-    batch = x.shape[0] if batched else 1
-    out = torch.empty(((batch,) if batched else ()) + (m, n), device=x.device,
+    instances = batched and scales is not None
+    _check_cuda_operands("matmul_cuda", (x, w), out_dtype, scales or (),
+                         instances=instances)
+    batch = 1
+    for d in lead:
+        batch *= d
+    out = torch.empty(lead + (m, n), device=x.device,
                       dtype=x.dtype if scales is None else torch.float32)
     if m == 0 or n == 0 or batch == 0:
         return out
@@ -623,11 +687,18 @@ def matmul_cuda(x: torch.Tensor, w: torch.Tensor, *,
                            _ptr(part), *strides, *geo)
         key = "matmul_batched" if batched else launch_key
     else:
+        if instances:
+            inner = x.shape[1] if x.dim() == 4 else 1
+            bstr = (batch, inner, *_batch_strides(x), *_batch_strides(w),
+                    *_scale_strides(scales[0]), *_scale_strides(scales[1]),
+                    0)
+        else:
+            bstr = (1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 1)
         rc = lib.fc_matmul_scaled(_QUANT_CODES[x.dtype], int(transpose_rhs),
                                   x.data_ptr(), w.data_ptr(),
                                   scales[0].data_ptr(), scales[1].data_ptr(),
-                                  out.data_ptr(), _ptr(part), *geo)
-        key = "matmul_scaled"
+                                  out.data_ptr(), _ptr(part), *bstr, *geo)
+        key = "matmul_scaled_batched" if instances else "matmul_scaled"
     _check_rc(lib, rc, "matmul_cuda")
     LAUNCHES[key] += 1
     if part is not None:
@@ -650,26 +721,30 @@ def chain_n_cuda(x: torch.Tensor, weights, *, out_dtype=None,
     output is ``[E, m_final, n_last]``, counted under
     ``chain_n_batched``.
 
-    ``scales`` (2-D operands only) runs the quantized chain: operands
-    hold fp8/int8 values and ``scales`` is ``(s_first [m0, 1], c_2 [1,
-    1], ..., s_last [1, n_last])``: the lhs row scales times W1's scale,
-    each interior weight's scale, W_n's scale per output column.  Each
-    link multiplies its f32 sum by its factor; intermediates are rounded
-    to bf16; the output is f32.
+    ``scales`` runs the quantized chain: operands hold fp8/int8 values
+    and ``scales`` is ``(s_first [m0, 1], c_2 [1, 1], ..., s_last [1,
+    n_last])``: the lhs row scales times W1's scale, each interior
+    weight's scale, W_n's scale per output column.  Each link multiplies
+    its f32 sum by its factor; intermediates are rounded to bf16; the
+    output is f32.  Batched (the quantized experts' instances):
+    ``x[*I, m0, k_1]``, ``W_i[*I, k_i, n_i]`` (an expert's broadcast over
+    its groups with stride 0) and every factor one scalar per instance
+    (shape ``I``), counted under ``chain_n_scaled_batched``.
     """
     weights = tuple(weights)
     _require(len(weights) >= 2,
              f"chain needs >= 2 weights, got {len(weights)}")
-    _require(x.dim() in (2, 3),
-             f"chain lhs must be 2-D or 3-D, got {tuple(x.shape)}")
-    batched = x.dim() == 3
+    _require(x.dim() in (2, 3, 4),
+             f"chain lhs must be 2-D, 3-D or 4-D, got {tuple(x.shape)}")
+    batched = x.dim() >= 3
     for i, w in enumerate(weights):
-        _require(w.dim() == x.dim() and (not batched
-                                         or w.shape[0] == x.shape[0]),
+        _require(w.dim() == x.dim() and w.shape[:-2] == x.shape[:-2],
                  f"chain weight {i} of shape {tuple(w.shape)} does not "
                  f"match the lhs {tuple(x.shape)}")
-    _require(not (batched and scales is not None),
-             "the scaled chain takes 2-D operands")
+    _require(x.dim() < 4 or scales is not None,
+             "two batch axes take the scaled chain")
+    lead = tuple(x.shape[:-2])
+    instances = batched and scales is not None
     m0 = x.shape[-2]
     shapes = tuple(tuple(w.shape[-2:]) for w in weights)
     _require(shapes[0][0] == x.shape[-1],
@@ -679,7 +754,8 @@ def chain_n_cuda(x: torch.Tensor, weights, *, out_dtype=None,
     cfg = chain_config_for(x, weights)
     m_final, n_last = rows[-1], shapes[-1][1]
     if scales is not None:
-        scales = _check_chain_scales(scales, len(weights), m0, n_last)
+        scales = _check_chain_scales(scales, len(weights), m0, n_last,
+                                     lead)
     if all(t.device.type == "cpu" for t in (x, *weights, *(scales or ()))):
         if scales is None:
             return ref.chain_n(x, weights, out_dtype=out_dtype)
@@ -689,10 +765,11 @@ def chain_n_cuda(x: torch.Tensor, weights, *, out_dtype=None,
     if x.device.type != "cuda":
         raise ValueError(f"chain_n_cuda: no kernel for device {x.device}")
     _check_cuda_operands("chain_n_cuda", (x, *weights), out_dtype,
-                         scales or ())
-    batch = x.shape[0] if batched else 1
-    out = torch.empty(((batch,) if batched else ()) + (m_final, n_last),
-                      device=x.device,
+                         scales or (), instances=instances)
+    batch = 1
+    for d in lead:
+        batch *= d
+    out = torch.empty(lead + (m_final, n_last), device=x.device,
                       dtype=x.dtype if scales is None else torch.float32)
     if m_final == 0 or batch == 0:
         return out
@@ -701,10 +778,18 @@ def chain_n_cuda(x: torch.Tensor, weights, *, out_dtype=None,
            (ctypes.c_int * links)(*(k for k, _ in shapes)),
            (ctypes.c_int * links)(*(n for _, n in shapes)),
            (ctypes.c_int * links)(*(r // m_final for r in rows)))
-    strides = (batch, x.stride(0) if batched else 0,
-               (ctypes.c_longlong * links)(
-                   *(w.stride(0) if batched else 0 for w in weights)),
-               out.stride(0) if batched else 0)
+    w_str = [_batch_strides(w) for w in weights]
+    strides = (batch, _batch_strides(x)[0],
+               (ctypes.c_longlong * links)(*(o for o, _ in w_str)),
+               m_final * n_last if batched else 0)
+    s_str = [_scale_strides(s_) if instances else (0, 0)
+             for s_ in (scales or ())] or [(0, 0)] * links
+    inner = (x.shape[1] if x.dim() == 4 else 1,
+             _batch_strides(x)[1],
+             (ctypes.c_longlong * links)(*(i for _, i in w_str)),
+             int(instances),
+             (ctypes.c_longlong * links)(*(o for o, _ in s_str)),
+             (ctypes.c_longlong * links)(*(i for _, i in s_str)))
     lib = _lib()
     if cfg.kernel == "simt":
         rc = lib.fc_chain(_DTYPE_CODES[x.dtype], x.data_ptr(), *geo, links,
@@ -717,8 +802,9 @@ def chain_n_cuda(x: torch.Tensor, weights, *, out_dtype=None,
         rc = lib.fc_chain_tc(code, x.data_ptr(), geo[0], sptrs, *geo[1:],
                              links, m_final, cfg.band, cfg.warp_k,
                              cfg.copy_bytes, out.data_ptr(), *strides,
-                             _stream())
-    key = ("chain_n_batched" if batched
+                             *inner, _stream())
+    key = ("chain_n_scaled_batched" if instances
+           else "chain_n_batched" if batched
            else "chain_n" if scales is None else "chain_n_scaled")
     _check_rc(lib, rc, "chain_n_cuda")
     LAUNCHES[key] += 1

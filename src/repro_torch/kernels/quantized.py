@@ -20,7 +20,14 @@ how the design answers it):
   every quantized op.  One launch up to :data:`REQUANT_ONE_LAUNCH_MAX`
   elements (one block holding the tensor in registers), two above it (a
   partial-amax kernel, then the cast).  The plan compiler requantizes
-  every quantized op's result through it on the card.
+  every quantized op's result through it on the card.  With ``lead``
+  (the instance batch of a MoE's quantized experts) it finds one amax
+  and scale per instance in one launch (two above
+  :data:`REQUANT_ONE_LAUNCH_MAX` elements an instance).
+
+The instance batch needs no other form of B5 and B6: an instance is a
+contiguous row of ``[I, numel / I]``, so the per-row form (``[I, 1]``
+scales) quantizes and dequantizes each instance with its own scale.
 
 All are bit-equal to their plain versions (:func:`ref.quantize`,
 :func:`ref.dequantize`, :func:`ref.requantize`).  For tensors on the CPU
@@ -29,7 +36,8 @@ raise.  Launches are counted in ``fused_contraction.LAUNCHES``:
 ``["quantize"]``, ``["dequantize"]``, ``["requantize"]`` (one per
 requantize: the cast, with the amax in the same launch when it fits one
 block) and ``["requantize_amax"]`` (the partial-amax launches of larger
-tensors).
+tensors); the batched requantize under ``["requantize_batched"]`` and
+``["requantize_batched_amax"]``.
 """
 
 from __future__ import annotations
@@ -59,6 +67,9 @@ def _lib() -> ctypes.CDLL:
         lib.q_requantize.argtypes = [ci, ci, vp, vp, vp, vp, ll, cf, cf, cf,
                                      vp]
         lib.q_requantize.restype = ci
+        lib.q_requantize_batched.argtypes = [ci, ci, vp, vp, vp, vp, ll, ll,
+                                             cf, cf, cf, vp]
+        lib.q_requantize_batched.restype = ci
         lib.q_requantize_one_launch_max.restype = ll
         lib.q_requantize_max_partials.restype = ll
         lib.q_error_string.argtypes = [ci]
@@ -164,7 +175,20 @@ def _dense(x: torch.Tensor) -> bool:
     return x.permute(order).is_contiguous()
 
 
-def requantize_cuda(x: torch.Tensor, policy: QuantPolicy
+def _instance_major(x: torch.Tensor, lead: int) -> bool:
+    """Whether the ``lead`` leading axes of ``x`` step over consecutive
+    spans of ``numel / I`` elements in storage, each span dense (an
+    op's batched result, its trailing axes permuted or not)."""
+    inst = x[(0,) * lead]
+    span = max(inst.numel(), 1)
+    for d in range(lead - 1, -1, -1):
+        if x.shape[d] > 1 and x.stride(d) != span:
+            return False
+        span *= x.shape[d]
+    return inst.is_contiguous() or _dense(inst)
+
+
+def requantize_cuda(x: torch.Tensor, policy: QuantPolicy, lead: int = 0
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-tensor quantize with the scale found from ``x`` itself:
     ``(q, scale)`` with ``scale = clamp(max |x|, min=1e-12) * margin /
@@ -172,35 +196,56 @@ def requantize_cuda(x: torch.Tensor, policy: QuantPolicy
     by it, in ``policy.operand_dtype``.  ``x`` (f32 or bf16, any shape)
     may be a permuted view of a dense tensor: the kernels walk its
     storage, and ``q`` gets ``x``'s strides (as a torch elementwise op
-    gives it), so a permuted result needs no copy."""
+    gives it), so a permuted result needs no copy.
+
+    ``lead``: the first ``lead`` axes index instances (``I`` of them),
+    each a consecutive span of storage (its trailing axes permuted or
+    not): one amax and scale per instance (``scale`` of shape
+    ``x.shape[:lead]``), all in one launch, counted under
+    ``requantize_batched``."""
     if not policy.quantized:
         raise ValueError("requantize_cuda: a bf16 (no-op) policy")
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"requantize_cuda: dtype {x.dtype} not supported "
                          "(float32, bfloat16)")
     if x.device.type == "cpu":
-        return ref.requantize(x, policy)
+        return ref.requantize(x, policy, lead)
     if x.device.type != "cuda":
         raise ValueError(f"requantize_cuda: no kernel for device {x.device}")
-    if not (x.is_contiguous() or _dense(x)):
+    if lead == 0 and not (x.is_contiguous() or _dense(x)):
         raise ValueError("requantize_cuda: operand must be dense (a "
                          "permutation of a contiguous tensor), got strides "
                          f"{x.stride()} for shape {tuple(x.shape)}")
-    n = x.numel()
-    if n == 0:
+    if lead and not (x.is_contiguous() or _instance_major(x, lead)):
+        raise ValueError("requantize_cuda: instances must be consecutive "
+                         "dense spans, got strides "
+                         f"{x.stride()} for shape {tuple(x.shape)}")
+    instances = 1
+    for d in x.shape[:lead]:
+        instances *= d
+    n = x.numel() // max(instances, 1)
+    if n == 0 or instances == 0:
         raise ValueError("requantize_cuda: empty tensor has no amax")
     q = torch.empty_strided(x.shape, x.stride(), dtype=policy.operand_dtype,
                             device=x.device)
-    scale = torch.empty((), dtype=torch.float32, device=x.device)
+    scale = torch.empty(tuple(x.shape[:lead]), dtype=torch.float32,
+                        device=x.device)
     two = requantize_launches(n) == 2
-    partial = (torch.empty(REQUANT_MAX_PARTIALS, dtype=torch.int32,
-                           device=x.device) if two else None)
+    partial = (torch.empty(instances * REQUANT_MAX_PARTIALS,
+                           dtype=torch.int32, device=x.device)
+               if two else None)
     lib = _lib()
-    _run("requantize_cuda", lib.q_requantize, lib, _DTYPE_CODES[x.dtype],
-         _QUANT_CODES[policy.operand_dtype], x.data_ptr(), q.data_ptr(),
-         scale.data_ptr(), None if partial is None else partial.data_ptr(),
-         n, policy.qmax, policy.margin, EPS)
-    LAUNCHES["requantize"] += 1
+    codes = (_DTYPE_CODES[x.dtype], _QUANT_CODES[policy.operand_dtype],
+             x.data_ptr(), q.data_ptr(), scale.data_ptr(),
+             None if partial is None else partial.data_ptr())
+    if lead:
+        _run("requantize_cuda", lib.q_requantize_batched, lib, *codes,
+             instances, n, policy.qmax, policy.margin, EPS)
+    else:
+        _run("requantize_cuda", lib.q_requantize, lib, *codes, n,
+             policy.qmax, policy.margin, EPS)
+    key = "requantize_batched" if lead else "requantize"
+    LAUNCHES[key] += 1
     if two:
-        LAUNCHES["requantize_amax"] += 1
+        LAUNCHES[key + "_amax"] += 1
     return q, scale

@@ -60,12 +60,36 @@ def chain_n(x: torch.Tensor, weights, *, out_dtype=None) -> torch.Tensor:
     return h.to(out_dtype or x.dtype)
 
 
+def _instances(t: torch.Tensor, lead: tuple) -> list[torch.Tensor]:
+    """``t`` broadcast to the instance axes ``lead`` (an expert's
+    operand over its groups), one entry per instance in row-major
+    order."""
+    t = t.expand(tuple(lead) + tuple(t.shape[len(lead):]))
+    return list(t.reshape((-1,) + tuple(t.shape[len(lead):])))
+
+
 def matmul_scaled(xq: torch.Tensor, wq: torch.Tensor, sl: torch.Tensor,
                   sr: torch.Tensor, *, transpose_rhs: bool = False
                   ) -> torch.Tensor:
     """``C = (Xq @ Wq) * sl[M, 1] * sr[1, N]`` in f32, in that order: the
     fp8/int8 operands upcast exactly to f32, the dequantization scales
-    applied to the f32 sum (``_matmul_scaled_kernel``'s epilogue)."""
+    applied to the f32 sum (``_matmul_scaled_kernel``'s epilogue).
+
+    Batched (the instance batch of a MoE's quantized experts): ``xq[*I,
+    M, K]``, ``wq[*I, K, N]`` (or ``[*I, N, K]``; an operand may be
+    broadcast over trailing instance axes, an expert's cores over its
+    groups) and per-instance scalar scales ``sl``, ``sr`` of shape ``I``
+    give ``C[*I, M, N]``: the 2-D form run on each instance with its
+    own scales, a loop, so bit for bit the unbatched result."""
+    if xq.dim() > 2:
+        lead = tuple(xq.shape[:-2])
+        outs = [matmul_scaled(x, w, a.reshape(1, 1), b.reshape(1, 1),
+                              transpose_rhs=transpose_rhs)
+                for x, w, a, b in zip(_instances(xq, lead),
+                                      _instances(wq, lead),
+                                      _instances(sl, lead),
+                                      _instances(sr, lead))]
+        return torch.stack(outs).reshape(lead + tuple(outs[0].shape))
     w = wq.t() if transpose_rhs else wq
     return torch.matmul(xq.float(), w.float()) * sl * sr
 
@@ -77,8 +101,21 @@ def chain_n_scaled(x: torch.Tensor, weights, scales) -> torch.Tensor:
     rounded to bf16 and regrouped to ``[-1, k_i]``, multiplies it by the
     bf16-cast weight (exact from fp8/int8) with f32 accumulation, and
     scales by its factor.  The reference's own mirror of its kernel
-    (``plan_compiler._run_quantized``'s unfused fallback); f32 out."""
+    (``plan_compiler._run_quantized``'s unfused fallback); f32 out.
+
+    Batched: ``x[*I, m0, k]``, ``W_i[*I, k_i, n_i]`` (broadcast over
+    trailing instance axes where an expert's) and every factor a
+    per-instance scalar of shape ``I``: the 2-D chain on each instance,
+    a loop, bit for bit the unbatched result."""
     weights, scales = tuple(weights), tuple(scales)
+    if x.dim() > 2:
+        lead = tuple(x.shape[:-2])
+        per = [_instances(t, lead) for t in (x, *weights, *scales)]
+        n = len(weights)
+        outs = [chain_n_scaled(p[0], p[1:1 + n],
+                               [s_.reshape(1, 1) for s_ in p[1 + n:]])
+                for p in zip(*per)]
+        return torch.stack(outs).reshape(lead + tuple(outs[0].shape))
     res = torch.matmul(x.float(), weights[0].float()) * scales[0]
     for w, s in zip(weights[1:], scales[1:]):
         lhs = res.to(torch.bfloat16).reshape(-1, w.shape[0])
@@ -109,38 +146,108 @@ def chain_scaled_agreement(got: torch.Tensor, want: torch.Tensor
             and nums["max_abs_err"] <= 2 * ulp), nums
 
 
+def chain_readback_agreement(chain, x: torch.Tensor, ws, scales
+                             ) -> tuple[bool, dict]:
+    """Whether the batched scaled two-link chain ``chain`` (the kernel's
+    wrapper, ``fused_contraction.chain_n_cuda``) agrees with
+    :func:`chain_n_scaled` on ``x[*I, m0, k0]``, ``ws`` and per-instance
+    ``scales``, and the numbers that decide it.
+
+    :func:`chain_scaled_agreement` counts output elements, and where an
+    instance's output has few rows one intermediate a bf16 ulp off moves
+    a whole row (at 32 rows 3.1% of the elements, against its 0.5%),
+    which the plain version's own f32 sums do about once in 16,000
+    intermediates at a 2,048-long link 0.  So the kernel's link-0
+    intermediates are read back (link 1 replaced by unit columns at
+    scale 1: the same kernel, configuration and link 0, eight
+    intermediates a launch) and held to that rule's reason itself: at
+    most 0.5% of each instance's intermediates off the plain version's,
+    none by more than one bf16 ulp of the instance's largest
+    intermediate; and the kernel's output within 1e-5 of each instance's
+    scale of link 1 run in f32 on the kernel's own intermediates."""
+    _, w1 = ws
+    lead = x.dim() - 2
+    inst = tuple(x.shape[:lead])
+    k1, n = w1.shape[-2], 8
+    ones = torch.ones(inst, device=x.device)
+    cols = []
+    for j in range(k1 // n):
+        sel = torch.zeros(k1, n, device=x.device)
+        sel[j * n + torch.arange(n), torch.arange(n)] = 1.0
+        sel = sel.to(x.dtype).expand(inst + (k1, n))
+        cols.append(chain(x, [ws[0], sel],
+                                    scales=(scales[0], ones)))
+    got_h = torch.cat(cols, -1).flatten(0, lead - 1)     # [I, rows1, k1]
+    xs, w0s = x.flatten(0, lead - 1), ws[0].flatten(0, lead - 1)
+    s0 = scales[0].flatten()
+    want_h = torch.stack([
+        (torch.matmul(xi.float(), wi.float()) * si).to(torch.bfloat16)
+        .float().reshape(got_h.shape[1:])
+        for xi, wi, si in zip(xs, w0s, s0)])
+    off = got_h != want_h
+    # one bf16 ulp of each instance's largest intermediate: an
+    # intermediate near zero (cancellation) takes the f32 sums' error as
+    # many ulps of its own
+    top = want_h.abs().flatten(1).amax(-1)
+    ulp = torch.ldexp(torch.ones_like(top), torch.frexp(top)[1] - 8)
+    gap = (got_h - want_h).abs().flatten(1).amax(-1)
+    one_ulp = bool((gap <= ulp).all())
+    share = off.flatten(1).float().mean(-1)
+    out = chain(x, ws, scales=scales).flatten(0, lead - 1)
+    link1 = torch.matmul(got_h, w1.flatten(0, lead - 1).float()) \
+        * scales[1].flatten()[:, None, None]
+    err = (out - link1).abs().flatten(1).amax(-1)
+    scale = link1.abs().flatten(1).amax(-1)
+    nums = {"intermediates_off_share_max": float(share.max()),
+            "intermediates_off": int(off.sum()),
+            "intermediates": off.numel(),
+            "max_gap_in_scale_ulps": float((gap / ulp).max()),
+            "link1_max_rel_err": float((err / scale).max())}
+    return (float(share.max()) <= 0.005 and one_ulp
+            and bool((err <= 1e-5 * scale).all())), nums
+
+
 def quantize(x: torch.Tensor, scale: torch.Tensor,
-             policy: QuantPolicy) -> torch.Tensor:
+             policy: QuantPolicy, lead: int = 0) -> torch.Tensor:
     """``q[R, C] = cast(clip(x / scale, ±qmax))``: a true divide, int8
     rounded half to even, fp8 rounded by the cast (nearest even).  The
     precision subsystem's own cast, on per-row scales ``[R, 1]`` or one
-    scalar scale."""
+    scalar scale.  ``lead``: ``x[*I, ...]`` with one scale per instance,
+    ``scale`` of shape ``I`` (the per-row form on ``[prod(I), -1]``)."""
+    if lead:
+        return quant._cast(x, scale, policy, lead)
     return quant._cast(x, scale.reshape(-1), policy)
 
 
 def dequantize(q: torch.Tensor, scale: torch.Tensor,
-               out_dtype=torch.float32) -> torch.Tensor:
+               out_dtype=torch.float32, lead: int = 0) -> torch.Tensor:
     """``x[R, C] = q * scale``: one f32 multiply, then the cast; ``scale``
-    per row ``[R, 1]`` or one scalar."""
+    per row ``[R, 1]`` or one scalar, or with ``lead`` one per instance
+    of ``q[*I, ...]``."""
+    if lead:
+        return quant.dequantize(quant.QTensor(q=q, scale=scale, lead=lead),
+                                out_dtype)
     return quant.dequantize(quant.QTensor(q=q, scale=scale.reshape(-1)),
                             out_dtype)
 
 
-def requantize(x: torch.Tensor, policy: QuantPolicy
+def requantize(x: torch.Tensor, policy: QuantPolicy, lead: int = 0
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """The per-tensor requantize: ``(q, scale)`` with ``scale =
     clamp(max |x|, min=1e-12) * margin / qmax`` in f32, in that order, and
     ``q`` :func:`quantize`'s cast by it; ``quant.quantize(x, policy)`` at
-    ``granularity="tensor"``, bit for bit on the CPU.
+    ``granularity="tensor"``, bit for bit on the CPU.  ``lead``: one amax
+    and scale per instance of ``x[*I, ...]`` (``scale`` of shape ``I``),
+    each what the unbatched form gives that instance.
 
     The divide by ``qmax`` is by an f32 tensor on ``x``'s device, not by
     a Python number: on the card torch divides by a host scalar as a
     multiply by its reciprocal, which can move the scale's last bit
     against the true divide of the reference (and of the kernel)."""
-    amax = qpolicy.amax_of(x)
+    amax = qpolicy.lead_amax(x, lead)
     qmax = torch.full((), policy.qmax, dtype=torch.float32, device=x.device)
     scale = torch.clamp(amax, min=qpolicy._EPS) * policy.margin / qmax
-    return quant._cast(x, scale, policy), scale
+    return quant._cast(x, scale, policy, lead), scale
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, q_chunk: int = 512,

@@ -18,6 +18,9 @@ Port of ``src/repro/launch/train.py`` (single device)::
       --tnn --tnn-backend cuda --steps 12 --batch 8 --seq 128 --lr 3e-4
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe_1b_7b \
       --tnn --tnn-backend cuda --steps 12 --batch 8 --seq 128
+  PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe_1b_7b \
+      --tnn --tnn-backend cuda --tnn-precision fp8 --loss-scale 128 \
+      --steps 12 --batch 8 --seq 128 --lr 1e-3
 
 The default lr (3e-3) suits the small models; at ``qwen2_7b``'s and
 ``zamba2_7b``'s width the loss climbs at it, and both train at 3e-4.
@@ -27,10 +30,11 @@ training state does not fit one 80 GB card; the full model trains there
 through ``train(..., tnn_cfg=arch.tnn_one_card)`` (``chip_smoke.py``).
 
 A MoE model (``olmoe_1b_7b``, ``qwen3_moe_235b_a22b``) logs its router's
-load-balance and z losses (``lb``, ``z``) beside the loss; its experts
-train unquantized only, so ``--tnn-precision`` other than bf16 (and a
-quantized ``--tnn-remat``) raises ``NotImplementedError`` there (ROADMAP.md,
-queue A item 13).
+load-balance and z losses (``lb``, ``z``) beside the loss.  Under
+``--tnn-precision`` its experts train quantized per (expert, group)
+instance, as the reference's vmap over the token groups does, with one
+delayed-scaling history ``[E, 2 + cores, 16]`` per expert layer; a
+quantized ``--tnn-remat`` stashes per instance too.
 
 An embeddings-input architecture (``llava_next_34b``) trains on the
 data's pseudo-embeddings (``DataConfig.embed_dim = d_model``), as the
@@ -124,7 +128,7 @@ def train(arch_id: str, *, smoke: bool, tnn: bool, steps: int,
           num_layers: int | None = None) -> dict:
     """Train ``arch_id`` for ``steps`` steps on synthetic data; returns
     the per-step losses, grad norms and step seconds of the steps run,
-    the activation-memory probe and the final state.
+    the activation-memory probe, the final state and the model.
     ``on_step(step, metrics)``, when given, runs after each step.
     ``tnn_cfg``, when given, takes the place of the arch's
     ``tnn_default`` (the backend, precision, remat and budget overrides
@@ -266,7 +270,8 @@ def train(arch_id: str, *, smoke: bool, tnn: bool, steps: int,
             "peak_source": mem_probe.source if mem_probe else None,
             "modeled_activation_bytes": (modeled.peak_bytes
                                          if modeled else None),
-            "microbatches": microbatches, "cfg": cfg, "state": state}
+            "microbatches": microbatches, "cfg": cfg, "state": state,
+            "model": model}
 
 
 def build_parser() -> argparse.ArgumentParser:

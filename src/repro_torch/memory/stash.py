@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.precision import quant
 from repro_torch.precision.policy import (
-    ALIASES, DTYPES, QuantPolicy, amax_of, compute_scale,
+    ALIASES, DTYPES, QuantPolicy, compute_scale, lead_amax,
 )
 
 MODES = ("store", "recompute", "quantized")
@@ -89,32 +89,39 @@ STORE = StashPolicy()
 
 
 def stash(x: torch.Tensor, policy: StashPolicy,
-          scale: torch.Tensor | None = None) -> tuple:
+          scale: torch.Tensor | None = None, lead: int = 0) -> tuple:
     """Pack ``x`` into this policy's residual ``(payload, scale, amax)``:
     ``scale`` and ``amax`` are f32 scalars under ``quantized`` and None
     otherwise.  ``scale`` (delayed scaling) pins the quantization scale,
-    so the backward's re-quantization reproduces the forward's bits."""
+    so the backward's re-quantization reproduces the forward's bits.
+    ``lead``: the first ``lead`` axes index instances (a MoE's (expert,
+    group) instances), each stashed with its own amax and scale (shape
+    ``x.shape[:lead]``), as the reference's stash under ``jax.vmap``."""
     if not policy.quantized:
         return (x, None, None)
-    amax = amax_of(x)
+    amax = lead_amax(x, lead)
     if scale is None:
         scale = compute_scale(amax, policy.quant_policy.qmax)
-    qt = quant.quantize(x, policy.quant_policy, scale=scale)
+    qt = quant.quantize(x, policy.quant_policy, scale=scale, lead=lead)
     return (qt.q, qt.scale, amax)
 
 
-def unstash(res: tuple, policy: StashPolicy, dtype=None) -> torch.Tensor:
+def unstash(res: tuple, policy: StashPolicy, dtype=None,
+            lead: int = 0) -> torch.Tensor:
     """Reconstruct the activation from a :func:`stash` residual
     (dequantized to ``dtype``, f32 by default, under ``quantized``)."""
     payload, scale, _ = res
     if not policy.quantized:
         return payload
-    return quant.dequantize(quant.QTensor(q=payload, scale=scale),
+    return quant.dequantize(quant.QTensor(q=payload, scale=scale,
+                                          lead=lead),
                             dtype or torch.float32)
 
 
-def stashed_amax(res: tuple, x_hat: torch.Tensor) -> torch.Tensor:
+def stashed_amax(res: tuple, x_hat: torch.Tensor,
+                 lead: int = 0) -> torch.Tensor:
     """The amax for history updates: the exact forward amax when
-    stashed, else the amax of the reconstructed activation."""
+    stashed, else the amax of the reconstructed activation (one per
+    instance of its ``lead`` axes)."""
     amax = res[2]
-    return amax if amax is not None else amax_of(x_hat)
+    return amax if amax is not None else lead_amax(x_hat, lead)

@@ -457,16 +457,21 @@ def moe_combine(ye: torch.Tensor, slot_tok: torch.Tensor,
                 slot_gate: torch.Tensor, tokens_per_group: int
                 ) -> torch.Tensor:
     """``y[G, Ts, D]``: every slot's expert output ``ye[G, E, C, D]``
-    times its gate, summed into its token (a scatter-add in ye's dtype,
-    in slot order: expert-major, then slot)."""
+    times its gate, summed into its token (a scatter-add in ye's dtype;
+    on the CPU in slot order: expert-major, then slot).  On the card the
+    sum is ``index_put_``'s accumulate, which sorts the indices first and
+    so adds a token's slots in one order every run; ``index_add_`` there
+    adds them with atomics, in whatever order they land."""
     G, E, C, D = ye.shape
     weighted = ye * slot_gate[..., None].to(ye.dtype)
     base = torch.arange(G, device=ye.device)[:, None, None] * tokens_per_group
     idx = (slot_tok + base).reshape(-1)
     y = torch.zeros((G * tokens_per_group, D), dtype=ye.dtype,
                     device=ye.device)
-    return y.index_add(0, idx, weighted.reshape(-1, D)).reshape(
-        G, tokens_per_group, D)
+    src = weighted.reshape(-1, D)
+    y = (y.index_put((idx,), src, accumulate=True) if y.is_cuda
+         else y.index_add(0, idx, src))
+    return y.reshape(G, tokens_per_group, D)
 
 
 class MoE(nn.Module):
@@ -483,9 +488,11 @@ class MoE(nn.Module):
 
     Experts: with a TNN config targeting ``"mlp"``, ``gate``/``up``/
     ``down`` are expert-stacked :class:`TensorizedLinear` layers (cores
-    ``[E, ...]``, one factorization), fed ``[E, G * C, D]``: the groups
-    fold into the tokens an expert holds, so each plan op launches one
-    batched kernel for all experts.  Otherwise they are stacked dense
+    ``[E, ...]``, one factorization), fed ``[E, G, C, D]``: unquantized,
+    the groups fold into the tokens an expert holds; quantized, each
+    (expert, group) instance keeps its own scales, as the reference's
+    vmap over the groups does; either way each plan op launches one
+    batched kernel for all of them.  Otherwise they are stacked dense
     matrices ``w[E, d_in, d_out]``, products of compute-dtype operands
     summed in f32 (the reference's ``einsum_f32``).
     """
@@ -544,13 +551,11 @@ class MoE(nn.Module):
         cd = self.compute_dtype
         ex = self.experts
         if self.tnn_on:
-            G, E, C, D = xe.shape
-            xf = xe.to(cd).transpose(0, 1).reshape(E, G * C, D)
+            xf = xe.to(cd).transpose(0, 1)                   # [E, G, C, D]
             g = ex["gate"](xf)
             u = ex["up"](xf)
             h = torch.nn.functional.silu(g.float()).to(cd) * u.to(cd)
-            ye = ex["down"](h)
-            return ye.reshape(E, G, C, -1).transpose(0, 1)
+            return ex["down"](h).transpose(0, 1)
 
         def mm(spec, a, w):
             return torch.einsum(spec, a.to(cd).float(), w.to(cd).float())

@@ -6,7 +6,7 @@
 
 from repro_torch.precision.policy import (
     ALIASES, AMAX_KEY, DTYPES, QuantPolicy, amax_of, compute_scale,
-    scale_from_history, tile_amax, update_history,
+    lead_amax, scale_from_history, tile_amax, update_history,
 )
 from repro_torch.precision.quant import (
     QTensor, dequantize, expand_row_scales, quantize, quantize_nodes,
@@ -16,6 +16,7 @@ from repro_torch.precision.quant import (
 __all__ = [
     "ALIASES", "AMAX_KEY", "DTYPES", "QTensor", "QuantPolicy",
     "amax_of", "compute_scale", "dequantize", "expand_row_scales",
+    "lead_amax",
     "quantize", "quantize_nodes", "requantize_per_tensor",
     "scale_from_history", "tile_amax", "update_history",
 ]

@@ -148,6 +148,16 @@ def amax_of(x: torch.Tensor) -> torch.Tensor:
     return x.float().abs().amax()
 
 
+def lead_amax(x: torch.Tensor, lead: int) -> torch.Tensor:
+    """amax per index of the ``lead`` leading axes (one per instance of
+    a batched tensor) -> shape ``x.shape[:lead]``; ``lead=0`` is
+    :func:`amax_of`.  A max is exact, so each entry equals the amax of
+    its instance taken alone."""
+    if lead == 0:
+        return amax_of(x)
+    return x.float().abs().amax(dim=tuple(range(lead, x.dim())))
+
+
 def tile_amax(x: torch.Tensor, tile_rows: int) -> torch.Tensor:
     """amax per group of ``tile_rows`` leading-axis rows -> shape ``[G]``.
     A leading dim that does not divide into whole groups collapses to one

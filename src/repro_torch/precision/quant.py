@@ -12,7 +12,11 @@ not through :func:`quantize`.
 
 A :class:`QTensor` is storage dtype + scale: ``x ≈ q.float() * scale``
 with ``scale`` an f32 scalar (per tensor) or a ``[G]`` vector of
-leading-axis row-group scales (``granularity="tile"``).  Contracted axes
+leading-axis row-group scales (``granularity="tile"``).  A batched tensor
+(``lead`` leading instance axes, e.g. ``[E, G, ...]`` for the (expert,
+group) instances of a MoE's expert layers) carries one per-tensor scale
+per instance, ``scale`` of shape ``q.shape[:lead]``: the reference's
+per-tensor scale under ``jax.vmap``.  Contracted axes
 never carry varying scales, which is what lets the GEMM kernels apply
 scales as an output epilogue.  fp8 and int8 tensors take no arithmetic in
 torch (no fp8 ``abs``/``matmul`` on the CPU): every op here upcasts to
@@ -27,7 +31,7 @@ import torch
 
 from repro_torch import telemetry as tm
 from repro_torch.precision.policy import (
-    QuantPolicy, amax_of, compute_scale, tile_amax,
+    QuantPolicy, amax_of, compute_scale, lead_amax, tile_amax,
 )
 
 
@@ -63,10 +67,12 @@ class QTensor:
 
     q: torch.Tensor              # policy.operand_dtype, original shape
     scale: torch.Tensor          # f32 scalar, or [G] leading-axis groups
+    lead: int = 0                # instance axes; scale is q.shape[:lead]
 
     @property
     def per_tensor(self) -> bool:
-        return self.scale.dim() == 0
+        """One scale per tensor (per instance when batched)."""
+        return self.scale.dim() == self.lead
 
     def row_scales(self) -> torch.Tensor:
         """Scale per leading-axis row, shape ``[rows, 1]`` (f32)."""
@@ -74,9 +80,13 @@ class QTensor:
                                  self.q.shape[0] if self.q.dim() else 1)
 
 
-def _expand(scale: torch.Tensor, shape) -> torch.Tensor:
-    """Broadcast a scale against a tensor: a scalar as is; a ``[G]``
-    group vector repeated over its leading-axis row groups."""
+def _expand(scale: torch.Tensor, shape, lead: int = 0) -> torch.Tensor:
+    """Broadcast a scale against a tensor: a scalar as is; per-instance
+    scales (``lead`` axes) over each instance's elements; a ``[G]`` group
+    vector repeated over its leading-axis row groups."""
+    if lead:
+        return scale.reshape(tuple(scale.shape)
+                             + (1,) * (len(shape) - lead))
     if scale.dim() == 0:
         return scale
     reps = shape[0] // scale.shape[0]
@@ -84,12 +94,12 @@ def _expand(scale: torch.Tensor, shape) -> torch.Tensor:
         (shape[0],) + (1,) * (len(shape) - 1))
 
 
-def _cast(x: torch.Tensor, scale: torch.Tensor,
-          policy: QuantPolicy) -> torch.Tensor:
+def _cast(x: torch.Tensor, scale: torch.Tensor, policy: QuantPolicy,
+          lead: int = 0) -> torch.Tensor:
     """Scale, saturate to the representable range, cast.  int8 rounds
     half to even (``torch.round``, as ``jnp.round``); fp8 rounding is the
     cast itself (nearest even)."""
-    y = x.float() / _expand(scale, x.shape)
+    y = x.float() / _expand(scale, x.shape, lead)
     y = torch.clamp(y, -policy.qmax, policy.qmax)
     if policy.dtype == "int8":
         y = torch.round(y)
@@ -97,13 +107,21 @@ def _cast(x: torch.Tensor, scale: torch.Tensor,
 
 
 def quantize(x: torch.Tensor, policy: QuantPolicy,
-             scale: torch.Tensor | None = None) -> QTensor:
+             scale: torch.Tensor | None = None, lead: int = 0) -> QTensor:
     """Quantize per ``policy``; ``scale`` overrides the just-in-time
-    amax-derived scale (delayed scaling)."""
+    amax-derived scale (delayed scaling).  ``lead``: the first ``lead``
+    axes index instances, each quantized per tensor on its own (scale
+    of shape ``x.shape[:lead]``); tile scales take no instance axes."""
     if not policy.quantized:
         raise ValueError("quantize() called with a bf16 (no-op) policy")
+    if lead and policy.granularity == "tile":
+        raise NotImplementedError(
+            "tile-granular scales with an instance axis are not ported "
+            "(ROADMAP.md, queue A item 15)")
     if scale is None:
-        if policy.granularity == "tile" and x.dim() >= 1:
+        if lead:
+            amax = lead_amax(x, lead)
+        elif policy.granularity == "tile" and x.dim() >= 1:
             amax = tile_amax(x, policy.tile_rows)
         else:
             amax = amax_of(x)
@@ -111,12 +129,12 @@ def quantize(x: torch.Tensor, policy: QuantPolicy,
     else:
         scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
         _observe_saturation(x, scale, policy)
-    return QTensor(q=_cast(x, scale, policy), scale=scale)
+    return QTensor(q=_cast(x, scale, policy, lead), scale=scale, lead=lead)
 
 
 def dequantize(t: QTensor, dtype=torch.float32) -> torch.Tensor:
     """``q * scale`` back to a real dtype (f32 by default)."""
-    return (t.q.float() * _expand(t.scale, t.q.shape)).to(dtype)
+    return (t.q.float() * _expand(t.scale, t.q.shape, t.lead)).to(dtype)
 
 
 def requantize_per_tensor(t: QTensor, policy: QuantPolicy) -> QTensor:

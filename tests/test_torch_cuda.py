@@ -1447,3 +1447,165 @@ def test_cuda_seamless_step_and_decode_match_the_cpu(cuda_device):
     for got, want in ((p1, p0), (d1, d0)):
         torch.testing.assert_close(got, want, rtol=0,
                                    atol=1e-5 * float(want.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# The instance-batched scaled kernels (quantized MoE experts)
+# ---------------------------------------------------------------------------
+
+
+def _instances(device, dtype, e, g, m, k, n, trans, seed):
+    """fp8/int8 operands of an (expert, group) instance batch: X per
+    instance, W per expert broadcast over the groups (stride 0), one
+    scale per instance (X's) and per expert (W's, broadcast)."""
+    pol = QuantPolicy.parse(dtype)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(e, g, m, k, generator=gen, device=device) * 3
+    w = torch.randn((e,) + ((n, k) if trans else (k, n)), generator=gen,
+                    device=device)
+    qx = quant.quantize(x, pol, lead=2)
+    qw = quant.quantize(w, pol, lead=1)
+    return (qx, qw.q.unsqueeze(1).expand(e, g, *qw.q.shape[1:]),
+            qw.scale.unsqueeze(1).expand(e, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", QUANT)
+@pytest.mark.parametrize("m,n,k,trans", [
+    (24, 8, 32, False),            # olmoe's instance rows, short K
+    (24, 32, 2048, True),          # a long K: split-K with the batch
+    (8, 128, 8, False),            # the WG side of an instance
+])
+def test_cuda_batched_scaled_gemm_matches_plain_version(cuda_device, dtype,
+                                                        m, n, k, trans):
+    """One launch for 4 experts x 3 groups, the cores read through a
+    stride-0 group axis: each instance within 1e-5 of its own scale
+    (exact f32 products summed in another order)."""
+    qx, wb, sr = _instances(cuda_device, dtype, 4, 3, m, k, n, trans,
+                            m + n + k)
+    before = dict(fc.LAUNCHES)
+    got = fc.matmul_cuda(qx.q, wb, transpose_rhs=trans,
+                         scales=(qx.scale, sr))
+    want = ref.matmul_scaled(qx.q, wb, qx.scale, sr, transpose_rhs=trans)
+    torch.cuda.synchronize()
+    assert fc.LAUNCHES["matmul_scaled_batched"] == (
+        before["matmul_scaled_batched"] + 1)
+    assert fc.LAUNCHES["matmul_scaled"] == before["matmul_scaled"]
+    split = fc.gemm_config_for(qx.q, wb, trans).splits > 1
+    assert fc.LAUNCHES["matmul_scaled_batched_reduce"] == (
+        before["matmul_scaled_batched_reduce"] + split)
+    for e in range(4):
+        for g in range(3):
+            w_ = want[e, g]
+            assert _max_err(got[e, g], w_) <= 1e-5 * float(w_.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", QUANT)
+def test_cuda_batched_scaled_chain_matches_plain_version(cuda_device, dtype):
+    """The scaled chain over 4 x 3 instances, one folded scalar factor a
+    link per instance: each instance held to ``chain_scaled_agreement``;
+    and a 3-D (expert-level) batch with ``[E]`` factors."""
+    pol = QuantPolicy.parse(dtype)
+    qx, w0, s0 = _instances(cuda_device, dtype, 4, 3, 384, 64, 8, False, 7)
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    w1 = quant.quantize(torch.randn(4, 64, 8, generator=gen,
+                                    device=cuda_device), pol, lead=1)
+    ws = [w0, w1.q.unsqueeze(1).expand(4, 3, 64, 8)]
+    scales = (qx.scale * s0, w1.scale.unsqueeze(1).expand(4, 3))
+    before = fc.LAUNCHES["chain_n_scaled_batched"]
+    got = fc.chain_n_cuda(qx.q, ws, scales=scales)
+    want = ref.chain_n_scaled(qx.q, ws, scales)
+    flat = fc.chain_n_cuda(qx.q[:, 0].contiguous(), [w[:, 0] for w in ws],
+                           scales=tuple(s_[:, 0] for s_ in scales))
+    torch.cuda.synchronize()
+    assert fc.LAUNCHES["chain_n_scaled_batched"] == before + 2
+    for e in range(4):
+        for g in range(3):
+            good, nums = ref.chain_scaled_agreement(got[e, g], want[e, g])
+            assert good, (e, g, nums)
+        good, nums = ref.chain_scaled_agreement(flat[e], want[e, 0])
+        assert good, (e, nums)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_combine_is_deterministic(cuda_device):
+    """olmoe's combine (8 groups x 64 experts x 24 slots into 128 tokens
+    a group, top-8, the empty slots on token 0) gives the same bits on
+    every call, and the CPU's sums within 1e-6 of the scale."""
+    from repro_torch.models.blocks import moe_combine
+    gen = torch.Generator().manual_seed(5)
+    ye = torch.randn(8, 64, 24, 2048, generator=gen)
+    slot_tok = torch.randint(0, 128, (8, 64, 24), generator=gen)
+    slot_gate = torch.rand(8, 64, 24, generator=gen)
+    slot_gate[:, :, 16:] = 0.0
+    slot_tok[:, :, 16:] = 0
+    want = moe_combine(ye, slot_tok, slot_gate, 128)
+    args = [t.to(cuda_device) for t in (ye, slot_tok, slot_gate)]
+    first = moe_combine(*args, 128)
+    for _ in range(3):
+        assert torch.equal(_bits(moe_combine(*args, 128)), _bits(first))
+    assert _max_err(first.cpu(), want) <= 1e-6 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", QUANT)
+def test_cuda_batched_scaled_chain_long_link_matches_unbatched(cuda_device,
+                                                               dtype):
+    """olmoe's rank-8 WG chain (m0 1024, links 2048x8 and 256x8, an
+    instance's output 32 x 8) over 2 x 2 instances: the batched launch
+    equals the unbatched ``chain_tc_kernel`` on each instance bit for bit
+    (the batch indexing changes no sum), and holds
+    ``ref.chain_readback_agreement``."""
+    pol = QuantPolicy.parse(dtype)
+    qx, w0, s0 = _instances(cuda_device, dtype, 2, 2, 1024, 2048, 8, False,
+                            11)
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    w1 = quant.quantize(torch.randn(2, 256, 8, generator=gen,
+                                    device=cuda_device), pol, lead=1)
+    ws = [w0, w1.q.unsqueeze(1).expand(2, 2, 256, 8)]
+    scales = (qx.scale * s0, w1.scale.unsqueeze(1).expand(2, 2))
+    got = fc.chain_n_cuda(qx.q, ws, scales=scales)
+    for e in range(2):
+        for g in range(2):
+            one = fc.chain_n_cuda(
+                qx.q[e, g], [w[e, g] for w in ws],
+                scales=(scales[0][e, g].expand(1024, 1).contiguous(),
+                        scales[1][e, g].expand(1, 8).contiguous()))
+            assert torch.equal(_bits(one), _bits(got[e, g])), (e, g)
+    good, nums = ref.chain_readback_agreement(fc.chain_n_cuda, qx.q, ws,
+                                              scales)
+    assert good, nums
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", QUANT)
+@pytest.mark.parametrize("numel", [24 * 64, 40_000])
+def test_cuda_batched_requantize_is_bit_exact(cuda_device, dtype, numel):
+    """One amax and scale per instance in one launch (two above 32,768
+    elements an instance), a permuted result walked in place; and the
+    per-row quantize / dequantize on the ``[I, -1]`` view, per-instance
+    scales: payloads and scales bit for bit the plain versions'."""
+    pol = QuantPolicy.parse(dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(numel)
+    x = torch.randn(4, 3, numel // 8, 8, generator=gen,
+                    device=cuda_device) * torch.linspace(
+                        0.1, 9, 12, device=cuda_device).reshape(4, 3, 1, 1)
+    for xin in (x, x.permute(0, 1, 3, 2), x.bfloat16()):
+        before = dict(fc.LAUNCHES)
+        q, s = qk.requantize_cuda(xin, pol, 2)
+        wq, ws = ref.requantize(xin, pol, 2)
+        assert torch.equal(_bits(q), _bits(wq)) and torch.equal(
+            _bits(s), _bits(ws))
+        assert q.stride() == xin.stride()
+        assert fc.LAUNCHES["requantize_batched"] == (
+            before["requantize_batched"] + 1)
+        assert fc.LAUNCHES["requantize_batched_amax"] == (
+            before["requantize_batched_amax"] + (numel > 32768))
+        rows = qk.quantize_cuda(x.reshape(12, -1), s.reshape(12, 1), pol)
+        assert torch.equal(_bits(rows), _bits(
+            ref.quantize(x, s, pol, lead=2)))
+        for out in (torch.float32, torch.bfloat16):
+            d = qk.dequantize_cuda(rows, s.reshape(12, 1), out)
+            assert torch.equal(_bits(d), _bits(ref.dequantize(
+                rows.reshape(x.shape), s, out, lead=2)))

@@ -484,7 +484,16 @@ def test_quantized_layer_matches_reference(dtype):
 def test_config_path_builds_a_quantized_layer():
     """``make_tensorized_linear`` from a quantized ``TNNConfig`` carries
     the history and computes the reference's fp8 layer, not its bf16
-    one; without the history it runs with just-in-time scales."""
+    one; without the history it runs with just-in-time scales.
+
+    The layer's cores come from torch's global generator, so its data
+    depend on what ran before in the process.  fp8 execution is chaotic
+    at f32 roundoff (for some draws one requantize rounding flips
+    between the packages and moves the output by a quantization step),
+    so the output is held to ``train_fp8_parity``'s rule: within three
+    times the envelope the reference opens between its cores (or its
+    input) scaled by ``1 ± 2**-22`` / ``1 ± 2**-21`` and unscaled, plus
+    1e-5 of the scale."""
     pol = prec.QuantPolicy.parse("fp8")
     tnn = tensorized.TNNConfig(enabled=True, rank=4, num_factors=2,
                                precision=pol)
@@ -507,12 +516,22 @@ def test_config_path_builds_a_quantized_layer():
     bf16 = np.asarray(jl0({"cores": jp["cores"]}, jnp.asarray(x)))
     got = layer(torch.from_numpy(x)).detach().numpy()
     scale = np.abs(want).max()
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale)
+
+    def nudged(c_scale, x_scale):
+        p = {"cores": tuple(jnp.asarray(c * np.float32(c_scale))
+                            for c in cores),
+             "quant_amax": jp["quant_amax"]}
+        return np.asarray(jl(p, jnp.asarray(x * np.float32(x_scale))))
+
+    envelope = max(np.abs(run - want).max() for n in (
+        2.0 ** -22, -2.0 ** -22, 2.0 ** -21, -2.0 ** -21)
+        for run in (nudged(1 + n, 1.0), nudged(1.0, 1 + n)))
+    tol = 3 * envelope + 1e-5 * scale
+    assert np.abs(got - want).max() <= tol, (np.abs(got - want).max(), tol)
     assert np.abs(got - bf16).max() > 1e-3 * scale
     del layer.quant_amax                    # no history: just in time
     y = layer(torch.from_numpy(x))
-    np.testing.assert_allclose(y.detach().numpy(), want, rtol=0,
-                               atol=1e-5 * scale)
+    assert np.abs(y.detach().numpy() - want).max() <= tol
     (y ** 2).sum().backward()
     assert all(c.grad is not None for c in layer.cores)
 
